@@ -1,0 +1,35 @@
+"""lab_1806_vec_db_tpu_torch — the PyTorch/CUDA port of `lab_1806_vec_db_tpu`.
+
+The JAX package is the reference; this package runs the same engine on an
+NVIDIA Hopper GPU.  Plain tensor code is PyTorch; every TPU Pallas kernel on
+a ported path is a hand-written CUDA kernel under `csrc/`, built with `nvcc`
+at first use (`ops/_build.py`).
+
+Ported so far: the batched Flat search path, `VecDB.batch_search` ->
+`MetadataVecTable` -> `DynamicIndex` -> `FlatIndex._knn_device`, over
+float32 tables, with kernels K1 (`ops/scan.py`, the packed int8 chunk-min
+scan) and K2 (`ops/gather.py`, the exact rerank gather).  HNSW, PQ and uint8
+tables raise `NotImplementedError`.
+"""
+
+import torch
+
+# True f32 products, the counterpart of the JAX package's Precision.HIGHEST
+# default (lab_1806_vec_db_tpu/ops/distance.py): the exact scan and the plain
+# K1 version rely on exact f32 matrix products.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+__all__ = ["VecDB", "calc_dist", "__version__"]
+
+
+def __getattr__(name):
+    # Lazy import: keep `import lab_1806_vec_db_tpu_torch.ops` cheap for
+    # kernel-only users while exposing the API at the top level.
+    if name in ("VecDB", "calc_dist"):
+        from .db import api
+
+        return getattr(api, name)
+    raise AttributeError(name)

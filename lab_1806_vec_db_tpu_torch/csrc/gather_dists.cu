@@ -1,0 +1,110 @@
+// K2: row-gather + exact distance for the rerank, for Hopper (sm_90a).
+//
+// Replaces lab_1806_vec_db_tpu/ops/pallas_gather.py:gather_dists_rs
+// (Pallas body _gather_dist_kernel_mq) and its wide-r fallback
+// gather_dists_rs_1q (_gather_dist_kernel): one kernel covers both.
+//
+// What it computes, for queries q (B, dim) f32, base rows (n_rows, dim) f32
+// and candidate ids (B, r) int32:
+//
+//   out[b, j] = sum_k (base[id, k] - q[b, k])^2                    (l2sqr)
+//             = 1 - dot / max(|base[id]| * |q[b]|, 1e-10)           (cosine)
+//             = +inf when id < 0 or id >= n_rows
+//
+// What bounds it on the H100: memory.  Each candidate costs one row read
+// (3,840 bytes at dim 960) and ~2 flops per byte, so the kernel is a gather
+// at HBM bandwidth.  The TPU needed a (N*SR, 128) row-slab copy so that each
+// row was one aligned DMA; here the rows are read in place from the store's
+// f32 (cap, dim) tensor: a warp reads one candidate row with coalesced
+// 16-byte float4 loads (960 * 4 bytes is a multiple of 16), so no second copy
+// of the base exists.  One CTA per query keeps that query's row hot in L1
+// for all its candidates; the eight warps of the CTA take candidates in
+// turn, and a shuffle reduction finishes each distance.
+//
+// flags: bit 0 = cosine, bit 1 = float4 path allowed (dim % 4 == 0 and both
+// row arrays 16-byte aligned; the wrapper checks).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int WARPS = 8;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+gather_dists_kernel(const float* __restrict__ q, const float* __restrict__ base,
+                    const int32_t* __restrict__ ids, float* __restrict__ out, int r, int dim,
+                    long long n_rows, int flags) {
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool cosine = flags & 1;
+  const int dim4 = (flags & 2) ? dim >> 2 : 0;
+  const float* qb = q + static_cast<size_t>(b) * dim;
+  const float4* qb4 = reinterpret_cast<const float4*>(qb);
+
+  float qn = 0.f;
+  if (cosine) {
+    float qq = 0.f;
+    for (int i = lane; i < dim4; i += 32) {
+      const float4 c = qb4[i];
+      qq += c.x * c.x + c.y * c.y + c.z * c.z + c.w * c.w;
+    }
+    for (int i = dim4 * 4 + lane; i < dim; i += 32) qq += qb[i] * qb[i];
+    qn = sqrtf(warp_sum(qq));
+  }
+
+  for (int j = warp; j < r; j += WARPS) {
+    const int id = ids[static_cast<size_t>(b) * r + j];
+    float res = INFINITY;
+    if (id >= 0 && id < n_rows) {
+      const float* v = base + static_cast<size_t>(id) * dim;
+      const float4* v4 = reinterpret_cast<const float4*>(v);
+      float acc = 0.f, vv = 0.f;
+      if (!cosine) {
+        for (int i = lane; i < dim4; i += 32) {
+          const float4 a = v4[i], c = qb4[i];
+          const float dx = a.x - c.x, dy = a.y - c.y, dz = a.z - c.z, dw = a.w - c.w;
+          acc += dx * dx + dy * dy + dz * dz + dw * dw;
+        }
+        for (int i = dim4 * 4 + lane; i < dim; i += 32) {
+          const float dx = v[i] - qb[i];
+          acc += dx * dx;
+        }
+        res = warp_sum(acc);
+      } else {
+        for (int i = lane; i < dim4; i += 32) {
+          const float4 a = v4[i], c = qb4[i];
+          acc += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
+          vv += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+        }
+        for (int i = dim4 * 4 + lane; i < dim; i += 32) {
+          acc += v[i] * qb[i];
+          vv += v[i] * v[i];
+        }
+        const float dot = warp_sum(acc);
+        const float vn = sqrtf(warp_sum(vv));
+        res = 1.f - dot / fmaxf(vn * qn, 1e-10f);
+      }
+    }
+    if (lane == 0) out[static_cast<size_t>(b) * r + j] = res;
+  }
+}
+
+}  // namespace
+
+extern "C" int vecdb_gather_dists(const void* q, const void* base, const void* ids, void* out,
+                                  int B, int r, int dim, long long n_rows, int flags,
+                                  void* stream) {
+  if (B <= 0 || r <= 0) return 0;
+  gather_dists_kernel<<<B, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(base),
+      static_cast<const int32_t*>(ids), static_cast<float*>(out), r, dim, n_rows, flags);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,166 @@
+"""Flat (brute-force) index (port of models/flat.py).
+
+The planner is the reference's:
+- the exact f32 scan (`topk.knn_scan`) at n <= 65,536 rows, or when the
+  int8 ordering self-test fails;
+- otherwise two stages: K1, the packed int8 chunk-min scan over the permuted
+  mirror, then an exact top-r over its survivors, `decode_perm`, and K2, the
+  exact rerank gather, with a top-k.
+
+On a CUDA store both stages launch the hand-written kernels; on a CPU store
+they run the kernels' plain PyTorch versions, the same algorithm (the JAX
+package's CPU path is a different, bf16 XLA scan).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .store import VecStore
+from ..ops import gather as G
+from ..ops import scan as S
+from ..ops import topk as T
+from ..utils import serde
+from ..utils.candidates import CandidatePair, pairs_from_arrays
+
+# Below this row count the planner takes the single-pass exact f32 scan:
+# K1 keeps one survivor per 128 mirror rows, so at small n the candidate
+# pool caps at n/128 whatever the rerank depth.
+_EXACT_BELOW = 65536
+# stage-1 candidates per requested neighbor (floor 32), growing with
+# log2(n / 1M) past 1.5M rows
+_RERANK_MULT = 4
+
+_PQ_TODO = "PQ search is not ported yet (ROADMAP.md queue 1, item 8: PQ)"
+
+
+class FlatIndex:
+    algorithm = "Flat"
+
+    def __init__(self, dim: int, dist: str, capacity: int = 0, device="cuda"):
+        self.store = VecStore(dim, dist, capacity, device=device)
+
+    # ---- construction ----
+    @classmethod
+    def from_numpy(cls, vectors: np.ndarray, dist: str, device="cuda") -> "FlatIndex":
+        idx = cls(vectors.shape[1], dist, capacity=len(vectors), device=device)
+        if len(vectors):
+            idx.store.batch_push(vectors)
+        return idx
+
+    @classmethod
+    def from_store(cls, store: VecStore) -> "FlatIndex":
+        idx = cls.__new__(cls)
+        idx.store = store
+        return idx
+
+    @property
+    def dim(self) -> int:
+        return self.store.dim
+
+    @property
+    def dist(self) -> str:
+        return self.store.dist
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.torch_device
+
+    def __len__(self) -> int:
+        return len(self.store)
+
+    def index_bytes(self) -> int:
+        """Device-memory footprint of this index (the store's tensors; Flat
+        has no topology)."""
+        return self.store.device_bytes()
+
+    def add(self, vec) -> int:
+        return self.store.push(vec)
+
+    def batch_add(self, vecs) -> list[int]:
+        return self.store.batch_push(vecs)
+
+    # ---- search ----
+    def knn_batch(self, queries, k: int, exact: bool | None = None):
+        """Batched kNN -> ((B, k) f32 dists, (B, k) int32 ids) as numpy,
+        -1 padded.  Returned distances are exact f32 on both paths;
+        `exact=True` forces the single-pass exact scan (ground truth)."""
+        d, i = self._knn_device(queries, k, exact)
+        return d.cpu().numpy(), i.cpu().numpy()
+
+    def rerank_depth(self, k: int, rerank_depth: int | None = None) -> int:
+        """Stage-1 survivor count r of the two-stage plan."""
+        n = len(self.store)
+        mult = _RERANK_MULT
+        if n > 1_500_000:  # log2 depth growth past ~1M rows
+            mult = _RERANK_MULT * max(1, int(np.log2(n / 1_000_000)) + 1)
+        if rerank_depth is not None:
+            return min(max(rerank_depth, k, 32), n)
+        return min(max(mult * k, 32), n)
+
+    def _queries(self, queries) -> torch.Tensor:
+        if isinstance(queries, torch.Tensor):
+            return torch.atleast_2d(queries).to(self.device, torch.float32)
+        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        return torch.from_numpy(q).to(self.device)
+
+    def _knn_device(self, queries, k: int, exact: bool | None = None,
+                    rerank_depth: int | None = None):
+        """Device-resident kNN: ((B, k) f32, (B, k) int32) tensors on the
+        store's device, no host sync on the two-stage path.  Accepts numpy
+        or an already-uploaded (B, dim) tensor.  `rerank_depth` overrides
+        the stage-1 survivor count."""
+        q = self._queries(queries)
+        n = len(self.store)
+        if exact is None:
+            exact = n <= _EXACT_BELOW or not self.store.int8_reliable()
+        if exact:
+            vecs, cache = self.store.device()
+            return T.knn_scan(q, vecs, cache, n, k, self.dist)
+        r = self.rerank_depth(k, rerank_depth)
+        base_i8, scales, cache8, perm = self.store.device_int8()
+        # validity lives IN the permuted mirror (sentinels), not in a bound
+        _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
+        cand = T.decode_perm(cand, perm, n)
+        return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
+
+    def knn(self, query, k: int) -> list[CandidatePair]:
+        """Single-query search through the exact scan on the store's device
+        (the reference serves it with its native exact scan, so the answer
+        stays exact here too)."""
+        d, i = self._knn_device(query, k, exact=True)
+        return pairs_from_arrays(d[0].cpu().numpy(), i[0].cpu().numpy(), k)
+
+    def knn_with_ef(self, query, k: int, ef: int) -> list[CandidatePair]:
+        """Flat search ignores ef."""
+        return self.knn(query, k)
+
+    def knn_pq_batch(self, queries, k: int, ef: int, pq):
+        raise NotImplementedError(_PQ_TODO)
+
+    def knn_pq(self, query, k: int, ef: int, pq) -> list[CandidatePair]:
+        raise NotImplementedError(_PQ_TODO)
+
+    # ---- serde (the JAX package's checkpoint format) ----
+    def state(self, include_vectors: bool = True) -> tuple[dict, dict]:
+        arrays = self.store.state_arrays(include_vectors)
+        meta = {"algorithm": "Flat", "dim": self.dim, "dist": self.dist, "n": len(self.store)}
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, arrays: dict, meta: dict, external_vectors: np.ndarray | None = None,
+                   device="cuda"):
+        vecs = arrays.get("vectors", external_vectors)
+        if vecs is None:
+            raise ValueError("FlatIndex state has no vectors and none were provided")
+        return cls.from_numpy(np.asarray(vecs), meta["dist"], device=device)
+
+    def save(self, path, include_vectors: bool = True) -> None:
+        arrays, meta = self.state(include_vectors)
+        serde.save_arrays(path, arrays, meta)
+
+    @classmethod
+    def load(cls, path, external_vectors: np.ndarray | None = None, device="cuda") -> "FlatIndex":
+        arrays, meta = serde.load_arrays(path)
+        return cls.from_state(arrays, meta, external_vectors, device=device)

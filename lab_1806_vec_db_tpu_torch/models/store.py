@@ -1,0 +1,354 @@
+"""Padded device-resident vector storage (port of models/store.py, full tier).
+
+- canonical storage is a host numpy array with geometric capacity growth
+  (push / batch_push / swap_remove, the `_round_cap` ladder);
+- the device view is a fixed-capacity (cap, dim) f32 tensor plus its
+  per-row distance cache, refreshed incrementally: a small write is applied
+  as in-place `index_copy_` row writes instead of a re-upload;
+- the scan-PERMUTED int8 mirror (`device_int8`) feeds K1, with +BIG
+  sentinels on invalid rows;
+- the rerank rows (`device_rerank`) ARE the f32 device tensor: K2 reads
+  rows in place, so the reference's second (cap*SR, 128) slab copy is gone.
+
+The lean tier, the PCA projection and the bf16 traversal copy are not
+ported yet (ROADMAP queue 1, items 10, 13 and 5).
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+
+import numpy as np
+import torch
+
+from ..ops import distance as D
+from ..ops import topk as T
+from ..ops.scan import _BIG
+from ..utils.device import resolve
+
+_MIN_CAP = 8
+# rows per block of the on-device mirror build (bounds the f32 gather and
+# quantization transients to one block)
+_BLOCK_ROWS = 65536
+
+
+def _round_cap(n: int) -> int:
+    cap = _MIN_CAP
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def _mirror_rows(v: torch.Tensor, cache: torch.Tensor, dim_pad: int, dist: str):
+    """Quantize f32 rows for the int8 mirror -> (q8 (rows, dim_pad), scale,
+    cache) in the unified channel convention (cosine: scale s/|x|, cache 0).
+    Zero columns past dim are dot-transparent and leave scales unchanged."""
+    q8v, scv = T.quantize_rows_int8(v)
+    if dim_pad != q8v.shape[1]:
+        q8v = torch.nn.functional.pad(q8v, (0, dim_pad - q8v.shape[1]))
+    if dist == "cosine":
+        return q8v, scv / cache.clamp_min(1e-20), torch.zeros_like(cache)
+    return q8v, scv, cache
+
+
+class VecStore:
+    def __init__(self, dim: int, dist: str, capacity: int = 0, dtype=np.float32,
+                 device="cuda"):
+        D.check_dist(dist)
+        self.torch_device = resolve(device)
+        self.dim = int(dim)
+        self.dist = dist
+        self.dtype = np.dtype(dtype)
+        self._n = 0
+        self._cap = _round_cap(max(capacity, _MIN_CAP))
+        self._data: np.ndarray | None = np.zeros((self._cap, dim), dtype=self.dtype)
+        self._init_device_state()
+        self._dev_full_dirty = True
+
+    def _init_device_state(self) -> None:
+        self._dev: torch.Tensor | None = None
+        self._dev_cache: torch.Tensor | None = None
+        self._dev_int8: tuple | None = None  # (q8, scale, cache, perm)
+        self._scan_perm: np.ndarray | None = None  # fixed scan shuffle
+        self._scan_inv: np.ndarray | None = None
+        self._int8_ok: tuple[bool, int] | None = None  # (verdict, n at test)
+        # rows >= this bound read as INVALID in the int8 mirror
+        self._scan_bound: int | None = None
+        self._dirty_rows: set[int] = set()
+        # concurrent searches (readers of the table) share the store: the
+        # lazy device sync and mirror build run under this lock, once
+        self._lock = threading.RLock()
+
+    @classmethod
+    def from_device(cls, vecs: torch.Tensor, dist: str) -> "VecStore":
+        """Ingest an (n, dim) tensor already on its device as the canonical
+        data: no host round trip.  The host copy materializes lazily on
+        first host-side access (serde, mutation)."""
+        n, dim = vecs.shape
+        D.check_dist(dist)
+        store = cls.__new__(cls)
+        store.torch_device = resolve(vecs.device)
+        store.dim = int(dim)
+        store.dist = dist
+        store.dtype = np.dtype(np.float32)
+        store._n = int(n)
+        # static ingest: round capacity to a 16384 multiple (keeps every
+        # kernel tile whole) instead of the next power of two, which at
+        # n = 1e6 wastes 4.9% of every scan on zero rows
+        store._cap = -(-int(n) // 16384) * 16384 if n >= 65536 else _round_cap(max(n, _MIN_CAP))
+        store._data = None
+        store._init_device_state()
+        if store._cap == n:
+            dev = vecs.float().contiguous()
+        else:
+            dev = torch.zeros((store._cap, dim), dtype=torch.float32, device=store.torch_device)
+            dev[:n] = vecs
+        store._dev = dev
+        store._dev_cache = D.dist_cache(dev, dist)
+        store._dev_full_dirty = False
+        return store
+
+    @classmethod
+    def from_numpy(cls, vectors: np.ndarray, dist: str, dtype=None, device="cuda") -> "VecStore":
+        vectors = np.asarray(vectors)
+        dtype = dtype or vectors.dtype
+        store = cls(vectors.shape[1], dist, capacity=len(vectors), dtype=dtype, device=device)
+        if len(vectors):
+            store.batch_push(vectors)
+        return store
+
+    def device_bytes(self) -> int:
+        """Bytes of this store's live device tensors: the f32 rows (which
+        are also the rerank rows), the distance cache and the int8 mirror
+        with its channels and permutation."""
+        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ())]
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    def set_scan_bound(self, bound: int | None) -> None:
+        """Treat rows >= `bound` as INVALID in the int8 scan mirror.  Applied
+        at `device_int8` read time by re-masking the two (cap,) channel
+        vectors; the int8 rows never change."""
+        self._scan_bound = bound
+
+    def _host(self) -> np.ndarray:
+        """The (cap, dim) host array, materialized from the device tensor on
+        first access for device-born stores."""
+        if self._data is None:
+            host = np.zeros((self._cap, self.dim), dtype=self.dtype)
+            if self._n:
+                host[: self._n] = self._dev[: self._n].cpu().numpy().astype(self.dtype)
+            self._data = host
+        return self._data
+
+    # ---- host-side mutation ----
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def numpy(self) -> np.ndarray:
+        """Valid rows as a host array view (n, dim)."""
+        return self._host()[: self._n]
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        if not (0 <= i < self._n):
+            raise IndexError(i)
+        return self._host()[i]
+
+    def _grow_to(self, n: int) -> None:
+        if n <= self._cap:
+            return
+        new_cap = _round_cap(n)
+        new = np.zeros((new_cap, self.dim), dtype=self.dtype)
+        new[: self._n] = self._host()[: self._n]
+        self._data = new
+        self._cap = new_cap
+        self._dev = None
+        self._dev_cache = None
+        self._dev_full_dirty = True
+        self._dirty_rows.clear()
+
+    def push(self, vec) -> int:
+        vec = np.asarray(vec, dtype=self.dtype).reshape(-1)
+        if vec.shape[0] != self.dim:
+            raise ValueError(f"Dimension mismatch: {vec.shape[0]} != {self.dim}")
+        self._grow_to(self._n + 1)
+        idx = self._n
+        self._host()[idx] = vec
+        self._n += 1
+        self._mark_dirty(idx)
+        return idx
+
+    def batch_push(self, vecs) -> list[int]:
+        vecs = np.asarray(vecs, dtype=self.dtype)
+        if vecs.ndim != 2 or vecs.shape[1] != self.dim:
+            raise ValueError(f"Dimension mismatch: {vecs.shape} vs dim={self.dim}")
+        start = self._n
+        self._grow_to(self._n + len(vecs))
+        self._host()[start : start + len(vecs)] = vecs
+        self._n += len(vecs)
+        for i in range(start, self._n):
+            self._mark_dirty(i)
+        return list(range(start, self._n))
+
+    def swap_remove(self, i: int) -> None:
+        """Remove row i by moving the last row into it."""
+        if not (0 <= i < self._n):
+            raise IndexError(i)
+        last = self._n - 1
+        data = self._host()
+        if i != last:
+            data[i] = data[last]
+            self._mark_dirty(i)
+        data[last] = 0
+        self._mark_dirty(last)
+        self._n = last
+
+    def _mark_dirty(self, row: int) -> None:
+        if self._dev_full_dirty:
+            return
+        self._dirty_rows.add(row)
+        # full rebuild once a big fraction changed: incremental row writes
+        # win until the dirty set approaches half the data
+        if len(self._dirty_rows) > max(16384, self._cap // 2):
+            self._dev_full_dirty = True
+            self._dirty_rows.clear()
+
+    # ---- device view ----
+    def device(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(vectors (cap, dim) f32, dist_cache (cap,) f32), synced."""
+        with self._lock:
+            if self._dev is None or self._dev_full_dirty:
+                host = np.zeros((self._cap, self.dim), dtype=np.float32)
+                host[: self._n] = self._host()[: self._n].astype(np.float32)
+                self._dev = torch.from_numpy(host).to(self.torch_device)
+                self._dev_cache = D.dist_cache(self._dev, self.dist)
+                self._dev_int8 = None
+                self._int8_ok = None
+                self._dev_full_dirty = False
+                self._dirty_rows.clear()
+            elif self._dirty_rows:
+                self._sync_rows()
+            return self._dev, self._dev_cache
+
+    def _sync_rows(self) -> None:
+        """Write the dirty rows into every live device tensor in place
+        (`index_copy_` instead of the reference's donated functional scatter:
+        no second copy of any (cap, ...) buffer).  Rows no longer valid (the
+        vacated tail of a swap_remove) enter the int8 mirror as losing
+        sentinels: scale 0, cache +BIG."""
+        rows = np.array(sorted(self._dirty_rows), dtype=np.int64)
+        vals = torch.from_numpy(self._host()[rows].astype(np.float32)).to(self.torch_device)
+        rows_t = torch.from_numpy(rows).to(self.torch_device)
+        cache_v = D.dist_cache(vals, self.dist)
+        self._dev.index_copy_(0, rows_t, vals)
+        self._dev_cache.index_copy_(0, rows_t, cache_v)
+        if self._dev_int8 is not None:
+            q8, scale, cache_p, _ = self._dev_int8
+            rows_scan = torch.from_numpy(self._scan_inv[rows].astype(np.int64)).to(self.torch_device)
+            q8v, scv, cpv = _mirror_rows(vals, cache_v, q8.shape[1], self.dist)
+            valid = torch.from_numpy(rows < self._n).to(self.torch_device)
+            q8.index_copy_(0, rows_scan, q8v)
+            scale.index_copy_(0, rows_scan, torch.where(valid, scv, 0.0))
+            cache_p.index_copy_(0, rows_scan, torch.where(valid, cpv, _BIG))
+        self._dirty_rows.clear()
+
+    def device_rerank(self) -> torch.Tensor:
+        """The rows K2 reads: the synced f32 (cap, dim) tensor itself."""
+        return self.device()[0]
+
+    def device_int8(self):
+        """The SCAN-PERMUTED int8 mirror: ((cap, dim_pad) int8 rows, (cap,)
+        f32 scales, (cap,) f32 cache, (cap,) int32 perm), synced and cached;
+        mirror row i holds original row perm[i].
+
+        The permutation is `np.random.default_rng(cap ^ 0x5EED)`, the
+        reference's, so for the same rows the mirror is the same bytes.  It
+        scatters any storage order: K1 keeps one survivor per strided
+        128-row group, and a cluster-sorted ingest would otherwise put a
+        query's neighbors into few groups.  dim_pad is dim rounded up to a
+        multiple of 128.  Invalid rows hold scale 0 + cache +BIG; callers
+        still drop decoded ids >= len(store)."""
+        with self._lock:
+            vecs, cache = self.device()
+            if self._dev_int8 is None:
+                if self._scan_perm is None or len(self._scan_perm) != self._cap:
+                    rng = np.random.default_rng(self._cap ^ 0x5EED)
+                    self._scan_perm = rng.permutation(self._cap).astype(np.int32)
+                    self._scan_inv = np.empty(self._cap, np.int32)
+                    self._scan_inv[self._scan_perm] = np.arange(self._cap, dtype=np.int32)
+                dim_pad = ((self.dim + 127) // 128) * 128
+                perm = torch.from_numpy(self._scan_perm).to(self.torch_device)
+                q8 = torch.empty((self._cap, dim_pad), dtype=torch.int8, device=self.torch_device)
+                scale = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                # built in permuted order, one block of gathered rows at a time:
+                # no (cap, dim) transient beside the live tensors
+                for s0 in range(0, self._cap, _BLOCK_ROWS):
+                    src = perm[s0 : s0 + _BLOCK_ROWS].long()
+                    q8v, scv, cpv = _mirror_rows(vecs[src], cache[src], dim_pad, self.dist)
+                    q8[s0 : s0 + len(src)] = q8v
+                    scale[s0 : s0 + len(src)] = scv
+                    cache_p[s0 : s0 + len(src)] = cpv
+                valid = perm < self._n
+                scale = torch.where(valid, scale, 0.0)
+                cache_p = torch.where(valid, cache_p, _BIG)
+                self._dev_int8 = (q8, scale, cache_p, perm)
+            q8, scale, cache_p, perm = self._dev_int8
+            b = self._scan_bound
+            if b is not None and b < self._n:
+                ok = perm < b
+                scale, cache_p = torch.where(ok, scale, 0.0), torch.where(ok, cache_p, _BIG)
+            return q8, scale, cache_p, perm
+
+    def int8_reliable(self) -> bool:
+        """Whether per-row int8 quantization preserves neighbor ORDER on this
+        data (`topk.int8_ordering_selftest`).  False in the pathological
+        regime; callers then use the exact scan.  Re-evaluated once the row
+        count drifts >= 25% from the tested size."""
+        if self._int8_ok is not None:
+            verdict, n_at = self._int8_ok
+            if n_at > 0 and abs(self._n - n_at) <= n_at // 4:
+                return verdict
+        if self._n < 64:
+            self._int8_ok = (True, max(self._n, 1))  # tiny sets: exact path anyway
+        else:
+            vecs, _ = self.device()
+            score = T.int8_ordering_selftest(vecs, self._n, self.dist)
+            self._int8_ok = (score >= 0.95, self._n)
+            if not self._int8_ok[0]:
+                print(
+                    f"[vecdb-torch] int8 ordering self-test scored {score:.2f}"
+                    " (<0.95): neighbor gaps are small relative to vector"
+                    " magnitudes, falling back to exact f32 scans",
+                    file=sys.stderr,
+                )
+        return self._int8_ok[0]
+
+    # ---- conversions ----
+    def to_type(self, dtype) -> "VecStore":
+        """dtype conversion via f32 mediation."""
+        out = VecStore(self.dim, self.dist, capacity=self._n, dtype=dtype, device=self.torch_device)
+        if self._n:
+            out.batch_push(self._host()[: self._n].astype(np.float32).astype(dtype))
+        return out
+
+    def random_sample(self, size: int, rng: np.random.Generator) -> np.ndarray:
+        """Sample `size` rows without replacement."""
+        size = min(size, self._n)
+        sel = rng.choice(self._n, size=size, replace=False)
+        return self._host()[np.sort(sel)].copy()
+
+    # ---- serde ----
+    def state_arrays(self, include_vectors: bool = True) -> dict[str, np.ndarray]:
+        out = {}
+        if include_vectors:
+            out["vectors"] = self._host()[: self._n].copy()
+        return out

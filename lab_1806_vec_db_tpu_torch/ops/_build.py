@@ -1,0 +1,116 @@
+"""Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
+
+The sources are compiled at first use into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/libvecdb_<hash>.so csrc/*.cu
+
+The library lands in `lab_1806_vec_db_tpu_torch/_build/` (git-ignored),
+named by a hash of the sources and flags, so an edit to any source triggers a
+rebuild and an unchanged tree reuses the library.  Nothing here runs at
+import time: the CPU tests import every module on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# facts about the build of this process: seconds spent compiling (0 when
+# the library was already built), the library path, nvcc's -Xptxas -v output
+build_info: dict = {}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc") if os.environ.get("CUDA_HOME") else "",
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(srcs: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.vecdb_scan_int8_packed.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.vecdb_scan_int8_packed.restype = I
+    lib.vecdb_gather_dists.argtypes = [P, P, P, P, I, I, I, L, I, P]
+    lib.vecdb_gather_dists.restype = I
+    lib.vecdb_error_string.argtypes = [I]
+    lib.vecdb_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = [p for p in sources() if p.endswith(".cu")]
+        if not srcs:
+            raise RuntimeError(f"no CUDA sources under {CSRC}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        out = os.path.join(BUILD_DIR, f"libvecdb_{_digest(sources())}.so")
+        t0 = time.perf_counter()
+        log = ""
+        if not os.path.exists(out):
+            # build to a private name, then rename: concurrent builds never
+            # load a half-written library
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+            os.close(fd)
+            try:
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                log = res.stdout + res.stderr
+                if res.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        build_info.update(seconds=time.perf_counter() - t0, path=out, log=log)
+        lib = ctypes.CDLL(out)
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (the C side returns
+    cudaGetLastError() right after the launch)."""
+    if status != 0:
+        msg = library().vecdb_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,194 @@
+"""K1: the packed int8 chunk-min scan (port of ops/pallas_scan.py's
+`scan_chunkmin_int8_packed` and its wrapper `scan_candidates_int8_packed`).
+
+Stage 1 of the two-stage Flat search: every query is scored against the
+whole permuted int8 mirror, and each strided 128-row group keeps one packed
+(distance, level) survivor, so the (N, B) distance matrix never exists in
+device memory.  The caller takes an exact top-r over the (B, N/128)
+survivors, decodes their ids, and reranks them exactly (K2, `ops/gather.py`).
+
+On a CUDA tensor the scan is the hand-written kernel
+`csrc/scan_int8_packed.cu`; on a CPU tensor it is the plain PyTorch version
+`scan_chunkmin_int8_packed_ref`, which computes the same int32 values bit for
+bit.  There is no fallback from one to the other.
+
+CHANNELS — one distance formula for both metrics:
+    d = cache_x + qc_q - dots * (scale_x * qs2_q)
+    l2sqr:  cache=|x|^2, qc=|q|^2, scale=s_x,      qs2=2*s_q
+    cosine: cache=0,     qc=1,     scale=s_x/|x|,  qs2=s_q/|q|
+Invalid rows carry scale 0 and cache +_BIG (a finite sentinel: inf would
+turn packed bits into inf/NaN patterns); there is no positional mask.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import distance as D
+from .topk import INVALID_ID, quantize_rows_int8
+
+_BIG = 3.0e38  # finite losing sentinel of invalid mirror rows
+_CHUNK = 128  # rows per survivor group
+_NB = 2048  # rows per chunk (the reference's NB = CB, `_tiles_for`)
+_SB = _NB // _CHUNK  # survivors per chunk (16)
+_BK = 64  # the CUDA kernel's int8 depth step: D must be a multiple
+_REF_BLOCK = 65536  # rows per block of the plain version (bounds transients)
+
+
+def query_channels(q_scale: torch.Tensor, q_cache: torch.Tensor, dist: str):
+    """Query-side (qs2, qc) for the unified formula (see module doc).
+    q_cache is `D.dist_cache(q, dist)`: |q|^2 for l2sqr, |q| for cosine."""
+    q_scale = q_scale.float()
+    q_cache = q_cache.float()
+    if dist == "l2sqr":
+        return 2.0 * q_scale, q_cache
+    return q_scale / q_cache.clamp_min(1e-20), torch.ones_like(q_cache)
+
+
+def _pad_rows(base_i8, base_scale, base_cache, multiple: int):
+    """Pad the mirror to a whole number of chunks with losing sentinels."""
+    n = base_i8.shape[0]
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return base_i8, base_scale, base_cache
+    extra = n_pad - n
+    return (
+        torch.cat([base_i8, base_i8.new_zeros((extra, base_i8.shape[1]))]),
+        torch.cat([base_scale.float(), base_scale.new_zeros(extra, dtype=torch.float32)]),
+        torch.cat([base_cache.float(), base_cache.new_full((extra,), _BIG, dtype=torch.float32)]),
+    )
+
+
+def scan_chunkmin_int8_packed_ref(q8, qs2, qc, base_i8, base_scale, base_cache):
+    """Plain PyTorch version of K1 (same arguments as the wrapper, N a
+    multiple of 2048).  The int8 product runs as an f32 matmul, which is
+    exact (integers < 2^24, TF32 off); the epilogue rounds each operation in
+    the kernel's order.  Returns (N/128, B) int32."""
+    B = q8.shape[0]
+    n = base_i8.shape[0]
+    qf = q8.float()
+    qs2 = qs2.float()[:, None]
+    qc = qc.float()[:, None]
+    lvl = ((torch.arange(_NB, device=q8.device) // _SB).to(torch.int32))
+    out = torch.empty((n // _CHUNK, B), dtype=torch.int32, device=q8.device)
+    for r0 in range(0, n, _REF_BLOCK):
+        r1 = min(r0 + _REF_BLOCK, n)
+        dots = qf @ base_i8[r0:r1].float().T  # (B, rows)
+        d = (base_cache[None, r0:r1].float() + qc) - dots * (base_scale[None, r0:r1].float() * qs2)
+        bits = d.view(torch.int32)
+        g = (r1 - r0) // _NB
+        m = (bits.reshape(B, g, _NB) & ~(_CHUNK - 1)) | lvl
+        # (query, chunk, level, slot) -> min over level
+        m = m.reshape(B, g, _CHUNK, _SB).amin(dim=2)
+        out[r0 // _CHUNK : r1 // _CHUNK] = m.reshape(B, g * _SB).T
+    return out
+
+
+def scan_chunkmin_int8_packed(q8, qs2, qc, base_i8, base_scale, base_cache):
+    """Packed-survivor int8 scan -> (N_pad/128, B) int32.
+
+    q8 (B, D) int8; qs2, qc (B,) f32 from `query_channels`; base_i8 (N, D)
+    int8 (the permuted mirror); base_scale, base_cache (N,) f32.  N is padded
+    here to a multiple of 2048 with +BIG sentinels.  Survivor row c*16 + s
+    covers chunk c, slot s; decode: id = c*2048 + (v & 127)*16 + s,
+    dist = bitcast_f32(v & ~127).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel and
+    count the launch in `scan_chunkmin_int8_packed.launches`."""
+    if q8.dtype != torch.int8 or base_i8.dtype != torch.int8:
+        raise TypeError("q8 and base_i8 must be int8")
+    if q8.dim() != 2 or base_i8.dim() != 2 or q8.shape[1] != base_i8.shape[1]:
+        raise ValueError(f"shape mismatch: q8 {tuple(q8.shape)} vs base {tuple(base_i8.shape)}")
+    B = q8.shape[0]
+    if qs2.shape != (B,) or qc.shape != (B,):
+        raise ValueError("qs2 and qc must be (B,)")
+    if base_scale.shape != (base_i8.shape[0],) or base_cache.shape != (base_i8.shape[0],):
+        raise ValueError("base_scale and base_cache must be (N,)")
+    devs = {t.device for t in (q8, qs2, qc, base_i8, base_scale, base_cache)}
+    if len(devs) != 1:
+        raise ValueError(f"all operands must be on one device, got {devs}")
+    dev = devs.pop()
+    if not base_i8.is_contiguous():
+        raise ValueError("base_i8 must be contiguous (the kernel reads it row-major in place)")
+    base_i8, base_scale, base_cache = _pad_rows(base_i8, base_scale, base_cache, _NB)
+    if dev.type == "cpu":
+        return scan_chunkmin_int8_packed_ref(q8, qs2, qc, base_i8, base_scale, base_cache)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no K1 kernel for device {dev}")
+    if q8.shape[1] % _BK:
+        # zero columns are dot-transparent (the store pads to 128 already)
+        pad = _BK - q8.shape[1] % _BK
+        q8 = torch.nn.functional.pad(q8, (0, pad))
+        base_i8 = torch.nn.functional.pad(base_i8, (0, pad))
+    n_pad, dpad = base_i8.shape
+    if n_pad // _NB > 65535:
+        raise ValueError(f"mirror of {n_pad} rows exceeds the kernel's grid limit")
+    q8 = q8.contiguous()
+    qs2, qc = qs2.float().contiguous(), qc.float().contiguous()
+    base_scale, base_cache = base_scale.float().contiguous(), base_cache.float().contiguous()
+    out = torch.empty((n_pad // _CHUNK, B), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.vecdb_scan_int8_packed(
+            q8.data_ptr(), qs2.data_ptr(), qc.data_ptr(), base_i8.data_ptr(),
+            base_scale.data_ptr(), base_cache.data_ptr(), out.data_ptr(),
+            B, n_pad, dpad, stream,
+        )
+    _build.check(status, "scan_int8_packed")
+    scan_chunkmin_int8_packed.launches += 1
+    return out
+
+
+scan_chunkmin_int8_packed.launches = 0
+
+
+def quantize_queries(queries: torch.Tensor, dim_pad: int, dist: str):
+    """(B, dim) f32 queries -> (q8 (B, dim_pad) int8, qs2, qc) for K1."""
+    q = queries.float()
+    q_cache = D.dist_cache(q, dist)
+    q8, q_scale = quantize_rows_int8(q)
+    if dim_pad != q8.shape[1]:
+        # the mirror's columns are zero-padded to a 128 multiple
+        q8 = torch.nn.functional.pad(q8, (0, dim_pad - q8.shape[1]))
+    qs2, qc = query_channels(q_scale, q_cache, dist)
+    return q8, qs2, qc
+
+
+def select_survivors(packed: torch.Tensor, r: int):
+    """Exact top-r over K1's survivors -> ((B, r) f32 dists, (B, r) int32
+    mirror ids), -1 / +inf padded.
+
+    `packed` is K1's (S, B) output.  The order is the packed value viewed
+    as f32 (the int32 min within a group and the f32 order across groups
+    differ for slightly negative d; both are the reference's).  The
+    reference takes this top-r with `lax.approx_min_k(recall_target=0.95)`
+    on the TPU; here it is an exact stable sort, ties lower position first
+    as `lax.top_k` orders them."""
+    packed = packed.T  # (B, S)
+    B, S = packed.shape
+    as_f32 = packed.view(torch.float32)
+    rr = min(r, S)
+    _, pos = torch.sort(as_f32, dim=1, stable=True)
+    pos = pos[:, :rr]
+    pk = torch.gather(packed, 1, pos)
+    pos32 = pos.to(torch.int32)
+    base0 = (pos32 // _SB) * _NB + pos32 % _SB
+    bd = (pk & ~(_CHUNK - 1)).view(torch.float32)
+    bi = base0 + (pk & (_CHUNK - 1)) * _SB
+    if rr < r:
+        bd = torch.cat([bd, bd.new_full((B, r - rr), float("inf"))], 1)
+        bi = torch.cat([bi, bi.new_full((B, r - rr), INVALID_ID)], 1)
+    bad = bd >= 1.0e38
+    return torch.where(bad, float("inf"), bd), torch.where(bad, INVALID_ID, bi)
+
+
+def scan_candidates_int8_packed(queries, base_i8, base_scale, base_cache, r: int, dist: str):
+    """Stage-1 candidate selection: quantize the queries, run K1 over the
+    permuted mirror, take the exact top-r survivors.  Returns ((B, r) f32
+    16-mantissa-bit distances, (B, r) int32 MIRROR ids, -1 padded); decode
+    them with `topk.decode_perm` before the rerank."""
+    q8, qs2, qc = quantize_queries(queries, base_i8.shape[1], dist)
+    packed = scan_chunkmin_int8_packed(q8, qs2, qc, base_i8, base_scale, base_cache)
+    return select_survivors(packed, r)
