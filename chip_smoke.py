@@ -18,14 +18,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                tables (l2sqr, cosine): batch_add, batch_search (B = 1000,
                k = 10) through both kernels, recall@10 against the exact scan,
                search, the upper_bound filter, delete, close and reopen;
+     hnsw    — inside phase 5, on the l2sqr table: build_hnsw_index (M = 16,
+               ef_construction = 200), batch_search with ef (the scan route,
+               K1 + K2), the graph route (K3) at ef 120 / 200 / 360 with
+               recall and QPS beside the scan route's, traversal_stats at
+               ef 120 (the K4 -> K2 -> K5 loop), K4 / K5 against their
+               plain versions (B = 1000, W 128 and 256), K3 against its
+               plain version on the route's B = 1000 queries at every ef,
+               index_bytes, and close / reopen as HNSW;
   6. 1M      — FlatIndex at 1,000,000 x 960 (device-born): recall@10 against
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
                kernel against its plain version, and index_device_bytes.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
-line before it lists each kernel with its launch count in the VecDB
-batch_search run, its error against the plain version and both times.
+line before it lists each kernel with its launch count on its path (K1 / K2:
+the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
+traversal_stats run), its error against the plain version, both times, the
+least time the card could take (`bound_ms`) and a library call's time where
+one PyTorch call computes the same function (none does: null).
 """
 
 from __future__ import annotations
@@ -70,6 +81,58 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+# NVIDIA H100 SXM data sheet peaks (700 W): HBM bytes/s, dense int8 ops/s
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1.979e15
+
+
+def bound_ms(bytes_moved: float, ops: float = 0.0, ops_rate: float = INT8_OPS_S):
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and operations over the peak rate -> (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def in_turns(kern, plain, reps_k: int, reps_p: int):
+    """Kernel and plain-version ms, timed in turns (plain, kernel, kernel,
+    plain), each the mean of its two."""
+    p0, k0, k1, p1 = cuda_ms(plain, reps_p), cuda_ms(kern, reps_k), cuda_ms(kern, reps_k), cuda_ms(plain, reps_p)
+    return (k0 + k1) / 2, (p0 + p1) / 2
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over the lanes where both are finite; inf where the
+    non-finite lanes of the two differ."""
+    import torch
+
+    if not a.is_floating_point():
+        return float((a.long() - b.long()).abs().max())
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(a[~fin], b[~fin]):
+        return float("inf")
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def profile_call(fn) -> dict:
+    """One call of `fn` under torch.profiler: host wall ms, device busy ms
+    (kernels, copies, memsets) and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        return {"wall_ms": wall_us / 1e3, "device_busy_share": "not measured (no device time seen)"}
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us}
 
 
 def recall_at_k(gt_ids, ids, k: int) -> float:
@@ -153,6 +216,186 @@ def phase_k2(x, queries):
     return worst
 
 
+def _rand_beam_state(rng, B, W, R, EL, E, ef, N):
+    """K4 / K5 inputs shaped like a lock-step iteration's: a sorted beam
+    with a -1 tail past ef, a ring, the selection, a neighbor tile with
+    duplicates of beam / ring / tile entries, and a scored tile."""
+    import numpy as np
+
+    beam_i = rng.integers(0, N, (B, W)).astype(np.int32)
+    beam_i[:, ef:] = -1
+    beam_d = np.sort(rng.random((B, W)).astype(np.float32), axis=1)
+    beam_d[beam_i < 0] = np.inf
+    beam_e = (rng.random((B, W)) < 0.5).astype(np.int32)
+    beam_e[beam_i < 0] = 0
+    ring = rng.integers(-1, N, (B, R)).astype(np.int32)
+    selq = np.full((B, 128), -1, np.int32)
+    selq[:, :E] = rng.integers(-1, N, (B, E))
+    nbrs = rng.integers(-1, N, (B, EL)).astype(np.int32)
+    nbrs[:, 3], nbrs[:, 5], nbrs[:, 7] = beam_i[:, 0], ring[:, 2], nbrs[:, 1]
+    nids = rng.integers(-1, N, (B, W)).astype(np.int32)
+    nd = rng.random((B, W)).astype(np.float32)
+    nd[nids < 0] = np.inf
+    nd[:, 10] = beam_d[:, 2]  # an exact tie with the beam
+    return beam_d, beam_i, beam_e, ring, selq, nbrs, nd, nids
+
+
+def phase_hnsw(db, db_dir, key, q_host, gt):
+    """HNSW on the l2sqr table of phase 5.  Returns (results, launches per
+    kernel on its path, per-kernel measurements, the reopened db)."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch import VecDB
+    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets
+    from lab_1806_vec_db_tpu_torch.ops import beam as BM
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    k, B = 10, len(q_host)
+    out = {"table": key, "M": 16, "ef_construction": 200}
+    t0 = time.perf_counter()
+    db.build_hnsw_index(key)
+    out["build_s"] = time.perf_counter() - t0
+    check(db.has_hnsw_index(key), "hnsw: has_hnsw_index is False after the build")
+    log(f"[hnsw] build_hnsw_index: {out['build_s']:.1f} s")
+
+    # the user entry point: batch_search with ef -> route auto -> the scan
+    S.scan_chunkmin_int8_packed.launches = 0
+    G.gather_dists.launches = 0
+    res = db.batch_search(key, q_host, k, ef=200)
+    scan_launches = (S.scan_chunkmin_int8_packed.launches, G.gather_dists.launches)
+    check(min(scan_launches) > 0, f"hnsw: batch_search(ef=200) launched K1/K2 {scan_launches} times")
+    ids = [[int(m["id"]) for m, _ in row] for row in res]
+    out["batch_search_ef200_recall_at_10"] = recall_at_k(gt, ids, k)
+    check(out["batch_search_ef200_recall_at_10"] >= 0.99,
+          f"hnsw: batch_search(ef=200) recall@10 {out['batch_search_ef200_recall_at_10']:.4f} < 0.99")
+
+    index = db._inner._table_mgr(key).obj.inner.inner
+    out["index_bytes"] = index.index_bytes()
+    out["levels"] = (index.enter_level or 0) + 1
+
+    # the graph route (K3) and the scan route at the same ef, B = 1000
+    TR.traverse.launches = 0
+    out["graph"], out["scan"] = {}, {}
+    for route in ("graph", "scan"):
+        for ef in (120, 200, 360):
+            _, ids = index.knn_with_ef_batch(q_host, k, ef, route=route)
+            rounds = []
+            for _ in range(3):  # rounds of 4 chained (synchronous) batches
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    index.knn_with_ef_batch(q_host, k, ef, route=route)
+                rounds.append(time.perf_counter() - t0)
+            out[route][ef] = {"recall_at_10": recall_at_k(gt, ids.tolist(), k),
+                              "qps_best": 4 * B / min(rounds),
+                              "qps_median": 4 * B / float(np.median(rounds)),
+                              "ms_per_batch_rounds": [r / 4 * 1e3 for r in rounds]}
+        if route == "graph":
+            k3_launches = TR.traverse.launches
+            check(k3_launches > 0, "hnsw: the graph route launched K3 no time")
+    g = out["graph"]
+    log("[hnsw] graph route: " + ", ".join(
+        f"ef {ef} recall {g[ef]['recall_at_10']:.4f} QPS {g[ef]['qps_best']:.0f}" for ef in g)
+        + " | scan route: " + ", ".join(
+        f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in out["scan"].items()))
+    check(g[120]["recall_at_10"] < g[200]["recall_at_10"] < g[360]["recall_at_10"],
+          "hnsw: graph-route recall does not rise with ef")
+    check(g[360]["recall_at_10"] >= 0.80, f"hnsw: graph recall@10 {g[360]['recall_at_10']:.4f} < 0.80 at ef 360")
+    check(out["scan"][200]["recall_at_10"] >= 0.99, "hnsw: scan-route recall@10 < 0.99 at ef 200")
+
+    # traversal_stats at ef 120: the K4 -> K2 -> K5 loop
+    BF.beam_pre.launches = BF.beam_post.launches = 0
+    BM.host_syncs.update(beam=0, greedy=0)
+    t0 = time.perf_counter()
+    _, ids, rows = index.traversal_stats(q_host, k, 120)
+    stats_s = time.perf_counter() - t0
+    k45_launches = (BF.beam_pre.launches, BF.beam_post.launches)
+    check(min(k45_launches) > 0, f"hnsw: traversal_stats launched K4/K5 {k45_launches} times")
+    out["traversal_stats_ef120"] = {
+        "recall_at_10": recall_at_k(gt, ids.tolist(), k), "rows_scored_mean": float(rows.mean()),
+        "rows_scored_max": int(rows.max()), "wall_s": stats_s, "host_syncs": dict(BM.host_syncs),
+        "profile": profile_call(lambda: index.traversal_stats(q_host, k, 120)),
+    }
+    out["graph_ef120_profile"] = profile_call(lambda: index.knn_with_ef_batch(q_host, k, 120, route="graph"))
+    log(f"[hnsw] traversal_stats ef 120: rows/query {rows.mean():.1f}, recall "
+        f"{out['traversal_stats_ef120']['recall_at_10']:.4f}, {stats_s*1e3:.0f} ms, "
+        f"host syncs {out['traversal_stats_ef120']['host_syncs']}, K4/K5 launches {k45_launches}")
+
+    # each kernel against its plain version, on the card
+    dev = torch.device("cuda")
+    meas = {"k4_err": 0.0, "k5_err": 0.0}
+    E, EL, R = 4, 128, 256
+    for W in (128, 256):
+        rng = np.random.default_rng(W)
+        st = [torch.from_numpy(a).to(dev) for a in _rand_beam_state(rng, B, W, R, EL, E, 100, len(index))]
+        beam_d, beam_i, beam_e, ring, selq, nbrs, nd, nids = st
+        pre, pre_ref = BF.beam_pre(beam_i, ring, selq, nbrs, E), BF.beam_pre_ref(beam_i, ring, selq, nbrs, E)
+        post = BF.beam_post(beam_d, beam_i, beam_e, nd, nids, 120, E)
+        post_ref = BF.beam_post_ref(beam_d, beam_i, beam_e, nd, nids, 120, E)
+        torch.cuda.synchronize()
+        meas["k4_err"] = max(meas["k4_err"], *(max_abs_err(a, b) for a, b in zip(pre, pre_ref)))
+        meas["k5_err"] = max(meas["k5_err"], *(max_abs_err(a, b) for a, b in zip(post, post_ref)))
+        for name, a, b in zip(("comp", "ring", "cnt"), pre, pre_ref):
+            check(torch.equal(a, b), f"K4 W={W}: {name} differs from the plain version")
+        for name, a, b in zip(("d", "i", "e", "sel"), post, post_ref):
+            check(torch.equal(a, b), f"K5 W={W}: {name} differs from the plain version")
+        if W == 128:  # the traversal_stats shape at ef 120: W 128, R 256, EL 128
+            meas["k4"] = in_turns(lambda: BF.beam_pre(beam_i, ring, selq, nbrs, E),
+                                  lambda: BF.beam_pre_ref(beam_i, ring, selq, nbrs, E), 20, 5)
+            meas["k5"] = in_turns(lambda: BF.beam_post(beam_d, beam_i, beam_e, nd, nids, 120, E),
+                                  lambda: BF.beam_post_ref(beam_d, beam_i, beam_e, nd, nids, 120, E), 20, 5)
+            # K4 reads beam_i, ring, nbrs and selq's E lanes; writes comp, ring', cnt
+            meas["k4_bytes"] = B * 4 * ((W + R + EL + E) + (W + R + 128))
+            # K5 reads beam d / i / e and the scored tile's d / i; writes d / i / e, sel
+            meas["k5_bytes"] = B * 4 * (5 * W + 3 * W + 128)
+    log(f"[hnsw] K4 / K5 at B = {B}, W = 128 and 256: equal to their plain versions")
+
+    # K3 against its plain version on the graph route's own inputs: all B
+    # queries from the greedy descent's entries, at every ef the route ran
+    q = torch.from_numpy(q_host).to(dev)
+    base = index.store.device_rerank()
+    links0 = index._links0_device()
+    cur = index._descend(q, lambda ids: G.gather_dists(q, base, ids, index.dist))
+    out["k3_vs_plain"], k3_err = {}, 0.0
+    for ef in (120, 200, 360):
+        iters, ring_n = _budgets(ef)
+        kw = dict(E=4, R=min(ring_n, 256), max_iters=iters, dist=index.dist)
+        k3 = lambda ef=ef, kw=kw: TR.traverse(q, base, links0, cur, ef, links0.shape[1], **kw)
+        k3_ref = lambda ef=ef, kw=kw: TR.traverse_ref(q, base, links0, cur, ef, links0.shape[1], **kw)
+        (dk, ik), (dr, ir) = k3(), k3_ref()
+        torch.cuda.synchronize()
+        same = ik == ir
+        frac = float(same.float().mean())
+        check(frac >= 0.99, f"K3 ef {ef}: ids equal on {frac:.4f} of entries (< 0.99)")
+        fin = same & (ik >= 0)
+        torch.testing.assert_close(dk[fin], dr[fin], rtol=1e-5, atol=0.0)
+        err = float((dk[fin] - dr[fin]).abs().max())
+        k3_err = max(k3_err, err)
+        # K3's distances are K2's bits (one row_dist, beam_body.cuh)
+        d2 = G.gather_dists(q, base, ik, index.dist)
+        check(torch.equal(d2[ik >= 0], dk[ik >= 0]), f"K3 ef {ef}: distances differ from K2's for the same rows")
+        out["k3_vs_plain"][ef] = {"ids_equal_share": frac, "max_abs_err": err}
+        if ef == 120:
+            meas["k3"] = in_turns(k3, k3_ref, 5, 1)
+    meas["k3_err"] = k3_err
+    meas["k3_bytes"] = B * out["traversal_stats_ef120"]["rows_scored_mean"] * 4 * index.dim
+    log(f"[hnsw] K3 at B = {B} against its plain version: {out['k3_vs_plain']}; "
+        f"times (kernel, plain) K3 {meas['k3']}, K4 {meas['k4']}, K5 {meas['k5']} ms")
+
+    # close and reopen: still HNSW, identical results
+    before = db.batch_search(key, q_host, k, ef=200)
+    db.close()
+    db = VecDB(db_dir)
+    check(db.has_hnsw_index(key), "hnsw: the table is not HNSW after reopen")
+    check(db.batch_search(key, q_host, k, ef=200) == before, "hnsw: batch_search differs after reopen")
+    log("[hnsw] close / reopen: still HNSW, identical results")
+    launches = {"k3": k3_launches, "k4": k45_launches[0], "k5": k45_launches[1]}
+    return out, launches, meas, db
+
+
+
 def phase_vecdb(x_host, q_host):
     import numpy as np
     import torch
@@ -166,7 +409,7 @@ def phase_vecdb(x_host, q_host):
     shutil.rmtree(db_dir, ignore_errors=True)
     meta = [{"id": str(i)} for i in range(n)]
     out = {"rows": n, "dim": x_host.shape[1], "batch": len(q_host), "k": k}
-    launches = {}
+    launches, gts = {}, {}
     db = VecDB(db_dir)
     try:
         for key, dist in (("gist_l2", "l2sqr"), ("gist_cos", "cosine")):
@@ -176,6 +419,7 @@ def phase_vecdb(x_host, q_host):
             t_add = time.perf_counter() - t0
             exact = FlatIndex.from_numpy(x_host, dist)
             _, gt = exact.knn_batch(q_host, k, exact=True)
+            gts[key] = gt.tolist()
             # the main path: counters from 0 around one user batch_search
             S.scan_chunkmin_int8_packed.launches = 0
             G.gather_dists.launches = 0
@@ -212,8 +456,10 @@ def phase_vecdb(x_host, q_host):
                         "launches": {"k1": launches[key][0], "k2": launches[key][1]}}
             log(f"[5/6] VecDB {key}: recall@10 {rec:.4f}, batch_search {t_warm*1e3:.1f} ms "
                 f"(first {t_first:.2f} s), K1/K2 launches {launches[key]}")
-        # delete by pattern: row 7 is its own nearest neighbour until deleted
         key = "gist_l2"
+        out["hnsw"], hnsw_launches, hnsw_meas, db = phase_hnsw(db, db_dir, key, q_host, gts[key])
+        # delete by pattern (it downgrades the table to Flat): row 7 is its
+        # own nearest neighbour until deleted
         check(db.search(key, x_host[7], 1)[0][0] == {"id": "7"}, "self-query before delete")
         check(db.delete(key, {"id": "7"}) == 1, "delete count")
         check(db.get_len(key) == n - 1, "length after delete")
@@ -230,7 +476,7 @@ def phase_vecdb(x_host, q_host):
         db.close()
     shutil.rmtree(db_dir, ignore_errors=True)
     log("[5/6] VecDB delete / close / reopen: identical results")
-    return out, launches
+    return out, launches, hnsw_launches, hnsw_meas
 
 
 def profile_round(flat, q, k: int, reps: int) -> dict:
@@ -342,16 +588,21 @@ def phase_1m(card):
     k1_ref = lambda: S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, base_i8, scales, cache8)
     k2 = lambda: G.gather_dists(q, rows, cand, dist)
     k2_ref = lambda: G.gather_dists_ref(q, rows, cand, dist)
-    # in turns (plain, kernel, kernel, plain), each entry the mean of its two
     times = {}
     for name, kern, plain, reps_k, reps_p in (("k1", k1, k1_ref, 10, 2), ("k2", k2, k2_ref, 20, 5)):
-        p0, t0_, t1_, p1 = (cuda_ms(plain, reps_p), cuda_ms(kern, reps_k),
-                            cuda_ms(kern, reps_k), cuda_ms(plain, reps_p))
-        times[f"{name}_ms"] = (t0_ + t1_) / 2
-        times[f"{name}_plain_ms"] = (p0 + p1) / 2
+        times[f"{name}_ms"], times[f"{name}_plain_ms"] = in_turns(kern, plain, reps_k, reps_p)
     k1_equal = torch.equal(k1(), k1_ref())
     check(k1_equal, "1M: K1 differs from its plain version")
     k2_err = float((k2() - k2_ref()).abs()[cand >= 0].max())
+    # the int8 product alone, as one library call: not the same function (no
+    # epilogue, no chunk-min; it writes the whole (B, N) int32 matrix)
+    times["int_mm_gemm_alone_ms"] = cuda_ms(lambda: torch._int_mm(q8, base_i8.T), 3)
+    # priced on the function's own inputs: n int8 rows of dim lanes with a
+    # scale and a cached term each (not the mirror's lane padding to 1024 or
+    # its sentinel rows), B int8 queries, one int32 per (128 rows, query)
+    times["k1_bound"] = bound_ms(n * dim + 8 * n + B * (dim + 8) + -(-n // 128) * B * 4,
+                                 2.0 * n * B * dim)
+    times["k2_bound"] = bound_ms(B * r * dim * 4 + B * r * 4 + B * dim * 4 + B * r * 4)
     out = {
         "phase": "flat_1m", "card": card, "n": n, "dim": dim, "batch": B, "k": k, "dist": dist,
         "rerank_depth": r, "recall_at_10": rec, "qps_best": qps_best, "qps_median": qps_median,
@@ -387,7 +638,7 @@ def main() -> None:
     x_host, q_host = x.cpu().numpy(), queries.cpu().numpy()
     del x, queries
     torch.cuda.empty_cache()
-    db_out, launches = phase_vecdb(x_host, q_host)
+    db_out, launches, hnsw_launches, hm = phase_vecdb(x_host, q_host)
     del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
@@ -395,17 +646,35 @@ def main() -> None:
     print(json.dumps(m), flush=True)
 
     main_launches = launches["gist_l2"]
+    k3b, k4b, k5b = bound_ms(hm["k3_bytes"]), bound_ms(hm["k4_bytes"]), bound_ms(hm["k5_bytes"])
     kernels = [
         {"name": "scan_chunkmin_int8_packed", "route": "cuda",
          "source": f"{PKG}/csrc/scan_int8_packed.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_scan.py:542",
          "launches": main_launches[0], "max_abs_err": k1_err,
-         "ms": m["k1_ms"], "plain_ms": m["k1_plain_ms"]},
+         "ms": m["k1_ms"], "plain_ms": m["k1_plain_ms"], "bound_ms": m["k1_bound"][0],
+         "bound_by": m["k1_bound"][1], "library_ms": None},
         {"name": "gather_dists", "route": "cuda",
          "source": f"{PKG}/csrc/gather_dists.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_gather.py:261",
          "launches": main_launches[1], "max_abs_err": k2_err,
-         "ms": m["k2_ms"], "plain_ms": m["k2_plain_ms"]},
+         "ms": m["k2_ms"], "plain_ms": m["k2_plain_ms"], "bound_ms": m["k2_bound"][0],
+         "bound_by": m["k2_bound"][1], "library_ms": None},
+        {"name": "traverse", "route": "cuda", "source": f"{PKG}/csrc/traverse.cu",
+         "replaces": "lab_1806_vec_db_tpu/ops/pallas_traverse.py:251",
+         "launches": hnsw_launches["k3"], "max_abs_err": hm["k3_err"],
+         "ms": hm["k3"][0], "plain_ms": hm["k3"][1], "bound_ms": k3b[0], "bound_by": k3b[1],
+         "library_ms": None},
+        {"name": "beam_pre", "route": "cuda", "source": f"{PKG}/csrc/beam_pre.cu",
+         "replaces": "lab_1806_vec_db_tpu/ops/pallas_beam.py:148",
+         "launches": hnsw_launches["k4"], "max_abs_err": hm["k4_err"],
+         "ms": hm["k4"][0], "plain_ms": hm["k4"][1], "bound_ms": k4b[0], "bound_by": k4b[1],
+         "library_ms": None},
+        {"name": "beam_post", "route": "cuda", "source": f"{PKG}/csrc/beam_post.cu",
+         "replaces": "lab_1806_vec_db_tpu/ops/pallas_beam.py:257",
+         "launches": hnsw_launches["k5"], "max_abs_err": hm["k5_err"],
+         "ms": hm["k5"][0], "plain_ms": hm["k5"][1], "bound_ms": k5b[0], "bound_by": k5b[1],
+         "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

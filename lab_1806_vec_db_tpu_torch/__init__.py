@@ -5,11 +5,15 @@ NVIDIA Hopper GPU.  Plain tensor code is PyTorch; every TPU Pallas kernel on
 a ported path is a hand-written CUDA kernel under `csrc/`, built with `nvcc`
 at first use (`ops/_build.py`).
 
-Ported so far: the batched Flat search path, `VecDB.batch_search` ->
-`MetadataVecTable` -> `DynamicIndex` -> `FlatIndex._knn_device`, over
-float32 tables, with kernels K1 (`ops/scan.py`, the packed int8 chunk-min
-scan) and K2 (`ops/gather.py`, the exact rerank gather).  HNSW, PQ and uint8
-tables raise `NotImplementedError`.
+Ported so far, over float32 tables:
+- the batched Flat search path, `VecDB.batch_search` -> `MetadataVecTable`
+  -> `DynamicIndex` -> `FlatIndex._knn_device`, with kernels K1
+  (`ops/scan.py`, the packed int8 chunk-min scan) and K2 (`ops/gather.py`,
+  the exact rerank gather);
+- HNSW tables (`models/hnsw.py`): the bulk build, both search routes and
+  checkpoints, with kernels K3 (`ops/traverse.py`, the whole level-0 graph
+  search) and K4 / K5 (`ops/beam_fused.py`, the fused lock-step beam body).
+PQ and uint8 tables raise `NotImplementedError`.
 """
 
 import torch

@@ -21,6 +21,9 @@
 // for all its candidates; the eight warps of the CTA take candidates in
 // turn, and a shuffle reduction finishes each distance.
 //
+// The per-row distance itself (row_dist, query_norm) lives in beam_body.cuh,
+// shared with K3 (traverse.cu), so the two kernels give the same bits.
+//
 // flags: bit 0 = cosine, bit 1 = float4 path allowed (dim % 4 == 0 and both
 // row arrays 16-byte aligned; the wrapper checks).
 
@@ -28,15 +31,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "beam_body.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 gather_dists_kernel(const float* __restrict__ q, const float* __restrict__ base,
@@ -47,52 +46,13 @@ gather_dists_kernel(const float* __restrict__ q, const float* __restrict__ base,
   const bool cosine = flags & 1;
   const int dim4 = (flags & 2) ? dim >> 2 : 0;
   const float* qb = q + static_cast<size_t>(b) * dim;
-  const float4* qb4 = reinterpret_cast<const float4*>(qb);
-
-  float qn = 0.f;
-  if (cosine) {
-    float qq = 0.f;
-    for (int i = lane; i < dim4; i += 32) {
-      const float4 c = qb4[i];
-      qq += c.x * c.x + c.y * c.y + c.z * c.z + c.w * c.w;
-    }
-    for (int i = dim4 * 4 + lane; i < dim; i += 32) qq += qb[i] * qb[i];
-    qn = sqrtf(warp_sum(qq));
-  }
+  const float qn = cosine ? vecdb::query_norm(qb, dim, dim4, lane) : 0.f;
 
   for (int j = warp; j < r; j += WARPS) {
     const int id = ids[static_cast<size_t>(b) * r + j];
     float res = INFINITY;
-    if (id >= 0 && id < n_rows) {
-      const float* v = base + static_cast<size_t>(id) * dim;
-      const float4* v4 = reinterpret_cast<const float4*>(v);
-      float acc = 0.f, vv = 0.f;
-      if (!cosine) {
-        for (int i = lane; i < dim4; i += 32) {
-          const float4 a = v4[i], c = qb4[i];
-          const float dx = a.x - c.x, dy = a.y - c.y, dz = a.z - c.z, dw = a.w - c.w;
-          acc += dx * dx + dy * dy + dz * dz + dw * dw;
-        }
-        for (int i = dim4 * 4 + lane; i < dim; i += 32) {
-          const float dx = v[i] - qb[i];
-          acc += dx * dx;
-        }
-        res = warp_sum(acc);
-      } else {
-        for (int i = lane; i < dim4; i += 32) {
-          const float4 a = v4[i], c = qb4[i];
-          acc += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
-          vv += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
-        }
-        for (int i = dim4 * 4 + lane; i < dim; i += 32) {
-          acc += v[i] * qb[i];
-          vv += v[i] * v[i];
-        }
-        const float dot = warp_sum(acc);
-        const float vn = sqrtf(warp_sum(vv));
-        res = 1.f - dot / fmaxf(vn * qn, 1e-10f);
-      }
-    }
+    if (id >= 0 && id < n_rows)
+      res = vecdb::row_dist(base + static_cast<size_t>(id) * dim, qb, dim, dim4, cosine, qn, lane);
     if (lane == 0) out[static_cast<size_t>(b) * r + j] = res;
   }
 }

@@ -1,15 +1,18 @@
-"""Runtime index dispatch (port of db/dynamic_index.py): float32 Flat tables.
+"""Runtime Flat | HNSW dispatch (port of db/dynamic_index.py) for float32
+tables.
 
-HNSW, uint8 (FlatU8) tables and the sharded VECDB_TPU_MESH mirror are not
-ported yet; asking for them raises NotImplementedError naming the ROADMAP
-item that ports them.
+uint8 (FlatU8) tables and the sharded VECDB_TPU_MESH mirror are not ported
+yet; asking for a uint8 table raises NotImplementedError naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
 
-from ..models import FlatIndex
+import numpy as np
 
-HNSW_TODO = "HNSW is not ported yet (ROADMAP.md queue 1, items 5-6: HNSW search and build)"
+from ..models import FlatIndex, HNSWIndex
+from ..utils.config import HNSWConfig
+
 U8_TODO = "uint8 tables are not ported yet (ROADMAP.md queue 1, item 12: u8)"
 
 
@@ -19,7 +22,7 @@ class DynamicIndex:
             raise NotImplementedError(U8_TODO)
         if data_type != "float32":
             raise ValueError(f"Unsupported data_type: {data_type!r}")
-        self.inner = FlatIndex(dim, dist, device=device)
+        self.inner: FlatIndex | HNSWIndex = FlatIndex(dim, dist, device=device)
         self.data_type = data_type
 
     @property
@@ -35,7 +38,7 @@ class DynamicIndex:
 
     @property
     def is_hnsw(self) -> bool:
-        return False
+        return isinstance(self.inner, HNSWIndex)
 
     # ---- mutation ----
     def add(self, vec) -> int:
@@ -46,18 +49,33 @@ class DynamicIndex:
 
     # ---- index lifecycle ----
     def build_hnsw(self, ef_construction: int | None, seed: int | None = None) -> None:
-        raise NotImplementedError(HNSW_TODO)
+        """Upgrade Flat -> HNSW with a bulk build; no-op if already HNSW
+        (metadata_vec_table.rs:84-98)."""
+        if self.is_hnsw:
+            return
+        flat: FlatIndex = self.inner
+        cfg = HNSWConfig(max_elements=len(flat))
+        if ef_construction is not None:
+            cfg.ef_construction = ef_construction
+        vectors = flat.store.numpy().astype(np.float32, copy=True)
+        if len(vectors):
+            self.inner = HNSWIndex.build(vectors, flat.dist, cfg, seed=seed, device=flat.device)
+        else:
+            self.inner = HNSWIndex(flat.dim, flat.dist, cfg, seed, device=flat.device)
 
     def clear_hnsw(self) -> None:
-        """Flat tables have no graph to clear."""
+        """Downgrade HNSW -> Flat keeping the vec set
+        (metadata_vec_table.rs:100-106)."""
+        if self.is_hnsw:
+            self.inner = FlatIndex.from_store(self.inner.store)
 
-    # ---- search dispatch ----
+    # ---- search dispatch (dynamic_index.rs:61-93) ----
     def knn(self, query, k: int):
         return self.inner.knn(query, k)
 
     def knn_with_ef(self, query, k: int, ef: int):
-        # Flat ignores ef
-        return self.knn(query, k)
+        # Flat ignores ef (dynamic_index.rs:75-80)
+        return self.inner.knn_with_ef(query, k, ef)
 
     def knn_pq(self, query, k: int, ef: int, pq):
         return self.inner.knn_pq(query, k, ef, pq)
@@ -66,6 +84,8 @@ class DynamicIndex:
         return self.inner.knn_batch(queries, k)
 
     def knn_with_ef_batch(self, queries, k: int, ef: int):
+        if self.is_hnsw:
+            return self.inner.knn_with_ef_batch(queries, k, ef)
         return self.knn_batch(queries, k)
 
     def knn_pq_batch(self, queries, k: int, ef: int, pq):
@@ -77,11 +97,12 @@ class DynamicIndex:
 
     @classmethod
     def from_state(cls, arrays: dict, meta: dict, device="cuda") -> "DynamicIndex":
-        if meta["algorithm"] == "HNSW":
-            raise NotImplementedError(f"loading an HNSW checkpoint: {HNSW_TODO}")
         if meta["algorithm"] == "FlatU8":
             raise NotImplementedError(f"loading a FlatU8 checkpoint: {U8_TODO}")
         self = cls.__new__(cls)
-        self.inner = FlatIndex.from_state(arrays, meta, device=device)
+        if meta["algorithm"] == "HNSW":
+            self.inner = HNSWIndex.from_state(arrays, meta, device=device)
+        else:
+            self.inner = FlatIndex.from_state(arrays, meta, device=device)
         self.data_type = "float32"
         return self

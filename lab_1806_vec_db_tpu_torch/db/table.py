@@ -6,10 +6,10 @@ reference's lifecycle invariants:
 - search routing: (ef, pq) -> knn_pq, ef -> knn_with_ef, else knn; then the
   upper_bound filter and the metadata join.
 
-PQ tables are not ported yet: `build_pq_table` and loading a checkpoint that
-holds one raise NotImplementedError.  Checkpoints are the JAX package's
-single-file npz + JSON format, so a table saved by either package loads in
-the other.
+Flat and HNSW tables are ported; PQ tables are not yet: `build_pq_table` and
+loading a checkpoint that holds one raise NotImplementedError.  Checkpoints
+are the JAX package's single-file npz + JSON format, so a table saved by
+either package loads in the other.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 from .store import VecStore
 from .flat import FlatIndex
+from .hnsw import HNSWIndex
 from . import base
 
-__all__ = ["VecStore", "FlatIndex", "base"]
+__all__ = ["VecStore", "FlatIndex", "HNSWIndex", "base"]

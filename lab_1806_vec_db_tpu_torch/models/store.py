@@ -8,10 +8,12 @@
 - the scan-PERMUTED int8 mirror (`device_int8`) feeds K1, with +BIG
   sentinels on invalid rows;
 - the rerank rows (`device_rerank`) ARE the f32 device tensor: K2 reads
-  rows in place, so the reference's second (cap*SR, 128) slab copy is gone.
+  rows in place, so the reference's second (cap*SR, 128) slab copy is gone;
+- the bf16 traversal copy (`device_traversal`) serves only the HNSW graph
+  search of the CPU route, built on first use.
 
-The lean tier, the PCA projection and the bf16 traversal copy are not
-ported yet (ROADMAP queue 1, items 10, 13 and 5).
+The lean tier and the PCA projection are not ported yet (ROADMAP queue 1,
+items 10 and 13).
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class VecStore:
         self._dev: torch.Tensor | None = None
         self._dev_cache: torch.Tensor | None = None
         self._dev_int8: tuple | None = None  # (q8, scale, cache, perm)
+        self._dev_bf16: torch.Tensor | None = None  # traversal copy
         self._scan_perm: np.ndarray | None = None  # fixed scan shuffle
         self._scan_inv: np.ndarray | None = None
         self._int8_ok: tuple[bool, int] | None = None  # (verdict, n at test)
@@ -120,9 +123,9 @@ class VecStore:
 
     def device_bytes(self) -> int:
         """Bytes of this store's live device tensors: the f32 rows (which
-        are also the rerank rows), the distance cache and the int8 mirror
-        with its channels and permutation."""
-        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ())]
+        are also the rerank rows), the distance cache, the int8 mirror with
+        its channels and permutation, and the bf16 traversal copy."""
+        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), self._dev_bf16]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def set_scan_bound(self, bound: int | None) -> None:
@@ -172,6 +175,7 @@ class VecStore:
         self._cap = new_cap
         self._dev = None
         self._dev_cache = None
+        self._dev_bf16 = None
         self._dev_full_dirty = True
         self._dirty_rows.clear()
 
@@ -231,6 +235,7 @@ class VecStore:
                 self._dev = torch.from_numpy(host).to(self.torch_device)
                 self._dev_cache = D.dist_cache(self._dev, self.dist)
                 self._dev_int8 = None
+                self._dev_bf16 = None
                 self._int8_ok = None
                 self._dev_full_dirty = False
                 self._dirty_rows.clear()
@@ -250,6 +255,8 @@ class VecStore:
         cache_v = D.dist_cache(vals, self.dist)
         self._dev.index_copy_(0, rows_t, vals)
         self._dev_cache.index_copy_(0, rows_t, cache_v)
+        if self._dev_bf16 is not None:
+            self._dev_bf16.index_copy_(0, rows_t, vals.to(torch.bfloat16))
         if self._dev_int8 is not None:
             q8, scale, cache_p, _ = self._dev_int8
             rows_scan = torch.from_numpy(self._scan_inv[rows].astype(np.int64)).to(self.torch_device)
@@ -263,6 +270,17 @@ class VecStore:
     def device_rerank(self) -> torch.Tensor:
         """The rows K2 reads: the synced f32 (cap, dim) tensor itself."""
         return self.device()[0]
+
+    def device_traversal(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(vectors (cap, dim) bf16, dist_cache (cap,) f32), synced.  The
+        bf16 copy serves the graph traversal of the CPU route only; its
+        distances are approximate (~1e-2 relative), so callers rerank the
+        final beam against the exact f32 rows (`device()`)."""
+        with self._lock:
+            vecs, cache = self.device()
+            if self._dev_bf16 is None:
+                self._dev_bf16 = vecs.to(torch.bfloat16)
+            return self._dev_bf16, cache
 
     def device_int8(self):
         """The SCAN-PERMUTED int8 mirror: ((cap, dim_pad) int8 rows, (cap,)

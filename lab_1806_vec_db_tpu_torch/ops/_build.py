@@ -1,10 +1,13 @@
 """Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
 
 The sources are compiled at first use into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+C interface (no PyTorch headers, so a build takes seconds): one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libvecdb_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj>.o csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libvecdb_<hash>.so <obj>.o ...
 
 The library lands in `lab_1806_vec_db_tpu_torch/_build/` (git-ignored),
 named by a hash of the sources and flags, so an edit to any source triggers a
@@ -27,10 +30,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -69,8 +70,43 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_scan_int8_packed.restype = I
     lib.vecdb_gather_dists.argtypes = [P, P, P, P, I, I, I, L, I, P]
     lib.vecdb_gather_dists.restype = I
+    lib.vecdb_beam_pre.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.vecdb_beam_pre.restype = I
+    lib.vecdb_beam_post.argtypes = [P] * 9 + [I] * 4 + [P]
+    lib.vecdb_beam_post.restype = I
+    lib.vecdb_traverse.argtypes = [P] * 6 + [I, I, L] + [I] * 7 + [P]
+    lib.vecdb_traverse.restype = I
     lib.vecdb_error_string.argtypes = [I]
     lib.vecdb_error_string.restype = ctypes.c_char_p
+
+
+def _compile_and_link(srcs: list[str], out: str) -> str:
+    """Compile every source in parallel, link them into `out`; returns the
+    compiler output.  Everything is built under a private directory and
+    renamed into place, so concurrent builds never load a half-written
+    library."""
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        failed = [p for p, proc in zip(srcs, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {[os.path.basename(p) for p in failed]}:\n{log}")
+        lib_tmp = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        os.replace(lib_tmp, out)
+        return log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:
@@ -87,20 +123,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         log = ""
         if not os.path.exists(out):
-            # build to a private name, then rename: concurrent builds never
-            # load a half-written library
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-            os.close(fd)
-            try:
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                log = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            log = _compile_and_link(srcs, out)
         build_info.update(seconds=time.perf_counter() - t0, path=out, log=log)
         lib = ctypes.CDLL(out)
         _declare(lib)

@@ -1,4 +1,5 @@
-"""Top-k selection over distance tiles (port of lab_1806_vec_db_tpu/ops/topk.py).
+"""Top-k selection over distance tiles and candidate lists (port of
+lab_1806_vec_db_tpu/ops/topk.py).
 
 Results ascend by distance.  Ties come out as `lax.top_k` orders them in the
 reference, lower position first: every selection here is a STABLE sort, never
@@ -136,6 +137,28 @@ def int8_ordering_selftest(vecs: torch.Tensor, n_valid: int, dist: str) -> float
     t_int8 = torch.sort(d_int8, dim=1, stable=True)[1][:, :12]
     hit = (t_exact[:, :, None] == t_int8[:, None, :]).any(2)
     return float(hit.float().mean())
+
+
+def knn_gathered(queries, base, cand_ids, k: int, dist: str, base_cache=None):
+    """kNN over per-query candidate id lists (the HNSW beam's rerank on the
+    CPU route): exact f32 distances by the cached-norm formula, then a
+    stable top-k.  queries (B, dim); cand_ids (B, C) int32, -1 padded.
+    Returns ((B, k) f32 ascending, (B, k) int32), -1 where not finite."""
+    safe = cand_ids.clamp_min(0).long()
+    v = base[safe].float()  # (B, C, dim)
+    q = queries.float()
+    dots = torch.bmm(v, q[:, :, None])[:, :, 0]
+    v_sq = base_cache[safe] if base_cache is not None else None
+    if dist == "l2sqr":
+        v_sq = v_sq if v_sq is not None else (v * v).sum(-1)
+        d = ((q * q).sum(-1, keepdim=True) + v_sq - 2.0 * dots).clamp_min_(0.0)
+    else:
+        v_n = v_sq if v_sq is not None else (v * v).sum(-1).sqrt()
+        q_n = (q * q).sum(-1, keepdim=True).sqrt()
+        d = 1.0 - dots / (q_n * v_n).clamp_min(1e-10)
+    d = torch.where(cand_ids >= 0, d, float("inf"))
+    bd, bi = topk_smallest(d, cand_ids, min(k, cand_ids.shape[1]))
+    return _pad_k(bd, bi, k)
 
 
 def exact_distances_sorted(queries, base, ids, dist: str, base_cache=None):

@@ -1,0 +1,96 @@
+"""K3: the whole level-0 HNSW beam search in one kernel (port of
+ops/pallas_traverse.py's `traverse`).
+
+Per query the kernel (`csrc/traverse.cu`) runs the fused lock-step loop of
+`ops/beam.py` with all of its state in shared memory: each iteration reads
+the level-0 links of the E selected ids straight from the (cap, L) link
+matrix, dedups and compacts them (K4's body), scores the novel rows (K2's
+row distance), and merges and selects (K5's body), until no beam entry is
+left unexpanded or `max_iters` is reached.  The three bodies live in one
+header (`csrc/beam_body.cuh`), so K3 is K4 + K5 plus a row gather, with
+the same semantics and the same distance bits as K2.
+
+The reference packed the links into an (N, 128) table with the node's own
+id in lane 0, a TPU DMA-alignment trick; a CUDA thread reads the (cap, L)
+rows in place, so there is no packed copy.
+
+`traverse_ref` is the plain version: the same loop on the plain K4, K5 and
+K2 versions.  On a CUDA tensor `traverse` launches the kernel (no fallback);
+on a CPU tensor it runs `traverse_ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import beam as BM
+from . import beam_fused as BF
+from . import gather as G
+
+EL = 128  # neighbor-tile lanes: the kernel requires E * L == 128
+
+
+def _widths(ef: int) -> int:
+    return BF.pow2(max(ef, EL))
+
+
+def traverse_ref(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
+                 max_iters: int = 92, dist: str = "l2sqr"):
+    """Plain version of K3 -> ((B, ef) f32 sorted dists, (B, ef) int32 ids)."""
+    nd = lambda ids: G.gather_dists_ref(q, base, ids, dist)
+    lf = lambda ids: links0[ids.long()]
+    return BM.lockstep(entry, nd, lf, ef, max_iters, E, R, BF.beam_pre_ref, BF.beam_post_ref)
+
+
+def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
+             max_iters: int = 92, dist: str = "l2sqr"):
+    """Level-0 beam search from per-query entries.
+
+    q (B, dim) f32 queries; base (n_rows, dim) f32 rows (the store's, read
+    in place); links0 (n_rows, L) int32 level-0 links, -1 padded; entry (B,)
+    int32 (-1 = padding query).  E * L must be 128; R <= 256 ring slots.
+    Returns ((B, ef) f32 exact distances ascending, (B, ef) int32 ids), -1
+    / inf padded.  CUDA tensors launch the kernel and count it in
+    `traverse.launches`."""
+    if dist not in ("l2sqr", "cosine"):
+        raise ValueError("Invalid distance function")
+    if E * L != EL or links0.dim() != 2 or links0.shape[1] != L:
+        raise ValueError(f"traverse needs E * L == {EL} and links0 (n, L); got E={E}, L={L}, "
+                         f"links0 {tuple(links0.shape)}")
+    if not 0 < E <= R <= 256 or ef <= 0 or _widths(ef) > BF.MAX_W:
+        raise ValueError(f"traverse: need 0 < E <= R <= 256 and 0 < ef <= {BF.MAX_W}")
+    if q.dtype != torch.float32 or base.dtype != torch.float32:
+        raise TypeError("traverse takes f32 queries and rows")
+    if links0.dtype != torch.int32 or entry.dtype != torch.int32:
+        raise TypeError("links0 and entry must be int32")
+    B, dim = q.shape
+    if base.shape[1] != dim or entry.shape != (B,) or links0.shape[0] != base.shape[0]:
+        raise ValueError("traverse: shape mismatch among q, base, links0, entry")
+    devs = {q.device, base.device, links0.device, entry.device}
+    if len(devs) != 1:
+        raise ValueError(f"all operands must be on one device, got {devs}")
+    dev = devs.pop()
+    if not base.is_contiguous() or not links0.is_contiguous():
+        raise ValueError("base and links0 must be contiguous (the kernel reads them in place)")
+    if dev.type == "cpu":
+        return traverse_ref(q, base, links0, entry, ef, L, E, R, max_iters, dist)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no K3 kernel for device {dev}")
+    q, entry = q.contiguous(), entry.contiguous()
+    out_d = torch.empty((B, ef), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, ef), dtype=torch.int32, device=dev)
+    vec4 = dim % 4 == 0 and base.data_ptr() % 16 == 0
+    flags = (1 if dist == "cosine" else 0) | (2 if vec4 else 0)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.vecdb_traverse(
+            q.data_ptr(), base.data_ptr(), links0.data_ptr(), entry.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), B, dim, base.shape[0], L, ef, _widths(ef), R, E,
+            max_iters, flags, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "traverse")
+    traverse.launches += 1
+    return out_d, out_i
+
+
+traverse.launches = 0

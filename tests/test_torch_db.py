@@ -122,25 +122,24 @@ def test_unported_features_raise_not_implemented(tmp_path):
     try:
         db.create_table_if_not_exists("t", 4, "l2sqr")
         db.add("t", [1.0, 0.0, 0.0, 0.0], {"a": "b"})
-        with pytest.raises(NotImplementedError, match="HNSW"):
-            db.build_hnsw_index("t")
         with pytest.raises(NotImplementedError, match="PQ"):
             db.build_pq_table("t")
         with pytest.raises(NotImplementedError, match="uint8"):
             db.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
-        assert not db.has_hnsw_index("t") and not db.has_pq_table("t")
+        assert not db.has_pq_table("t")
+        db.build_hnsw_index("t")  # HNSW is ported
+        assert db.has_hnsw_index("t")
     finally:
         db.close()
-    # an HNSW checkpoint written by the JAX package does not load yet
+    # a uint8 checkpoint written by the JAX package does not load yet
     jdb = JVecDB(str(tmp_path / "jdb"))
-    jdb.create_table_if_not_exists("h", 4, "l2sqr")
-    jdb.batch_add("h", np.eye(4, dtype=np.float32), [{"i": str(i)} for i in range(4)])
-    jdb.build_hnsw_index("h")
+    jdb.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
+    jdb.batch_add("u", np.eye(4, dtype=np.float32), [{"i": str(i)} for i in range(4)])
     jdb.close()
     db = VecDB(str(tmp_path / "jdb"), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="HNSW"):
-            db.get_len("h")
+        with pytest.raises(NotImplementedError, match="uint8"):
+            db.get_len("u")
     finally:
         db.close()
 
@@ -191,21 +190,31 @@ db = P.VecDB(sys.argv[1], device="cpu")
 db.create_table_if_not_exists("t", 8, "cosine")
 db.batch_add("t", base[:10], [{"i": str(j)} for j in range(10)])
 assert db.search("t", base[2], 1)[0][0] == {"i": "2"}
+db.create_table_if_not_exists("h", 8, "l2sqr")
+db.batch_add("h", base[:300], [{"i": str(j)} for j in range(300)])
+db.build_hnsw_index("h")
+assert db.batch_search("h", base[5:7], 1, ef=32)[0][0][0] == {"i": "5"}
 db.close()
+from lab_1806_vec_db_tpu_torch.models import HNSWIndex
+from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF, traverse as TR
+h = HNSWIndex.build(base[:300], "l2sqr", device="cpu")
+h.knn_with_ef_batch(base[:2], 3, 32, route="graph")
+h.traversal_stats(base[:2], 3, 32)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "lab_1806_vec_db_tpu.")) or m == "lab_1806_vec_db_tpu")
 print("BAD", bad)
-print("LAUNCHES", S.scan_chunkmin_int8_packed.launches, G.gather_dists.launches)
+print("LAUNCHES", S.scan_chunkmin_int8_packed.launches, G.gather_dists.launches,
+      TR.traverse.launches, BF.beam_pre.launches, BF.beam_post.launches)
 """
 
 
 def test_port_imports_no_jax_and_launches_nothing_on_cpu(tmp_path):
-    """In a fresh interpreter, a CPU search through the port leaves jax and
-    the JAX package out of sys.modules, and the kernel launch counters at 0
-    (CPU tensors take the plain versions)."""
+    """In a fresh interpreter, CPU searches through the port (Flat and HNSW,
+    both graph loops) leave jax and the JAX package out of sys.modules, and
+    every kernel launch counter at 0 (CPU tensors take the plain versions)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST")}
     env["PYTHONPATH"] = REPO
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(tmp_path)], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout
-    assert "LAUNCHES 0 0" in res.stdout
+    assert "LAUNCHES 0 0 0 0 0" in res.stdout

@@ -1,0 +1,92 @@
+"""K3 (the single-kernel level-0 traversal) of the PyTorch port against the
+JAX package's Pallas kernel, run in interpret mode on the CPU.
+
+On CPU tensors `traverse` runs its plain version `traverse_ref` (the fused
+lock-step loop on the plain K4, K5 and K2 versions); the CUDA kernel is held
+against it on the card by `chip_smoke.py`.  The semantics are identical;
+the distances are f32 sums in different orders, so a tie at the tail of a
+beam may flip: id overlap >= 0.97 and the first 8 distances within rtol /
+atol 1e-5, the reference's own tolerance for its kernel."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from lab_1806_vec_db_tpu.ops import pallas_gather as PG
+from lab_1806_vec_db_tpu.ops import pallas_traverse as PT
+from lab_1806_vec_db_tpu_torch.ops import beam as BM
+from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+from lab_1806_vec_db_tpu_torch.ops import gather as G
+from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+
+def _inputs(N=2000, dim=64, L=32, B=16, seed=0):
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((N, dim)).astype(np.float32)
+    links = rng.integers(0, N, (N, L)).astype(np.int32)
+    q = rng.standard_normal((B, dim)).astype(np.float32)
+    entry = rng.integers(0, N, (B,)).astype(np.int32)
+    return base, links, q, entry
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_traverse_ref_matches_pallas(dist):
+    L, E, ef = 32, 4, 32
+    base, links, q, entry = _inputs(L=L)
+    if dist == "cosine":
+        entry[3] = -1  # a padding query: empty result
+    d1, i1 = PT.traverse(jnp.asarray(q), PG.prepare_rerank_base(jnp.asarray(base)),
+                         PT.pack_links(jnp.asarray(links)), jnp.asarray(entry), ef, L, E=E,
+                         R=256, max_iters=20, dist=dist, bq=16, interpret=True)
+    d2, i2 = TR.traverse_ref(*(torch.from_numpy(a) for a in (q, base, links, entry)), ef, L, E=E,
+                             R=256, max_iters=20, dist=dist)
+    i1n, i2n = np.asarray(i1), i2.numpy()
+    live = entry >= 0
+    overlap = np.mean([len(set(i1n[b].tolist()) & set(i2n[b].tolist())) / ef
+                       for b in np.nonzero(live)[0]])
+    assert overlap >= 0.97, overlap
+    np.testing.assert_allclose(d2.numpy()[:, :8], np.asarray(d1)[:, :8], rtol=1e-5, atol=1e-5)
+    # a padding query comes back empty from both
+    assert (i1n[~live] == -1).all() and (i2n[~live] == -1).all()
+
+
+def test_traverse_wrapper_on_cpu_is_the_plain_version():
+    base, links, q, entry = (torch.from_numpy(a) for a in _inputs(N=500, dim=24, L=16, B=8, seed=1))
+    launches = TR.traverse.launches
+    d1, i1 = TR.traverse(q, base, links, entry, 40, 16, E=8, R=128, max_iters=60)
+    d2, i2 = TR.traverse_ref(q, base, links, entry, 40, 16, E=8, R=128, max_iters=60)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2)
+    assert TR.traverse.launches == launches  # CPU tensors launch nothing
+    # the beam is sorted, exact, -1/inf padded only at its tail
+    d, i = d1.numpy(), i1.numpy()
+    assert (np.diff(d, axis=1)[np.isfinite(d[:, 1:])] >= 0).all()
+    fin = i >= 0
+    exact = G.gather_dists_ref(q, base, i1, "l2sqr").numpy()
+    np.testing.assert_array_equal(d[fin], exact[fin])
+
+
+def test_traverse_ref_is_the_fused_loop_with_its_widths():
+    """traverse_ref is the fused lock-step loop with W = pow2(max(ef, 128))
+    and the ring as given; with the ring rounded as `beam_search_fused`
+    rounds it the two agree exactly."""
+    base, links, q, entry = (torch.from_numpy(a) for a in _inputs(N=800, dim=16, L=32, B=8, seed=2))
+    nd = lambda ids: G.gather_dists(q, base, ids, "l2sqr")
+    lf = lambda ids: links[ids.long()]
+    d1, i1 = TR.traverse_ref(q, base, links, entry, 48, 32, E=4, R=128, max_iters=50)
+    d2, i2 = BM.beam_search_fused(entry, nd, lf, 48, 50, expand=4, ring_size=128)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2)
+    d3, i3 = BM.lockstep(entry, nd, lf, 48, 50, 4, 128, BF.beam_pre_ref, BF.beam_post_ref)
+    assert torch.equal(i1, i3)
+
+
+def test_traverse_rejects_what_the_kernel_does_not_take():
+    base, links, q, entry = (torch.from_numpy(a) for a in _inputs(N=100, dim=8, L=16, B=2))
+    with pytest.raises(ValueError, match="E \\* L"):
+        TR.traverse(q, base, links, entry, 10, 16, E=4)  # 64 lanes, not 128
+    with pytest.raises(ValueError):
+        TR.traverse(q, base, links, entry, 10, 16, E=8, R=512)
+    with pytest.raises(TypeError):
+        TR.traverse(q, base, links.long(), entry, 10, 16, E=8)
+    with pytest.raises(ValueError):
+        TR.traverse(q, base, links, entry, 10, 16, E=8, dist="dot")
