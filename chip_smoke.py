@@ -26,21 +26,42 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                plain versions (B = 1000, W 128 and 256), K3 against its
                plain version on the route's B = 1000 queries at every ef,
                index_bytes, and close / reopen as HNSW;
+     pq      — inside phase 5, after hnsw (the reference's PQ settings: 4-bit
+               codes, m = 320, 10,000 k-means samples, 20 iterations):
+               vecdb_pq_cos_200k, VecDB.build_pq_table on the cosine table
+               and batch_search(ef=200) (K7 with the cosine column, K2);
+               hnsw_pq_200k, a PQ table on the l2sqr HNSW table and
+               knn_pq_batch at ef 180 / 360 / 600 on route auto (mirror:
+               K1 + K2), scan (K7 + K2), graph (K8 ids in K4 -> K8 -> K5)
+               and graph with fused=False (K8 ids + K6); an n_bits = 8
+               table on the scan (K9 dense) and graph (K9 ids) routes; a
+               60,000-row Flat+PQ table at ef 600 (K8 dense, int8 LUT);
+               each route's recall against the exact scan and its QPS, and
+               on 128 queries its recall with the kernels and with their
+               plain versions (must agree within 0.005, with every kernel
+               count still 0 after the plain run); K6 against its plain
+               version at B = 1000, EL = 128 and ef 180 / 360 / 600, K8 and
+               K9 ids at widths 1 / 16 / 128, K8 / K9 dense on one block;
   6. 1M      — FlatIndex at 1,000,000 x 960 (device-born): recall@10 against
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
-               kernel against its plain version, and index_device_bytes.
+               kernel against its plain version, and index_device_bytes;
+     pq      — flat_pq_1m: PQTable.train from the store's device tensor,
+               FlatIndex.knn_pq_batch at ef 100 / 200 (K7 + K2), and K7
+               against its plain version on all 1,000,000 rows, bit for bit.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
 the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
-traversal_stats run), its error against the plain version, both times, the
-least time the card could take (`bound_ms`) and a library call's time where
-one PyTorch call computes the same function (none does: null).
+traversal_stats run; K6-K9: the first call of the PQ route that takes each),
+its error against the plain version, both times, the least time the card
+could take (`bound_ms`) and a library call's time where one PyTorch call
+computes the same function (K6: a stable torch.sort and a gather; else null).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -395,6 +416,409 @@ def phase_hnsw(db, db_dir, key, q_host, gt):
     return out, launches, meas, db
 
 
+# ---------------------------------------------------------------- pq ----
+# The reference's PQ settings (config/bench_pq_hnsw.toml,
+# config/bench_10000_pq_flat.toml): 4-bit codes, m = 320, 10,000 k-means
+# samples, 20 iterations, tol 1e-6.
+PQ_M, PQ_SAMPLES = 320, 10_000
+GATE_Q = 128  # queries of the kernel-vs-plain recall gate
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper a search route reaches swapped for its plain
+    PyTorch version (the callers look the wrappers up as module attributes
+    at call time), so a route runs on the card without its kernels."""
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    swaps = [
+        (S, "scan_chunkmin_int8_packed", lambda q8, qs2, qc, b, s, c:
+            S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(b, s, c, S._NB))),
+        (G, "gather_dists", G.gather_dists_ref),
+        (BF, "beam_pre", BF.beam_pre_ref),
+        (BF, "beam_post", BF.beam_post_ref),
+        (M, "merge_sorted", M.merge_sorted_ref),
+        (A, "adc_chunkmin", A.adc_chunkmin_ref),
+        (A, "adc_sums_dense", A.adc_sums_dense_ref),
+        (A, "adc_sums_ids", lambda codes, lut, ids, m, packed, shared=False:
+            A.adc_sums_ids_ref(codes, lut, ids, m, packed, shared)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def pq_counts(reset: bool = False) -> dict:
+    """The launch count of every kernel a PQ route can reach; with `reset`
+    the counts are set to 0 (and the zeros returned)."""
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    plain = {"k1": S.scan_chunkmin_int8_packed, "k2": G.gather_dists, "k4": BF.beam_pre,
+             "k5": BF.beam_post, "k6": M.merge_sorted, "k7": A.adc_chunkmin}
+    by_k = {"k8_dense": (A.adc_sums_dense, 16), "k8_ids": (A.adc_sums_ids, 16),
+            "k9_dense": (A.adc_sums_dense, 256), "k9_ids": (A.adc_sums_ids, 256)}
+    if reset:
+        for fn in plain.values():
+            fn.launches = 0
+        for fn, k in by_k.values():
+            fn.launches[k] = 0
+    return {**{name: fn.launches for name, fn in plain.items()},
+            **{name: fn.launches[k] for name, (fn, k) in by_k.items()}}
+
+
+def run_route(name, search, gt, need, B, rounds, per_round):
+    """One route of a PQ cell: the counts set to 0 just before its first
+    call and read just after (each kernel in `need` must have launched),
+    recall@10 against the exact scan, QPS of `rounds` rounds of `per_round`
+    synchronous calls (best and median), one call under torch.profiler
+    (device busy share), and the same route on the first
+    GATE_Q queries with the kernels and with their plain versions, whose
+    recalls must agree within 0.005.  `search(n_queries)` returns (B, 10)
+    host ids for the first n queries."""
+    import numpy as np
+
+    pq_counts(reset=True)
+    ids = search(B)
+    launches = pq_counts()
+    missing = [k for k in need if launches[k] == 0]
+    check(not missing, f"pq {name}: kernels {missing} launched no time ({launches})")
+    ids = np.asarray(ids)
+    check(ids.shape == (B, 10) and bool((ids >= 0).all()), f"pq {name}: malformed ids {ids.shape}")
+    rec = recall_at_k(gt, ids.tolist(), 10)
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            search(B)
+        times.append(time.perf_counter() - t0)
+    profile = profile_call(lambda: search(B))
+    rec_k = recall_at_k(gt[:GATE_Q], np.asarray(search(GATE_Q)).tolist(), 10)
+    pq_counts(reset=True)
+    with plain_kernels():
+        rec_p = recall_at_k(gt[:GATE_Q], np.asarray(search(GATE_Q)).tolist(), 10)
+    # the gate compared kernels with plain versions only if no kernel ran
+    stray = {k: v for k, v in pq_counts().items() if v}
+    check(not stray, f"pq {name}: kernels {stray} launched under plain_kernels()")
+    check(abs(rec_k - rec_p) <= 0.005,
+          f"pq {name}: recall@10 on {GATE_Q} queries {rec_k:.4f} with kernels, {rec_p:.4f} plain")
+    return {"recall_at_10": rec, "qps_best": per_round * B / min(times),
+            "qps_median": per_round * B / float(np.median(times)),
+            "ms_per_call_rounds": [t / per_round * 1e3 for t in times],
+            "gate_recall_kernels": rec_k, "gate_recall_plain": rec_p, "profile": profile,
+            "launches": launches}
+
+
+def _rand_merge_state(rng, B, ef, EL, N):
+    """K6 inputs shaped like a classic-loop iteration's: a sorted (B, ef)
+    beam with an inf / -1 tail and expansion flags, an unsorted (B, EL)
+    scored tile with stale (inf, -1) lanes and exact ties with the beam."""
+    import numpy as np
+
+    beam_d = np.sort(rng.random((B, ef)).astype(np.float32), axis=1)
+    beam_i = rng.integers(0, N, (B, ef)).astype(np.int32)
+    fill = rng.integers(ef // 2, ef + 1, B)
+    tail = np.arange(ef)[None, :] >= fill[:, None]
+    beam_d[tail], beam_i[tail] = np.inf, -1
+    beam_e = (rng.random((B, ef)) < 0.5) & ~tail
+    nids = rng.integers(-1, N, (B, EL)).astype(np.int32)
+    nd = rng.random((B, EL)).astype(np.float32)
+    nd[:, 5] = beam_d[:, 3]  # exact ties with the beam
+    nd[:, 9] = nd[:, 7]      # and within the tile
+    nd[nids < 0] = np.inf
+    return beam_d, beam_i, beam_e, nd, nids
+
+
+def check_k6(B, ef, EL, N):
+    """K6 against its plain version at one of the classic loop's shapes
+    (ef 180 / 360 sort 512 keys with 204 / 24 padding keys, ef 600 sorts
+    1024): all three outputs equal; times, bound and the library line (one
+    stable torch.sort of the (B, ef + EL) concatenation + the id gather)."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+
+    st = [torch.from_numpy(a).cuda() for a in _rand_merge_state(np.random.default_rng(6), B, ef, EL, N)]
+    got, ref = M.merge_sorted(*st), M.merge_sorted_ref(*st)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d", "i", "e"), got, ref):
+        check(torch.equal(a, b), f"K6 (B {B}, ef {ef}, EL {EL}): {name} differs from the plain version")
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    bd, bi, _, nd, ni = st
+
+    def library():
+        d, pos = torch.sort(torch.cat([bd, nd], 1), dim=1, stable=True)
+        return d[:, :ef], torch.gather(torch.cat([bi, ni], 1), 1, pos[:, :ef])
+
+    ms, plain_ms = in_turns(lambda: M.merge_sorted(*st), lambda: M.merge_sorted_ref(*st), 50, 20)
+    lib_ms = cuda_ms(library, 20)
+    # reads beam d / i / e (1 byte) and the tile's d / i; writes d / i / e
+    bound = bound_ms(B * (9 * ef + 8 * EL) + B * 9 * ef)
+    log(f"[pq] K6 (B {B}, ef {ef}, EL {EL}) equal to its plain version; {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sort+gather {lib_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "library_ms": lib_ms,
+            "shape": [B, ef, EL]}
+
+
+def check_sums_ids(codes, lookup, m, packed, N, tag):
+    """K8 / K9's ids shape against its plain version at each width the
+    graph route gives it: C 1 (a descent's entry), 16 (an upper level's
+    links) and 128 (the fused loop's tile: E 4 x L 32), 10% of the ids -1,
+    with the route's bf16 LUT: rtol 1e-5 (only the summation order may
+    differ).  Timed and bounded at C 128."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    B, k = lookup.shape[0], lookup.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lut = lookup.to(torch.bfloat16)
+    err = 0.0
+    for C in (1, 16, 128):
+        ids = torch.randint(0, N, (B, C), generator=gen, device="cuda", dtype=torch.int32)
+        ids[torch.rand((B, C), generator=gen, device="cuda") < 0.1] = -1
+        got, ref = A.adc_sums_ids(codes, lut, ids, m, packed), A.adc_sums_ids_ref(codes, lut, ids, m, packed, False)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isinf(got), ids < 0), f"{tag} ids (C {C}): +inf not exactly at id -1")
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+        err = max(err, max_abs_err(got, ref))
+    ms, plain_ms = in_turns(lambda: A.adc_sums_ids(codes, lut, ids, m, packed),
+                            lambda: A.adc_sums_ids_ref(codes, lut, ids, m, packed, False), 20, 3)
+    cw = codes.shape[1]
+    # ids, the gathered code rows, the bf16 LUT; the (B, 128) f32 output
+    bound = bound_ms(B * 128 * 4 + B * 128 * cw + B * m * k * 2 + B * 128 * 4)
+    log(f"[pq] {tag} ids (B {B}, C 1 / 16 / 128, m {m}, k {k}) within rtol 1e-5 of its plain "
+        f"version (max abs err {err:.3g}); at C 128 {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "shape": [B, 128, m, k], "widths_checked": [1, 16, 128]}
+
+
+def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype):
+    """K8 / K9's dense shape against its plain version on one scan block
+    of `adc_scan_pallas` with the route's LUT rounding: int8 bit for bit,
+    bf16 rtol 1e-5."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    codes = codes[:131072]
+    lut, scales = A.round_lut(lookup, lut_dtype)
+    got, ref = A.adc_sums_dense(codes, lut, scales, m, packed), A.adc_sums_dense_ref(codes, lut, scales, m, packed)
+    torch.cuda.synchronize()
+    if lut.dtype == torch.int8:
+        check(torch.equal(got, ref), f"{tag} dense: differs from its plain version (int8 LUT)")
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    ms, plain_ms = in_turns(lambda: A.adc_sums_dense(codes, lut, scales, m, packed),
+                            lambda: A.adc_sums_dense_ref(codes, lut, scales, m, packed), 5, 1)
+    R, k, N = lut.shape[0], lut.shape[2], codes.shape[0]
+    # the codes, the LUT (+ int8 scales); the (R, N) f32 output
+    bound = bound_ms(N * codes.shape[1] + lut.numel() * lut.element_size() + 4 * R + 4 * R * N)
+    log(f"[pq] {tag} dense (R {R}, N {N}, m {m}, k {k}, {lut.dtype}) agrees with its plain version "
+        f"(max abs err {max_abs_err(got, ref):.3g}); {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return {"max_abs_err": max_abs_err(got, ref), "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "shape": [R, N, m, k]}
+
+
+def check_k7(pq, q, tag):
+    """K7 against its plain version on the whole scan (every row of the
+    table, all B queries): survivors and positions equal bit for bit.
+    Bound: the permuted codes, the int8 LUT and the survivors against the
+    2 N B m 16 int8 operations of the one-hot product.  That operation
+    bound is the method's, not the function's (which needs N B m lookup-adds,
+    1/16 of them); the byte bound is reported beside it as the floor a
+    rewrite of K7 is held to."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    lookup, q_norms = pq.create_lookup(q)
+    _, _, cb_sq = pq.device()
+    codes_s, _ = pq.device_scan()
+    N, cw = codes_s.shape
+    S = -(-N // A._NT) * A._NT // A.CHUNK
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(lookup, cb_sq, pq.config.dist, pq.packed, cw)
+    args = (codes_s, lut_q, scales, q_norms, cs_q, cs_scale, len(pq), pq.packed, S)
+    t0 = time.perf_counter()
+    ref = A.adc_chunkmin_ref(*args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = A.adc_chunkmin(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          f"K7 {tag}: {int((got[1] != ref[1]).sum())} survivors differ from the plain version")
+    ms, plain_ms = in_turns(lambda: A.adc_chunkmin(*args), lambda: A.adc_chunkmin_ref(*args), 5, 1)
+    B, m = lut_q.shape[0], pq.config.m
+    moved = (N * cw + lut_q.numel() + 8 * B + (0 if cs_q is None else cs_q.numel())
+             + 8 * B * S)
+    bound = bound_ms(moved, 2.0 * len(pq) * B * m * 16)
+    bytes_bound = bound_ms(moved)[0]
+    log(f"[pq] K7 {tag} (N {N}, B {B}, m {m}): equal to its plain version bit for bit "
+        f"(plain {plain_s:.1f} s); {ms:.3f} ms, plain {plain_ms:.1f} ms, bound of the one-hot "
+        f"method {bound}, byte bound of the function {bytes_bound:.4f} ms")
+    return {"max_abs_err": max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1])),
+            "ms": ms, "plain_ms": plain_ms, "bound": bound, "shape": [N, B, m],
+            "extra": {"bound_ms_is_of": "the one-hot int8 product (2 N B m 16 operations), "
+                                        "not the ADC function (N B m lookup-adds)",
+                      "bytes_bound_ms": bytes_bound}}
+
+
+def pq_train(vecs, n_valid, n_bits, dist="l2sqr"):
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import PQTable
+    from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
+
+    cfg = PQConfig(n_bits=n_bits, m=PQ_M, dist=dist, k_means_size=PQ_SAMPLES, k_means_max_iter=20,
+                   k_means_tol=1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pq = PQTable.train(vecs, cfg, seed=0, n_valid=n_valid)
+    torch.cuda.synchronize()
+    return pq, time.perf_counter() - t0
+
+
+def phase_pq_1m(store, flat, q, gt):
+    """flat_pq_1m: Flat+PQ at 1,000,000 x 960 on the flat_1m store (K7 +
+    K2), the PQ table trained from the device tensor with n_valid."""
+    import numpy as np
+    import torch
+
+    n, B = len(store), q.shape[0]
+    pq, train_s = pq_train(store.device()[0], n, 4)
+    out = {"cell": "flat_pq_1m", "n": n, "batch": B, "m": PQ_M, "n_bits": 4, "train_s": train_s,
+           "adc_quality": pq.adc_quality}
+    log(f"[pq] flat_pq_1m: trained in {train_s:.1f} s, adc_quality {pq.adc_quality:.3f}")
+    for ef in (100, 200):
+        out[ef] = run_route(f"flat_pq_1m ef {ef}",
+                            lambda nq, ef=ef: flat._knn_pq_device(q[:nq], 10, ef, pq)[1].cpu().numpy(),
+                            gt, ("k7", "k2"), B, 5, 4)
+        log(f"[pq] flat_pq_1m ef {ef}: {out[ef]}")
+    out["device_bytes"] = pq.device_bytes()
+    k7 = check_k7(pq, q, "flat_pq_1m")
+    out["k7_vs_plain"] = "equal bit for bit, all 1000 queries x 1,000,000 rows"
+    return out, k7
+
+
+def phase_pq_200k(db, q_host, gts, x_host):
+    """vecdb_pq_cos_200k (Flat+PQ through VecDB on the cosine table),
+    hnsw_pq_200k (the l2sqr HNSW table with a PQ table built through VecDB:
+    the auto, scan, graph and classic graph routes at ef 180 / 360 / 600,
+    then an n_bits = 8 table on the scan and graph routes) and the 60,000-row
+    Flat+PQ table that takes K8's dense shape."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import FlatIndex
+
+    B, k = len(q_host), 10
+    q = torch.from_numpy(q_host).cuda()
+    out, meas, launches = {}, {}, {}
+
+    # cosine Flat+PQ through VecDB: K7 with the centroid-sqnorm column
+    key = "gist_cos"
+    t0 = time.perf_counter()
+    db.build_pq_table(key, 0.05, 4, PQ_M)
+    cos = {"cell": "vecdb_pq_cos_200k", "build_pq_table_s": time.perf_counter() - t0}
+    check(db.has_pq_table(key), "pq: has_pq_table is False after build_pq_table")
+    tbl = db._inner._table_mgr(key).obj
+    check(tbl.pq.config.k_means_size == PQ_SAMPLES, "pq: 0.05 of 200,000 rows is not 10,000 samples")
+    flat = tbl.inner.inner
+    cos["adc_quality"] = tbl.pq.adc_quality
+    cos["batch_search_ef200"] = run_route(
+        "vecdb_pq_cos_200k", lambda nq: [[int(m["id"]) for m, _ in r]
+                                         for r in db.batch_search(key, q_host[:nq], k, ef=200)],
+        gts[key], ("k7", "k2"), B, 3, 1)
+    meas["k7_cos"] = check_k7(tbl.pq, q, "vecdb_pq_cos_200k (cosine)")
+    cos["device_bytes"] = tbl.pq.device_bytes()
+    out["vecdb_pq_cos_200k"] = cos
+    log(f"[pq] vecdb_pq_cos_200k: {cos}")
+
+    # HNSW+PQ on the l2sqr HNSW table
+    key = "gist_l2"
+    t0 = time.perf_counter()
+    db.build_pq_table(key, 0.05, 4, PQ_M)
+    h = {"cell": "hnsw_pq_200k", "build_pq_table_s": time.perf_counter() - t0}
+    tbl = db._inner._table_mgr(key).obj
+    index, pq = tbl.inner.inner, tbl.pq
+    check(db.has_hnsw_index(key), "pq: the l2sqr table is not HNSW")
+    h["adc_quality"] = pq.adc_quality
+    gt = gts[key]
+    routes = (("auto", {}, ("k1", "k2")), ("scan", {"route": "scan"}, ("k7", "k2")),
+              ("graph", {"route": "graph"}, ("k8_ids", "k4", "k5", "k2")),
+              ("graph_classic", {"route": "graph", "fused": False}, ("k8_ids", "k6", "k2")))
+    for name, kw, need in routes:
+        h[name] = {}
+        for ef in (180, 360, 600):
+            if name == "auto":  # the user's entry point: VecDB.batch_search -> mirror
+                search = lambda nq, ef=ef: [[int(m["id"]) for m, _ in r]
+                                            for r in db.batch_search(key, q_host[:nq], k, ef=ef)]
+            else:
+                search = lambda nq, ef=ef, kw=kw: index.knn_pq_batch(q_host[:nq], k, ef, pq, **kw)[1]
+            h[name][ef] = run_route(f"hnsw_pq_200k {name} ef {ef}", search, gt, need, B,
+                                    2 if name == "graph_classic" else 3, 1)
+            if ef == 180 and name in ("graph", "graph_classic"):
+                launches[name] = h[name][ef]["launches"]
+        log(f"[pq] hnsw_pq_200k {name}: " + ", ".join(
+            f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in h[name].items()))
+    h["device_bytes"] = pq.device_bytes()
+    codes, _, _ = pq.device()
+    lookup, _ = pq.create_lookup(q)
+    meas["k8_ids"] = check_sums_ids(codes, lookup, PQ_M, True, len(pq), "K8")
+    # K6 at every ef the classic loop ran (EL = E 4 x L 32)
+    meas["k6"] = {ef: check_k6(B, ef, 128, len(index)) for ef in (180, 360, 600)}
+    out["hnsw_pq_200k"] = h
+
+    # n_bits = 8 on the same store: K9's dense (scan) and ids (graph) shapes
+    pq8, train_s = pq_train(index.store.device()[0], len(index), 8)
+    h8 = {"cell": "hnsw_pq_200k_nbits8", "train_s": train_s, "adc_quality": pq8.adc_quality}
+    for name, kw, need in (("scan", {"route": "scan"}, ("k9_dense", "k2")),
+                           ("graph", {"route": "graph"}, ("k9_ids", "k4", "k5", "k2"))):
+        h8[name] = {}
+        for ef in (180, 600):
+            h8[name][ef] = run_route(f"hnsw_pq_200k n_bits 8 {name} ef {ef}",
+                                     lambda nq, ef=ef, kw=kw: index.knn_pq_batch(q_host[:nq], k, ef, pq8, **kw)[1],
+                                     gt, need, B, 2, 1)
+            if ef == 180:
+                launches[f"nbits8_{name}"] = h8[name][ef]["launches"]
+        log(f"[pq] hnsw_pq_200k n_bits 8 {name}: " + ", ".join(
+            f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in h8[name].items()))
+    h8["device_bytes"] = pq8.device_bytes()
+    codes8, _, _ = pq8.device()
+    lookup8, _ = pq8.create_lookup(q)
+    meas["k9_ids"] = check_sums_ids(codes8, lookup8, PQ_M, False, len(pq8), "K9")
+    meas["k9_dense"] = check_sums_dense(codes8, lookup8, PQ_M, False, "K9", "bf16")
+    out["hnsw_pq_200k_nbits8"] = h8
+    del pq8, codes8, lookup8
+
+    # K8's dense shape: 60,000 rows hold 1,875 chunks of 32, fewer than
+    # 4 * ef at ef 600, so the scan is adc_scan_pallas's int8 dense sums
+    n60 = 60_000
+    f60 = FlatIndex.from_numpy(x_host[:n60], "l2sqr")
+    pq60, train_s = pq_train(x_host[:n60], None, 4)
+    _, gt60 = f60.knn_batch(q_host, k, exact=True)
+    d60 = {"cell": "flat_pq_60k", "train_s": train_s, "adc_quality": pq60.adc_quality}
+    d60[600] = run_route("flat_pq_60k ef 600", lambda nq: f60.knn_pq_batch(q_host[:nq], k, 600, pq60)[1],
+                         gt60.tolist(), ("k8_dense", "k2"), B, 3, 1)
+    check(d60[600]["launches"]["k7"] == 0, "flat_pq_60k: K7 ran where the dense sums belong")
+    launches["k8_dense"] = d60[600]["launches"]["k8_dense"]
+    codes60, _, _ = pq60.device()
+    lookup60, _ = pq60.create_lookup(q)
+    meas["k8_dense"] = check_sums_dense(codes60, lookup60, PQ_M, True, "K8", "int8")
+    out["flat_pq_60k"] = d60
+    log(f"[pq] flat_pq_60k ef 600: {d60[600]}")
+    del f60, pq60
+    torch.cuda.empty_cache()
+    return out, launches, meas
+
+
 
 def phase_vecdb(x_host, q_host):
     import numpy as np
@@ -458,6 +882,8 @@ def phase_vecdb(x_host, q_host):
                 f"(first {t_first:.2f} s), K1/K2 launches {launches[key]}")
         key = "gist_l2"
         out["hnsw"], hnsw_launches, hnsw_meas, db = phase_hnsw(db, db_dir, key, q_host, gts[key])
+        pq_out, pq_launches, pq_meas = phase_pq_200k(db, q_host, gts, x_host)
+        cos_before = db.batch_search("gist_cos", q_host, k, ef=200)
         # delete by pattern (it downgrades the table to Flat): row 7 is its
         # own nearest neighbour until deleted
         check(db.search(key, x_host[7], 1)[0][0] == {"id": "7"}, "self-query before delete")
@@ -472,11 +898,16 @@ def phase_vecdb(x_host, q_host):
         check(sorted(db.get_all_keys()) == ["gist_cos", "gist_l2"], "keys after reopen")
         check(db.get_len(key) == n - 1, "length after reopen")
         check(db.batch_search(key, q_host, k) == before, "batch_search differs after reopen")
+        # the cosine table's PQ table rides its checkpoint (the l2sqr one
+        # was dropped by the delete, the reference's rule)
+        check(db.has_pq_table("gist_cos") and not db.has_pq_table(key), "PQ tables after reopen")
+        check(db.batch_search("gist_cos", q_host, k, ef=200) == cos_before,
+              "PQ batch_search differs after reopen")
     finally:
         db.close()
     shutil.rmtree(db_dir, ignore_errors=True)
-    log("[5/6] VecDB delete / close / reopen: identical results")
-    return out, launches, hnsw_launches, hnsw_meas
+    log("[5/6] VecDB delete / close / reopen: identical results (PQ table included)")
+    return out, launches, hnsw_launches, hnsw_meas, (pq_out, pq_launches, pq_meas)
 
 
 def profile_round(flat, q, k: int, reps: int) -> dict:
@@ -616,7 +1047,8 @@ def phase_1m(card):
     }
     log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps_best:.0f} median {qps_median:.0f}, "
         f"stages {split}, {times}")
-    return out
+    pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
+    return out, pq_out, k7
 
 
 def main() -> None:
@@ -638,12 +1070,14 @@ def main() -> None:
     x_host, q_host = x.cpu().numpy(), queries.cpu().numpy()
     del x, queries
     torch.cuda.empty_cache()
-    db_out, launches, hnsw_launches, hm = phase_vecdb(x_host, q_host)
+    db_out, launches, hnsw_launches, hm, (pq_out, pq_launches, pm) = phase_vecdb(x_host, q_host)
     del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
-    m = phase_1m(card)
+    m, pq_1m, k7 = phase_1m(card)
     print(json.dumps(m), flush=True)
+    print(json.dumps({"phase": "pq", "card": card, "flat_pq_1m": pq_1m, **pq_out,
+                      "kernels_vs_plain": {"k7_1m": k7, **pm}}, default=str), flush=True)
 
     main_launches = launches["gist_l2"]
     k3b, k4b, k5b = bound_ms(hm["k3_bytes"]), bound_ms(hm["k4_bytes"]), bound_ms(hm["k5_bytes"])
@@ -675,6 +1109,37 @@ def main() -> None:
          "launches": hnsw_launches["k5"], "max_abs_err": hm["k5_err"],
          "ms": hm["k5"][0], "plain_ms": hm["k5"][1], "bound_ms": k5b[0], "bound_by": k5b[1],
          "library_ms": None},
+    ]
+
+    def pq_kernel(name, src, replaces, launches, meas, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+                "replaces": f"lab_1806_vec_db_tpu/ops/{replaces}", "launches": launches,
+                "max_abs_err": meas["max_abs_err"], "ms": meas["ms"], "plain_ms": meas["plain_ms"],
+                "bound_ms": meas["bound"][0], "bound_by": meas["bound"][1], "library_ms": library_ms,
+                **meas.get("extra", {})}
+
+    k6 = pm["k6"][180]
+    kernels += [
+        # K6 on the classic loop (hnsw_pq_200k graph, fused=False, ef 180);
+        # the error is the largest over ef 180 / 360 / 600
+        pq_kernel("merge_sorted", "merge_sorted.cu", "pallas_merge.py:128",
+                  pq_launches["graph_classic"]["k6"],
+                  {**k6, "max_abs_err": max(v["max_abs_err"] for v in pm["k6"].values())},
+                  k6["library_ms"]),
+        # K7 on flat_pq_1m's first search (ef 100); measured there at 1M rows
+        pq_kernel("adc_chunkmin", "adc_scan_chunkmin.cu", "pallas_adc.py:415",
+                  pq_1m[100]["launches"]["k7"], k7),
+        # K8 ids inside the fused loop (hnsw_pq_200k graph, ef 180)
+        pq_kernel("adc_sums_ids_k16", "adc_sums.cu", "pallas_adc.py:253",
+                  pq_launches["graph"]["k8_ids"], pm["k8_ids"]),
+        # K8 dense on the 60,000-row Flat+PQ table at ef 600
+        pq_kernel("adc_sums_dense_k16", "adc_sums.cu", "pallas_adc.py:253",
+                  pq_launches["k8_dense"], pm["k8_dense"]),
+        # K9 ids / dense on the n_bits = 8 table's graph / scan routes (ef 180)
+        pq_kernel("adc_sums_ids_k256", "adc_sums.cu", "pallas_adc.py:119",
+                  pq_launches["nbits8_graph"]["k9_ids"], pm["k9_ids"]),
+        pq_kernel("adc_sums_dense_k256", "adc_sums.cu", "pallas_adc.py:119",
+                  pq_launches["nbits8_scan"]["k9_dense"], pm["k9_dense"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,12 @@ Ported so far, over float32 tables:
   the exact rerank gather);
 - HNSW tables (`models/hnsw.py`): the bulk build, both search routes and
   checkpoints, with kernels K3 (`ops/traverse.py`, the whole level-0 graph
-  search) and K4 / K5 (`ops/beam_fused.py`, the fused lock-step beam body).
-PQ and uint8 tables raise `NotImplementedError`.
+  search) and K4 / K5 (`ops/beam_fused.py`, the fused lock-step beam body);
+- PQ tables (`models/pq_table.py`): k-means training, Flat+PQ and HNSW+PQ
+  search, with kernels K7 (`ops/adc.py`, the ADC scan with a chunk-min),
+  K8 / K9 (`ops/adc.py`, ADC sums for k = 16 / 256) and K6 (`ops/merge.py`,
+  the sorted beam merge of the classic lock-step loop).
+uint8 tables raise `NotImplementedError`.
 """
 
 import torch

@@ -10,9 +10,9 @@ the heavy work happens inside PyTorch device calls, which release the GIL
 during execution, so concurrent Python threads overlap the same way.
 
 Port of lab_1806_vec_db_tpu/db/api.py.  `VecDB(dir, device="cuda")` serves
-float32 Flat and HNSW tables on the given device and raises RuntimeError
-when that device is unavailable; PQ and uint8 tables raise
-NotImplementedError.
+float32 Flat and HNSW tables, with or without a PQ table, on the given
+device and raises RuntimeError when that device is unavailable; uint8
+tables raise NotImplementedError.
 """
 
 from __future__ import annotations

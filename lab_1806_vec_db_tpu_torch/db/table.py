@@ -6,10 +6,10 @@ reference's lifecycle invariants:
 - search routing: (ef, pq) -> knn_pq, ef -> knn_with_ef, else knn; then the
   upper_bound filter and the metadata join.
 
-Flat and HNSW tables are ported; PQ tables are not yet: `build_pq_table` and
-loading a checkpoint that holds one raise NotImplementedError.  Checkpoints
-are the JAX package's single-file npz + JSON format, so a table saved by
-either package loads in the other.
+Flat and HNSW tables, each with an optional PQ table (the ADC sidecar that
+`batch_search` with ef routes through), are ported.  Checkpoints are the JAX
+package's single-file npz + JSON format, PQ arrays and meta included, so a
+table saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 
 from .dynamic_index import DynamicIndex
+from ..models.pq_table import PQTable
 from ..utils import serde
-
-PQ_TODO = "PQ tables are not ported yet (ROADMAP.md queue 1, item 8: PQ)"
+from ..utils.config import PQConfig
 
 
 class MetadataVecTable:
@@ -93,7 +93,30 @@ class MetadataVecTable:
         return self.inner.is_hnsw
 
     def build_pq_table(self, train_proportion=None, n_bits=None, m=None) -> None:
-        raise NotImplementedError(PQ_TODO)
+        """Train a PQ table on the table's rows, with the reference's
+        defaults and checks (metadata_vec_table.rs): train_proportion 0.1,
+        n_bits 4, m = ceil(dim / 3), 20 k-means iterations, tol 1e-6, float32
+        tables only.  It trains on the store's device rows in place."""
+        if self.pq is not None:
+            return
+        if self.data_type == "uint8":
+            raise RuntimeError("PQ table requires a float32 table")
+        if len(self) == 0:
+            raise RuntimeError("Cannot build PQ table for an empty table")
+        proportion = 0.1 if train_proportion is None else train_proportion
+        if not 0.0 < proportion < 1.0:
+            raise RuntimeError("Train proportion must be in (0, 1)")
+        n_bits = 4 if n_bits is None else n_bits
+        if n_bits not in (4, 8):
+            raise RuntimeError("n_bits must be 4 or 8")
+        m = -(-self.dim // 3) if m is None else m
+        if not 1 <= m <= self.dim:
+            raise RuntimeError("m must be in 1..=dim")
+        cfg = PQConfig(n_bits=n_bits, m=m, dist=self.dist,
+                       k_means_size=max(int(len(self) * proportion), 1),
+                       k_means_max_iter=20, k_means_tol=1e-6)
+        vecs, _ = self.inner.inner.store.device()
+        self.pq = PQTable.train(vecs, cfg, seed=self._seed or 0, n_valid=len(self))
 
     def clear_pq_table(self) -> None:
         self.pq = None
@@ -153,17 +176,19 @@ class MetadataVecTable:
     # ---- serde (single-file checkpoint) ----
     def save(self, path) -> None:
         arrays, meta = self.inner.state()
+        if self.pq is not None:
+            pq_arrays, pq_meta = self.pq.state()
+            arrays.update(pq_arrays)
+            meta.update(pq_meta)
         meta["metadata"] = self.metadata
         serde.save_arrays(path, arrays, meta)
 
     @classmethod
     def load(cls, path, device="cuda") -> "MetadataVecTable":
         arrays, meta = serde.load_arrays(path)
-        if "pq" in meta:
-            raise NotImplementedError(f"loading a table with a PQ table: {PQ_TODO}")
         self = cls.__new__(cls)
         self.inner = DynamicIndex.from_state(arrays, meta, device=device)
         self.metadata = [dict(m) for m in meta.get("metadata", [])]
-        self.pq = None
+        self.pq = PQTable.from_state(arrays, meta, device=device) if "pq" in meta else None
         self._seed = None
         return self

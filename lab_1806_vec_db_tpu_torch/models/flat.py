@@ -10,6 +10,9 @@ The planner is the reference's:
 On a CUDA store both stages launch the hand-written kernels; on a CPU store
 they run the kernels' plain PyTorch versions, the same algorithm (the JAX
 package's CPU path is a different, bf16 XLA scan).
+
+`knn_pq_batch` (Flat+PQ) is the PQ table's ADC scan (K7, or K8 / K9) with
+ef candidates, then K2's exact rerank.
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ _EXACT_BELOW = 65536
 # stage-1 candidates per requested neighbor (floor 32), growing with
 # log2(n / 1M) past 1.5M rows
 _RERANK_MULT = 4
-
-_PQ_TODO = "PQ search is not ported yet (ROADMAP.md queue 1, item 8: PQ)"
 
 
 class FlatIndex:
@@ -137,10 +138,23 @@ class FlatIndex:
         return self.knn(query, k)
 
     def knn_pq_batch(self, queries, k: int, ef: int, pq):
-        raise NotImplementedError(_PQ_TODO)
+        """ADC scan + exact rerank (flat_index.rs:84-104): the PQ table's
+        scan keeps max(ef, k) candidates (K7, or K8 / K9 on small sets and
+        n_bits = 8), K2 reranks them exactly.  Returns ((B, k) f32, (B, k)
+        int32) numpy, -1 padded."""
+        d, i = self._knn_pq_device(queries, k, ef, pq)
+        return d.cpu().numpy(), i.cpu().numpy()
+
+    def _knn_pq_device(self, queries, k: int, ef: int, pq):
+        pq.warn_if_unreliable("FlatIndex.knn_pq (ADC candidate ordering)")
+        q = self._queries(queries)
+        lookup, q_norms = pq.create_lookup(q)
+        _, cand = pq.adc_scan(lookup, q_norms, max(ef, k))
+        return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
 
     def knn_pq(self, query, k: int, ef: int, pq) -> list[CandidatePair]:
-        raise NotImplementedError(_PQ_TODO)
+        d, i = self.knn_pq_batch(query, k, ef, pq)
+        return pairs_from_arrays(d[0], i[0], k)
 
     # ---- serde (the JAX package's checkpoint format) ----
     def state(self, include_vectors: bool = True) -> tuple[dict, dict]:

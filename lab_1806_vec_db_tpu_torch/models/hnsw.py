@@ -15,6 +15,10 @@ Parity target: `HNSWIndex` (reference: src/index_algorithm/hnsw_index.rs).
     rerank, the reference's CPU path;
   * route "scan": the Flat two-stage plan (K1 + K2) with `ef` as the
     stage-1 depth.  "auto" picks it on CUDA, the graph on the CPU.
+- PQ search (`knn_pq_batch`, with a `PQTable`): routes "mirror" (K1 + K2),
+  "scan" (the ADC scan K7 or K8 / K9 + K2) and "graph" (ADC node distances
+  K8 / K9 in the fused loop K4 -> K8/K9 -> K5, or the classic loop with K6
+  when `fused=False`); `plan_pq_route` picks "mirror" on CUDA.
 - Build: the reference's freeze-and-patch chunks (add_parallel,
   hnsw_index.rs:399-457).  A chunk's level-0 candidate pool is a scan of
   the frozen prefix (K1 over the permuted int8 mirror on CUDA, the exact f32
@@ -41,6 +45,7 @@ import torch
 
 from .flat import FlatIndex
 from .store import VecStore
+from ..ops import adc as A
 from ..ops import beam as BM
 from ..ops import distance as D
 from ..ops import gather as G
@@ -57,8 +62,27 @@ BEAM_EXPAND = 4  # beam entries expanded per lock-step iteration (search)
 CHUNK_LADDER = (1, 4, 16, 64, 256, 1024, 4096)
 BULK_LINKS_MIN = 4096  # batch size from which level-0 links go device-canonical
 
-_PQ_TODO = "PQ search is not ported yet (ROADMAP.md queue 1, item 8: PQ)"
 _INF = float("inf")
+
+# The PQ planner's crossover (hnsw.py:55-68 of the reference, chosen from
+# TPU v5e measurements at the Gist1M m = 320 4-bit shape, B = 1000): past
+# this many rows the ADC graph traversal is planned instead of the ADC scan
+# when no int8 mirror is resident.  Its H100 value is not measured yet
+# (ROADMAP queue 1, item 16).
+PQ_SCAN_CROSSOVER = 5_000_000
+
+
+def plan_pq_route(on_cuda: bool, scannable: bool, n: int) -> str:
+    """The knn_pq physical plan: "mirror" (the store's resident int8 scan
+    mirror + exact rerank, a better quantized representation than 4-bit ADC
+    wherever it is resident), "scan" (the full ADC scan + exact rerank) or
+    "graph" (the ADC beam traversal, hnsw_index.rs:672-697).  The CPU always
+    plans "graph", so the tests exercise the reference algorithm."""
+    if not on_cuda:
+        return "graph"
+    if scannable:
+        return "mirror"
+    return "graph" if n > PQ_SCAN_CROSSOVER else "scan"
 
 
 def _pad_ladder(n: int) -> int:
@@ -109,6 +133,13 @@ def _make_node_dist(q, q_cache, vecs, vcache, dist):
         return 1.0 - dots / (q_cache[:, None] * vc).clamp_min(1e-10)
 
     return nd
+
+
+def _make_adc_node_dist(lookup, q_norms, codes, cb_sq, dist: str, m: int, packed: bool):
+    """ADC node distances of the PQ traversal: K8 (k = 16) or K9 (k = 256)
+    in their ids shape on CUDA, their plain versions (the same bf16 LUT) on
+    the CPU.  Ids of -1 give +inf."""
+    return lambda ids: A.adc_dists_for_ids(lookup, q_norms, codes, cb_sq, ids, dist, m, packed)
 
 
 def _exact_to(q, q_cache, v, vcache, dist):
@@ -761,11 +792,67 @@ class HNSWIndex:
         d, i = self.knn_with_ef_batch(np.asarray(query, np.float32), k, ef)
         return pairs_from_arrays(d[0], i[0], k)
 
-    def knn_pq_batch(self, queries, k: int, ef: int, pq):
-        raise NotImplementedError(_PQ_TODO)
+    def knn_pq_batch(self, queries, k: int, ef: int, pq, expand: int | None = None,
+                     route: str = "auto", fused: bool = True):
+        """HNSW search with ADC distances + exact rerank (hnsw_index.rs:672-697).
+        Returns ((B, k) f32, (B, k) int32) numpy, -1 padded.
+
+        route="graph": greedy descent and the level-0 beam on ADC node
+        distances (K8 / K9 ids shape), then an exact rerank of the ef beam
+        (K2 on CUDA, `knn_gathered` on the CPU).  The beam is the fused loop
+        K4 -> K8/K9 -> K5 on CUDA, or with `fused=False` the classic loop
+        with K6; the CPU runs the classic loop.  Budgets are the
+        reference's: expand BEAM_EXPAND on CUDA, 1 on the CPU,
+        (2 ef + 64) / expand + 16 iterations, the default ring.
+        route="scan": the PQ table's full ADC scan (K7, or K8 / K9) keeping
+        ef candidates + K2's exact rerank, on either device.
+        route="mirror": the Flat two-stage plan (K1 + K2) on the store's
+        int8 mirror with ef as the stage-1 depth.
+        route="auto": `plan_pq_route`: "mirror" on CUDA (the full-tier store
+        always holds its mirror), "graph" on the CPU."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        B = queries.shape[0]
+        if len(self.store) == 0 or self.entry_point is None:
+            return np.full((B, k), np.inf, np.float32), np.full((B, k), -1, np.int32)
+        if route not in ("auto", "graph", "scan", "mirror"):
+            raise ValueError(f"unknown route {route!r} (auto|graph|scan|mirror)")
+        ef = max(ef, k)
+        q = self._queries(queries)
+        on_cuda = q.is_cuda
+        if route == "auto":
+            route = plan_pq_route(on_cuda, True, len(self.store))
+        if route == "mirror":
+            d, i = FlatIndex.from_store(self.store)._knn_device(q, k, rerank_depth=ef)
+            return d.cpu().numpy(), i.cpu().numpy()
+        # the scan and graph candidate orderings are ADC: the loud check
+        pq.warn_if_unreliable(f"HNSWIndex.knn_pq route={route!r}")
+        lookup, q_norms = pq.create_lookup(q)
+        if route == "scan":
+            _, cand = pq.adc_scan(lookup, q_norms, ef)
+            d, i = G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
+            return d.cpu().numpy(), i.cpu().numpy()
+        codes, _, cb_sq = pq.device()
+        cap = self.store.capacity
+        if codes.shape[0] < cap:  # pad to the store's capacity so gathers stay in bounds
+            codes = torch.nn.functional.pad(codes, (0, 0, 0, cap - codes.shape[0]))
+        links0 = self._links0_device()
+        if expand is None:
+            expand = BEAM_EXPAND if on_cuda else 1
+        iters = (2 * ef + 64 + expand - 1) // expand + 16
+        nd = _make_adc_node_dist(lookup, q_norms, codes, cb_sq, self.dist, pq.config.m, pq.packed)
+        cur = self._descend(q, nd)
+        _, bi = BM.beam_search(cur, nd, lambda ids: links0[ids.long()], ef, iters, expand,
+                               fused=fused)
+        if on_cuda:
+            d, i = G.rerank_topk(q, self.store.device_rerank(), bi[:, :ef], k, self.dist)
+        else:
+            vecs, vcache = self.store.device()
+            d, i = T.knn_gathered(q, vecs, bi, k, self.dist, base_cache=vcache)
+        return d.cpu().numpy(), i.cpu().numpy()
 
     def knn_pq(self, query, k: int, ef: int, pq) -> list[CandidatePair]:
-        raise NotImplementedError(_PQ_TODO)
+        d, i = self.knn_pq_batch(query, k, ef, pq)
+        return pairs_from_arrays(d[0], i[0], k)
 
     # ---- serde (hnsw_index.rs:635-670; the JAX package's npz keys) ----
     def state(self, include_vectors: bool = True) -> tuple[dict, dict]:

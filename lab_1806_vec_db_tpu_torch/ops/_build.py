@@ -76,6 +76,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_beam_post.restype = I
     lib.vecdb_traverse.argtypes = [P] * 6 + [I, I, L] + [I] * 7 + [P]
     lib.vecdb_traverse.restype = I
+    lib.vecdb_merge_sorted.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.vecdb_merge_sorted.restype = I
+    lib.vecdb_adc_chunkmin.argtypes = [P] * 5 + [ctypes.c_float, P, P] + [I] * 8 + [P]
+    lib.vecdb_adc_chunkmin.restype = I
+    lib.vecdb_adc_sums_dense.argtypes = [P] * 4 + [I] * 7 + [P]
+    lib.vecdb_adc_sums_dense.restype = I
+    lib.vecdb_adc_sums_ids.argtypes = [P] * 4 + [I] * 6 + [L, I, I, P]
+    lib.vecdb_adc_sums_ids.restype = I
     lib.vecdb_error_string.argtypes = [I]
     lib.vecdb_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,368 @@
+"""K7, K8 and K9: the PQ-ADC kernels (port of ops/pallas_adc.py).
+
+- K7 `adc_chunkmin` (`csrc/adc_scan_chunkmin.cu`): the full ADC scan over
+  the permuted codes with an int8 LUT, fused with a 32-row chunk-min; the
+  scan of Flat+PQ and of HNSW+PQ route "scan".  `adc_scan_chunkmin` adds the
+  LUT quantization, the top-k over the survivors and the id decode.
+- K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`, one body
+  for k = 16 and k = 256): ADC sums of every code row against every LUT row
+  (`adc_scan_pallas`, the scan of small sets and of n_bits = 8 tables) and
+  of per-query candidate ids (`adc_dists_for_ids`, the HNSW+PQ node
+  distance; it replaces the TPU's 128-query diagonal trick).
+
+The LUT is rounded as the reference rounds it (`_prep_lut_quant`,
+`_adc_sums_v2`, `_adc_sums_stepwise`): int8 with a per-row scale
+s = max|lut_row| / 127 (1 where that is 0), q = round_half_even(lut / s);
+bf16 for `adc_dists_for_ids` and for every k = 256 table; f32 under
+`exact`.  For cosine the centroid-sqnorm row goes through the same rounding
+(K7: its own int8 scale, floored at 1e-30).
+
+Each kernel has a plain PyTorch version here that computes the same bits:
+the int8 sums are exact int32 sums, and the bf16 / f32 sums add the groups
+in order (i = 0 .. m-1), as the kernels do.  Against the JAX package the
+bf16 / f32 sums of K8 differ in summation order only.  On a CUDA tensor a
+wrapper launches its kernel (no fallback); on a CPU tensor it runs the plain
+version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import pq as P
+from . import topk as T
+
+CHUNK = 32  # rows per K7 survivor
+_NT = 256  # the reference's row tile: survivors cover ceil(N / 256) * 256 rows
+_REF_BLOCK = 8192  # rows per block of K7's plain version (bounds the one-hot)
+_LUT_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _device_of(*tensors) -> torch.device:
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"all operands must be on one device, got {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no ADC kernel for device {dev}")
+    return dev
+
+
+def unpack_codes(codes: torch.Tensor, m: int, packed: bool) -> torch.Tensor:
+    """(..., cw) uint8 code bytes -> (..., m) int64 codes (low nibble first
+    when packed; groups past the bytes read as 0)."""
+    c = (P.unpack_codes_4bit_dev(codes, 2 * codes.shape[-1]) if packed else codes).to(torch.int64)
+    if c.shape[-1] < m:
+        c = torch.nn.functional.pad(c, (0, m - c.shape[-1]))
+    return c[..., :m]
+
+
+# XLA folds the reference's `x / 127.0` into a product with the f32
+# reciprocal of 127; the port computes the scales the same way, so they (and
+# every int8 entry) equal the reference's bit for bit
+_INV_127 = 1.0 / 127.0
+
+
+def quantize_lut_int8(lut_flat: torch.Tensor):
+    """Per-row symmetric int8 quantization of (R, W) f32 LUT rows ->
+    ((R, W) int8, (R,) f32 scales): s = max|row| / 127 (1 where 0),
+    q = round(row / s) (half to even, a true division by s)."""
+    s = lut_flat.abs().amax(1) * _INV_127
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    return torch.round(lut_flat / s[:, None]).to(torch.int8), s
+
+
+# ---------------------------------------------------------------- K7 ----
+
+def adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, packed: bool,
+                     S: int):
+    """Plain version of K7 -> ((B, S) f32 chunk minima, (B, S) int32 their
+    lowest positions).  lut_q (B, Kd) int8 (or bf16 / f32, then `scales` are
+    ones), Kd = 16 * mk; cs_q (Kd,) with its scale, or None (l2sqr).  The
+    one-hot product runs as an f32 matmul: its int8 sums are exact integers
+    (< 2^24; TF32 is off)."""
+    B, Kd = lut_q.shape
+    mk = Kd // 16
+    N = codes.shape[0]
+    dev = lut_q.device
+    lut_f = lut_q.float().T.contiguous()  # (Kd, B)
+    cs_f = None if cs_q is None else cs_q.float()
+    out_d = torch.empty((B, S), dtype=torch.float32, device=dev)
+    out_p = torch.empty((B, S), dtype=torch.int32, device=dev)
+    for r0 in range(0, S * CHUNK, _REF_BLOCK):
+        r1 = min(r0 + _REF_BLOCK, S * CHUNK)
+        c = unpack_codes(codes[r0:min(r1, N)], mk, packed)
+        if c.shape[0] < r1 - r0:
+            c = torch.nn.functional.pad(c, (0, 0, 0, r1 - r0 - c.shape[0]))
+        oh = torch.zeros((r1 - r0, mk, 16), dtype=torch.float32, device=dev)
+        oh.scatter_(2, c[:, :, None], 1.0)
+        oh = oh.reshape(r1 - r0, Kd)
+        d = (oh @ lut_f) * scales[None, :]  # (rows, B)
+        if cs_f is not None:
+            c_sq = (oh @ cs_f) * cs_scale
+            norm0 = c_sq.clamp_min(0.0).sqrt()
+            d = 1.0 - d / (norm0[:, None] * q_norms[None, :]).clamp_min(1e-10)
+        pos = torch.arange(r0, r1, device=dev)
+        d = torch.where(pos[:, None] < n_valid, d, float("inf"))
+        dc = d.T.reshape(B, -1, CHUNK)
+        arg = dc.argmin(-1)  # the first (lowest-position) minimum
+        s0, s1 = r0 // CHUNK, r1 // CHUNK
+        out_d[:, s0:s1] = torch.gather(dc, 2, arg[:, :, None])[:, :, 0]
+        out_p[:, s0:s1] = (pos[::CHUNK][None, :] + arg).to(torch.int32)
+    return out_d, out_p
+
+
+def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, packed: bool,
+                 S: int):
+    """K7: the (B, S) chunk-min survivors of the ADC scan over `codes`
+    ((N, cw) uint8, cw % 4 == 0; see `adc_scan_chunkmin` for the rest).
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (int8 LUT only) and count it in `adc_chunkmin.launches`."""
+    dev = _device_of(codes, lut_q, scales, q_norms, cs_q)
+    if dev.type == "cpu":
+        return adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid, packed, S)
+    B, Kd = lut_q.shape
+    N, cw = codes.shape
+    mk = Kd // 16
+    if lut_q.dtype != torch.int8:
+        raise ValueError("the K7 kernel takes an int8 LUT (lut_dtype='int8')")
+    if codes.dtype != torch.uint8 or cw % 4 or Kd % 64 or mk != (2 * cw if packed else cw):
+        raise ValueError(f"K7 needs uint8 codes with cw % 4 == 0 and 16 LUT columns per code "
+                         f"group; got cw={cw}, Kd={Kd}, packed={packed}")
+    if -(-N // 2048) > 65535 or mk * 128 + mk * 16 + 21 * 1024 > 227 * 1024:
+        raise ValueError(f"K7: {N} rows x {mk} groups exceed the kernel's grid or shared memory")
+    codes, lut_q = codes.contiguous(), lut_q.contiguous()
+    scales, q_norms = scales.float().contiguous(), q_norms.float().contiguous()
+    cs_ptr = 0 if cs_q is None else cs_q.contiguous().data_ptr()
+    out_d = torch.empty((B, S), dtype=torch.float32, device=dev)
+    out_p = torch.empty((B, S), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.vecdb_adc_chunkmin(
+            codes.data_ptr(), lut_q.data_ptr(), scales.data_ptr(), q_norms.data_ptr(), cs_ptr,
+            float(cs_scale), out_d.data_ptr(), out_p.data_ptr(), B, N, int(n_valid), cw, mk, S,
+            int(packed), int(cs_q is not None), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "adc_chunkmin")
+    adc_chunkmin.launches += 1
+    return out_d, out_p
+
+
+adc_chunkmin.launches = 0
+
+
+def chunkmin_inputs(lookup, cb_sqnorm, dist: str, packed: bool, cw: int, lut_dtype: str = "int8"):
+    """K7's LUT operands from (B, m, k) f32 lookup rows: (lut_q (B, Kd),
+    scales (B,), cs_q (Kd,) or None, cs_scale) with Kd = 16 * mk columns in
+    group order (zero columns for the groups past m), as `_prep_lut_quant`
+    and the cosine column of `adc_scan_chunkmin` round them."""
+    B, m, k = lookup.shape
+    mk = 2 * cw if packed else cw
+    lut = torch.nn.functional.pad(lookup.float(), (0, 0, 0, mk - m)).reshape(B, mk * k)
+    cs = None
+    cs_scale = torch.ones((), dtype=torch.float32, device=lookup.device)
+    if dist == "cosine":
+        cs = torch.nn.functional.pad(cb_sqnorm.float(), (0, 0, 0, mk - m)).reshape(mk * k)
+    if lut_dtype == "int8":
+        lut_q, scales = quantize_lut_int8(lut)
+        if cs is not None:
+            cs_scale = (cs.abs().amax() * _INV_127).clamp_min(1e-30)
+            cs = torch.round(cs / cs_scale).to(torch.int8)
+        return lut_q, scales, cs, cs_scale
+    dt = torch.float32 if lut_dtype == "f32" else torch.bfloat16
+    ones = torch.ones(B, dtype=torch.float32, device=lookup.device)
+    return lut.to(dt), ones, None if cs is None else cs.to(dt), cs_scale
+
+
+def adc_scan_chunkmin(lookup, codes, perm, n_valid: int, cb_sqnorm, q_norms, k_out: int,
+                      dist: str, packed: bool = False, lut_dtype: str = "int8"):
+    """Full ADC scan fused with a chunk-min partial top-k (K7) -> ((B, k_out)
+    f32 ADC distances ascending, (B, k_out) int32 ORIGINAL ids), -1 padded.
+
+    lookup (B, m, 16) f32; codes (N, cw) uint8, PERMUTED (position p holds
+    row perm[p]; padding is masked by position, so positions [0, n_valid)
+    must hold exactly the valid rows); cb_sqnorm (m, 16); q_norms (B,).
+    Each 32-position chunk keeps its minimum (the lowest position on ties);
+    the top-k over the ceil(N / 256) * 8 survivors is a stable sort, and
+    the positions decode through `perm` (pallas_adc.py:536-551)."""
+    B, m, k = lookup.shape
+    if k != 16:
+        raise ValueError(f"adc_scan_chunkmin serves k = 16 tables, got k = {k}")
+    N, cw = codes.shape
+    if cw % 4:
+        codes = torch.nn.functional.pad(codes, (0, 4 - cw % 4))
+        cw = codes.shape[1]
+    S = -(-N // _NT) * _NT // CHUNK
+    lut_q, scales, cs_q, cs_scale = chunkmin_inputs(lookup, cb_sqnorm, dist, packed, cw, lut_dtype)
+    dmin, pos = adc_chunkmin(codes, lut_q, scales, q_norms.float(), cs_q, cs_scale, n_valid,
+                             packed, S)
+    kk = min(k_out, S)
+    td, tp = T.topk_smallest(dmin, pos, kk)
+    ids = torch.where(torch.isfinite(td), perm[tp.clamp(0, N - 1).long()].to(torch.int32), -1)
+    return T._pad_k(td, ids, k_out)
+
+
+# ------------------------------------------------------------- K8 / K9 ----
+
+def round_lut(lut_rows, lut_dtype: str = "bf16", exact: bool = False):
+    """(R, m, k) f32 LUT rows -> (rows in the kernel's type, (R,) int8
+    scales or None), as `adc_sums` rounds them: int8 only for k <= 16 (the
+    step-wise k = 256 kernel ignores lut_dtype: bf16), f32 under `exact`."""
+    R, m, k = lut_rows.shape
+    lut = lut_rows.float()
+    if exact or lut_dtype == "f32":
+        return lut.contiguous(), None
+    if lut_dtype == "int8" and k <= 16:
+        q, s = quantize_lut_int8(lut.reshape(R, m * k))
+        return q.reshape(R, m, k), s
+    return lut.to(torch.bfloat16).contiguous(), None
+
+
+def _sums_args(codes, lut, m: int, packed: bool):
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise TypeError("codes must be (n, cw) uint8")
+    if lut.dtype not in _LUT_TYPES or lut.dim() != 3 or lut.shape[1] != m:
+        raise ValueError(f"lut must be (R, m={m}, k) int8 / bf16 / f32, got {tuple(lut.shape)} "
+                         f"{lut.dtype}")
+    k = lut.shape[2]
+    if k not in (16, 256) or (packed and k != 16):
+        raise ValueError(f"ADC sums take k = 16 (packed or not) or k = 256 (unpacked), got {k}")
+    if codes.shape[1] * (2 if packed else 1) < m:
+        raise ValueError(f"codes of width {codes.shape[1]} hold fewer than m = {m} groups")
+    return k
+
+
+def adc_sums_dense_ref(codes, lut, scales, m: int, packed: bool):
+    """Plain version of the dense shape -> (R, N) f32: the groups added in
+    order, int32 for an int8 LUT (then times the row's scale), f32 else."""
+    c = unpack_codes(codes, m, packed)  # (N, m)
+    is_int = lut.dtype == torch.int8
+    lw = lut.to(torch.int32) if is_int else lut.float()
+    acc = torch.zeros((lut.shape[0], codes.shape[0]), dtype=lw.dtype, device=lut.device)
+    for i in range(m):
+        acc += lw[:, i, :].index_select(1, c[:, i])
+    return acc.float() * scales[:, None] if is_int else acc
+
+
+def adc_sums_dense(codes, lut, scales, m: int, packed: bool):
+    """ADC sums of every code row against every LUT row -> (R, N) f32 (K8
+    for k = 16, K9 for k = 256).  codes (N, cw) uint8; lut (R, m, k) int8 /
+    bf16 / f32 from `round_lut`; scales (R,) for int8, else None.  CUDA
+    tensors launch the kernel and count it in `adc_sums_dense.launches[k]`."""
+    k = _sums_args(codes, lut, m, packed)
+    dev = _device_of(codes, lut, scales)
+    if lut.dtype == torch.int8 and scales is None:
+        raise ValueError("an int8 LUT needs its scales")
+    if dev.type == "cpu":
+        return adc_sums_dense_ref(codes, lut, scales, m, packed)
+    N, R = codes.shape[0], lut.shape[0]
+    codes, lut = codes.contiguous(), lut.contiguous()
+    sc = 0 if scales is None else scales.float().contiguous()
+    out = torch.empty((R, N), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.vecdb_adc_sums_dense(
+            codes.data_ptr(), lut.data_ptr(), 0 if scales is None else sc.data_ptr(),
+            out.data_ptr(), N, R, m, k, codes.shape[1], int(packed), _LUT_TYPES[lut.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "adc_sums_dense")
+    adc_sums_dense.launches[k] += 1
+    return out
+
+
+adc_sums_dense.launches = {16: 0, 256: 0}
+
+
+def adc_sums_ids_ref(codes, lut, ids, m: int, packed: bool, shared: bool):
+    """Plain version of the ids shape -> (B, C) f32, +inf where the id is
+    < 0 or >= len(codes); the groups added in order in f32."""
+    valid = (ids >= 0) & (ids < codes.shape[0])
+    c = unpack_codes(codes[torch.where(valid, ids, 0).long()], m, packed)  # (B, C, m)
+    lw = lut.float()
+    B = ids.shape[0]
+    acc = torch.zeros(ids.shape, dtype=torch.float32, device=lut.device)
+    for i in range(m):
+        li = lw[:, i, :].expand(B, -1) if shared else lw[:, i, :]
+        acc += torch.gather(li, 1, c[:, :, i])
+    return torch.where(valid, acc, float("inf"))
+
+
+def adc_sums_ids(codes, lut, ids, m: int, packed: bool, shared: bool = False):
+    """ADC sums of query b's LUT row against the code rows ids[b, :] ->
+    (B, C) f32, +inf where the id is < 0 or >= len(codes) (K8 for k = 16,
+    K9 for k = 256).  lut (B, m, k) bf16 / f32, or (1, m, k) with `shared`.
+    CUDA tensors launch the kernel and count it in
+    `adc_sums_ids.launches[k]`."""
+    k = _sums_args(codes, lut, m, packed)
+    dev = _device_of(codes, lut, ids)
+    B, C = ids.shape
+    if ids.dtype != torch.int32 or lut.dtype == torch.int8 or lut.shape[0] != (1 if shared else B):
+        raise ValueError("adc_sums_ids takes int32 ids and a bf16 / f32 LUT of B rows (1 if shared)")
+    if dev.type == "cpu":
+        return adc_sums_ids_ref(codes, lut, ids, m, packed, shared)
+    codes, lut, ids = codes.contiguous(), lut.contiguous(), ids.contiguous()
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.vecdb_adc_sums_ids(
+            codes.data_ptr(), lut.data_ptr(), ids.data_ptr(), out.data_ptr(), B, C, m, k,
+            codes.shape[1], int(packed), codes.shape[0], int(shared), _LUT_TYPES[lut.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "adc_sums_ids")
+    adc_sums_ids.launches[k] += 1
+    return out
+
+
+adc_sums_ids.launches = {16: 0, 256: 0}
+
+
+def adc_sums(codes, lut_rows, packed: bool = False, exact: bool = False, lut_dtype: str = "bf16"):
+    """(N, R) f32 sums: sum_i lut_rows[r, i, codes[n, i]], the LUT rounded
+    as `round_lut` says (the reference's `adc_sums` contract)."""
+    lut, scales = round_lut(lut_rows, lut_dtype, exact)
+    return adc_sums_dense(codes, lut, scales, lut_rows.shape[1], packed).T
+
+
+def _cosine(dots, c_sq, q_norms):
+    """1 - dots / max(sqrt(max(c_sq, 0)) * |q|, 1e-10); dots and c_sq
+    broadcast against q_norms (B, 1)."""
+    norm0 = c_sq.clamp_min(0.0).sqrt()
+    return 1.0 - dots / (norm0 * q_norms).clamp_min(1e-10)
+
+
+def adc_dists_for_ids(lookup, q_norms, codes, cb_sqnorm, ids, dist: str, m: int,
+                      packed: bool = False):
+    """ADC distances of per-query candidate ids -> (B, C) f32, +inf where
+    the id is -1: the HNSW+PQ node distance (hnsw_index.rs:672-697).  The
+    LUT and the cosine centroid-sqnorm row are rounded to bf16, as the
+    reference's `adc_sums` default rounds them; each query's sums are K8
+    (k = 16) or K9 (k = 256) in its ids shape."""
+    lut = lookup.to(torch.bfloat16)
+    s = adc_sums_ids(codes, lut, ids, m, packed)
+    if dist == "cosine":
+        c_sq = adc_sums_ids(codes, cb_sqnorm[None].to(torch.bfloat16), ids, m, packed, shared=True)
+        s = _cosine(s, c_sq, q_norms[:, None])
+    return torch.where(ids >= 0, s, float("inf"))
+
+
+def adc_scan_pallas(lookup, codes, n_valid: int, cb_sqnorm, q_norms, k_out: int, dist: str,
+                    packed: bool = False, exact: bool = False, block: int = 131072,
+                    lut_dtype: str = "int8"):
+    """Full ADC scan + top-k through the dense sums (K8 / K9), blocked over
+    N so the (B, N) distance matrix never exists whole -> ((B, k_out) f32,
+    (B, k_out) int32), -1 padded.  Cosine appends the centroid-sqnorm row
+    to the LUT rows (pallas_adc.py:811-886)."""
+    B, m, _ = lookup.shape
+    N = codes.shape[0]
+    rows = torch.cat([lookup, cb_sqnorm[None]], 0) if dist == "cosine" else lookup
+    lut, scales = round_lut(rows, lut_dtype, exact)
+    best_d = torch.full((B, 0), float("inf"), device=lookup.device)
+    best_i = torch.full((B, 0), -1, dtype=torch.int32, device=lookup.device)
+    for start in range(0, N, block):
+        sums = adc_sums_dense(codes[start : start + block], lut, scales, m, packed)  # (R, nb)
+        d = _cosine(sums[:B], sums[B][None, :], q_norms[:, None]) if dist == "cosine" else sums[:B]
+        ids = torch.arange(start, start + d.shape[1], dtype=torch.int32, device=d.device)
+        d = torch.where(ids[None, :] < n_valid, d, float("inf"))
+        td, ti = T.select_smallest(d, ids.expand(B, -1), min(k_out, d.shape[1]))
+        best_d, best_i = T.merge_topk(best_d, best_i, td, ti, k_out)
+    return T._pad_k(best_d, best_i, k_out)

@@ -10,9 +10,12 @@ The loop stops when no beam entry is left unexpanded (the reference's
 Two formulations:
 
 - `beam_search` (classic): the CPU route.  A position-tracked circular
-  visited ring, dedup by broadcast compare, stable-sort merge.  On a CUDA
-  tensor it hands over to the fused loop, as the reference does on its
-  accelerator.
+  visited ring, dedup by broadcast compare, and the sorted merge K6
+  (`ops/merge.py`: the kernel on CUDA tensors, its stable-sort plain
+  version on CPU tensors).  On a CUDA tensor it hands over to the fused
+  loop, as the reference does on its accelerator, unless `fused=False`
+  (the port's counterpart of the reference's `set_fused_beam` seam, an
+  argument instead of a global).
 - `beam_search_fused`: the loop body is K4 -> node_dist -> K5
   (`ops/beam_fused.py`); kernels on CUDA tensors, their plain versions on
   CPU tensors.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import beam_fused as BF
+from . import merge as M
 from .graph import compact_front
 
 # host reads of the loops' stop conditions since the last reset (one per
@@ -92,13 +96,14 @@ def beam_search_fused(entry, node_dist_fn, links_fn, ef: int, max_iters: int, ex
 
 
 def beam_search(entry, node_dist_fn, links_fn, ef: int, max_iters: int, expand: int = 1,
-                ring_size: int = 64, with_stats: bool = False):
+                ring_size: int = 64, with_stats: bool = False, fused: bool = True):
     """Lock-step beam search from per-query entry points (B,) int32.
 
     Returns (beam_dists, beam_ids): (B, ef) sorted ascending, -1 padded;
     with_stats adds (B,) int32 NOVEL rows scored per query.  A CUDA entry
-    runs the fused loop (`beam_search_fused`)."""
-    if entry.is_cuda:
+    runs the fused loop (`beam_search_fused`) unless `fused` is False; the
+    classic loop merges with K6 (`merge.merge_sorted`)."""
+    if entry.is_cuda and fused:
         return beam_search_fused(entry, node_dist_fn, links_fn, ef, max_iters, expand=expand,
                                  ring_size=ring_size, with_stats=with_stats)
     B, E, R = entry.shape[0], expand, ring_size
@@ -133,11 +138,8 @@ def beam_search(entry, node_dist_fn, links_fn, ef: int, max_iters: int, expand: 
         comp = compact_front(nbrs, fresh, EL)
         nd = torch.where(comp >= 0, node_dist_fn(comp), inf)
 
-        # merge: the beam sits first, so ties keep the existing entry
-        all_d, pos = torch.sort(torch.cat([beam_d, nd], 1), dim=1, stable=True)
-        beam_d = all_d[:, :ef]
-        beam_i = torch.gather(torch.cat([beam_i, comp], 1), 1, pos[:, :ef])
-        exp2 = torch.gather(torch.cat([exp_new, torch.zeros_like(fresh)], 1), 1, pos[:, :ef])
+        # merge (K6): the beam sits first, so ties keep the existing entry
+        beam_d, beam_i, exp2 = M.merge_sorted(beam_d, beam_i, exp_new, nd, comp)
         beam_i = torch.where(torch.isfinite(beam_d), beam_i, -1)
         expanded = exp2 & (beam_i >= 0)
 

@@ -1,0 +1,179 @@
+"""K7, K8 and K9 (the ADC kernels) of the PyTorch port against the JAX
+package, on the CPU.
+
+On CPU tensors the port's wrappers run the kernels' plain versions; the CUDA
+kernels are held against those on the card by `chip_smoke.py`.  Both sides
+take the same inputs, made once as numpy (codes, LUT rows, norms), and the
+reference kernels run with interpret=True.  Tolerances:
+
+- int8 LUTs (K7, K8 dense): the sums are exact int32 sums of the same int8
+  entries, so ids are equal and distances agree to rtol 1e-6 (K7; the
+  cosine epilogue's rounding is the same IEEE operations) or exactly (K8);
+- bf16 / f32 LUTs: the sums differ from the reference's one-hot matmul in
+  summation order only: rtol 1e-5 (K7 f32 also rtol 1e-6 with ids equal,
+  its sums being short)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lab_1806_vec_db_tpu.ops import pallas_adc as PA
+from lab_1806_vec_db_tpu.ops import pq as JP
+from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+
+def _inputs(seed, N=3000, B=12, m=16, k=16, packed=True):
+    """Random ADC operands shaped like a PQ table's: (B, m, k) LUT rows,
+    codes (N, m) and their packed bytes, a permutation, centroid sqnorms and
+    query norms."""
+    rng = np.random.default_rng(seed)
+    lookup = (rng.random((B, m, k)) * rng.uniform(0.5, 2.0, (B, 1, 1))).astype(np.float32)
+    codes = rng.integers(0, k, (N, m)).astype(np.uint8)
+    stored = JP.pack_codes_4bit(codes) if packed else codes
+    perm = rng.permutation(N).astype(np.int32)
+    cb_sq = (rng.random((m, k)) + 0.1).astype(np.float32)
+    q_norms = (rng.random(B) + 0.5).astype(np.float32)
+    return lookup, codes, stored, perm, cb_sq, q_norms
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+@pytest.mark.parametrize("lut_dtype", ["int8", "f32"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_k7_plain_equals_reference_chunkmin(dist, lut_dtype, packed):
+    """K7's plain version (chunk-min survivors, top-k, id decode) against
+    `adc_scan_chunkmin(interpret=True)`, with n_valid < N (masked tail) and
+    an m whose packed width is not a multiple of 4 bytes."""
+    lookup, _, stored, perm, cb_sq, q_norms = _inputs(7, N=3000, m=14, packed=packed)
+    stored_s = stored[perm]
+    n_valid, k_out = 2900, 20
+    ed, ei = PA.adc_scan_chunkmin(
+        jnp.asarray(lookup), jnp.asarray(stored_s), jnp.asarray(perm), n_valid,
+        jnp.asarray(cb_sq), jnp.asarray(q_norms), k_out, dist, packed=packed,
+        lut_dtype=lut_dtype, interpret=True)
+    launches = A.adc_chunkmin.launches
+    gd, gi = A.adc_scan_chunkmin(_t(lookup), _t(stored_s), _t(perm), n_valid, _t(cb_sq),
+                                 _t(q_norms), k_out, dist, packed=packed, lut_dtype=lut_dtype)
+    assert A.adc_chunkmin.launches == launches  # CPU tensors: the plain version
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(ed), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k7_survivors_tie_to_the_lowest_position(dist):
+    """Equal int8 sums are common; each chunk keeps its lowest position.
+    All-equal codes make every row of a chunk tie."""
+    lookup, _, _, _, cb_sq, q_norms = _inputs(3, N=512, m=8)
+    codes = np.zeros((512, 4), np.uint8)
+    codes[100] = 0x11  # one row that differs
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), dist, True, 4)
+    d, p = A.adc_chunkmin(_t(codes), lut_q, scales, _t(q_norms), cs_q, cs_scale, 480, True, 16)
+    got, tied = p.numpy(), [s for s in range(15) if s != 3]
+    np.testing.assert_array_equal(got[:, tied], np.broadcast_to(np.array(tied) * 32, got[:, tied].shape))
+    assert np.isinf(d.numpy()[:, 15]).all() and (got[:, 15] == 480).all()  # rows >= 480 masked
+    assert np.isfinite(d.numpy()[:, :15]).all()
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_k8_ids_plain_against_reference(dist, packed):
+    """K8's ids shape (bf16 LUT) against `adc_dists_for_ids(interpret=True)`,
+    with -1 ids and a fully converged query: rtol 1e-5."""
+    lookup, _, stored, _, cb_sq, q_norms = _inputs(11, N=500, B=9, m=16, packed=packed)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 500, (9, 13)).astype(np.int32)
+    ids[0, 3] = -1
+    ids[5, :] = -1
+    expect = PA.adc_dists_for_ids(jnp.asarray(lookup), jnp.asarray(q_norms), jnp.asarray(stored),
+                                  jnp.asarray(cb_sq), jnp.asarray(ids), dist, 16, packed=packed,
+                                  interpret=True)
+    got = A.adc_dists_for_ids(_t(lookup), _t(q_norms), _t(stored), _t(cb_sq), _t(ids), dist, 16,
+                              packed)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), ids < 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k9_ids_plain_against_reference(dist):
+    """K9's ids shape (k = 256, n_bits = 8) against the reference: rtol 1e-5."""
+    lookup, _, stored, _, cb_sq, q_norms = _inputs(12, N=400, B=5, m=6, k=256, packed=False)
+    ids = np.random.default_rng(2).integers(-1, 400, (5, 40)).astype(np.int32)
+    expect = PA.adc_dists_for_ids(jnp.asarray(lookup), jnp.asarray(q_norms), jnp.asarray(stored),
+                                  jnp.asarray(cb_sq), jnp.asarray(ids), dist, 6, packed=False,
+                                  interpret=True)
+    got = A.adc_dists_for_ids(_t(lookup), _t(q_norms), _t(stored), _t(cb_sq), _t(ids), dist, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_k8_dense_int8_equals_reference(packed):
+    """K8's dense shape with an int8 LUT against
+    `adc_sums(lut_dtype="int8", interpret=True)`: equal."""
+    lookup, _, stored, _, _, _ = _inputs(5, N=700, B=10, m=15, packed=packed)
+    expect = PA.adc_sums(jnp.asarray(stored), jnp.asarray(lookup), packed=packed,
+                         lut_dtype="int8", interpret=True)
+    got = A.adc_sums(_t(stored), _t(lookup), packed=packed, lut_dtype="int8")
+    assert got.shape == (700, 10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+
+
+@pytest.mark.parametrize("lut_dtype", ["bf16", "f32"])
+def test_k8_dense_float_luts_against_reference(lut_dtype):
+    lookup, _, stored, _, _, _ = _inputs(6, N=600, B=7, m=16)
+    expect = PA.adc_sums(jnp.asarray(stored), jnp.asarray(lookup), packed=True,
+                         lut_dtype=lut_dtype, interpret=True)
+    got = A.adc_sums(_t(stored), _t(lookup), packed=True, lut_dtype=lut_dtype)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k9_dense_against_reference(exact):
+    """K9 (k = 256, step-wise in the reference: bf16 whatever lut_dtype
+    says, f32 under exact) against `adc_sums(interpret=True)`: rtol 1e-5."""
+    lookup, _, stored, _, _, _ = _inputs(8, N=600, B=6, m=5, k=256, packed=False)
+    expect = PA.adc_sums(jnp.asarray(stored), jnp.asarray(lookup), exact=exact, interpret=True)
+    got = A.adc_sums(_t(stored), _t(lookup), exact=exact, lut_dtype="int8")
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+@pytest.mark.parametrize("k,packed,exact", [(16, True, False), (16, True, True), (256, False, False)])
+def test_adc_scan_pallas_plain_composition_ids_equal(dist, k, packed, exact):
+    """The dense scan + blocked top-k (`adc_scan_pallas`), over two blocks
+    with a masked tail, with the reference's int8 default (k = 16), f32
+    (exact) or bf16 (k = 256).  Distances agree to rtol 1e-5 and ids are
+    equal, except that int8 sums tie often and the reference's block top-k
+    (`approx_min_k`) orders equal distances in no set order: there every id
+    whose distance is below the row's last one is in the other's answer."""
+    lookup, _, stored, _, cb_sq, q_norms = _inputs(9, N=1000, B=8, m=8, k=k, packed=packed)
+    n_valid = 963
+    ed, ei = PA.adc_scan_pallas(jnp.asarray(lookup), jnp.asarray(stored), n_valid,
+                                jnp.asarray(cb_sq), jnp.asarray(q_norms), 25, dist, packed=packed,
+                                exact=exact, block=512, interpret=True)
+    gd, gi = A.adc_scan_pallas(_t(lookup), _t(stored), n_valid, _t(cb_sq), _t(q_norms), 25, dist,
+                               packed=packed, exact=exact, block=512)
+    ed, ei, gd, gi = np.asarray(ed), np.asarray(ei), gd.numpy(), gi.numpy()
+    np.testing.assert_allclose(gd, ed, rtol=1e-5, atol=1e-6)
+    if k == 16 and not exact:
+        for r in range(len(ed)):
+            assert set(gi[r, gd[r] < gd[r, -1]]) <= set(ei[r])
+            assert set(ei[r, ed[r] < ed[r, -1]]) <= set(gi[r])
+    else:
+        np.testing.assert_array_equal(gi, ei)
+    assert (gi < n_valid).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    lookup, _, stored, _, _, _ = _inputs(4, N=100, B=2, m=8, k=256, packed=False)
+    packed = JP.pack_codes_4bit(stored % 16)
+    with pytest.raises(ValueError):  # k = 256 codes are never nibble-packed
+        A.adc_sums(_t(packed), _t(lookup), packed=True)
+    with pytest.raises(ValueError):  # K7 serves k = 16 tables
+        A.adc_scan_chunkmin(_t(lookup), _t(stored), torch.arange(100, dtype=torch.int32), 100,
+                            torch.zeros((8, 256)), torch.ones(2), 5, "l2sqr")
+    with pytest.raises(ValueError):  # the int8 LUT needs its scales
+        A.adc_sums_dense(_t(stored), torch.zeros((2, 8, 256), dtype=torch.int8), None, 8, False)

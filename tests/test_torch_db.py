@@ -4,7 +4,7 @@ One sequence of user calls runs on both packages (the port on the CPU), and
 the results must agree: the same metadata in the same order, distances to
 rtol 1e-5 / atol 1e-6 (the reference answers single queries with its native
 scan, the port with its exact f32 GEMM scan).  DB directories interchange,
-the error surface matches, and what is not ported raises
+the error surface matches, and what is not ported (uint8 tables) raises
 NotImplementedError."""
 
 import os
@@ -122,11 +122,10 @@ def test_unported_features_raise_not_implemented(tmp_path):
     try:
         db.create_table_if_not_exists("t", 4, "l2sqr")
         db.add("t", [1.0, 0.0, 0.0, 0.0], {"a": "b"})
-        with pytest.raises(NotImplementedError, match="PQ"):
-            db.build_pq_table("t")
+        db.build_pq_table("t")  # PQ is ported
+        assert db.has_pq_table("t")
         with pytest.raises(NotImplementedError, match="uint8"):
             db.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
-        assert not db.has_pq_table("t")
         db.build_hnsw_index("t")  # HNSW is ported
         assert db.has_hnsw_index("t")
     finally:

@@ -18,9 +18,10 @@ from lab_1806_vec_db_tpu.models import FlatIndex as JFlatIndex
 from lab_1806_vec_db_tpu.ops import pallas_gather as PG
 from lab_1806_vec_db_tpu.ops import pallas_scan as PS
 from lab_1806_vec_db_tpu.ops import topk as JT
-from lab_1806_vec_db_tpu_torch.models import FlatIndex, VecStore
+from lab_1806_vec_db_tpu_torch.models import FlatIndex, PQTable, VecStore
 from lab_1806_vec_db_tpu_torch.ops import gather as G
 from lab_1806_vec_db_tpu_torch.ops import scan as S
+from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
 
 def _untied(d):
@@ -111,6 +112,11 @@ def test_from_device_matches_from_numpy(gist_1000):
 
 
 def test_pq_search_is_not_ported():
-    idx = FlatIndex.from_numpy(np.zeros((4, 8), np.float32), "l2sqr", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        idx.knn_pq(np.zeros(8, np.float32), 2, 10, None)
+    """Flat+PQ search (`knn_pq`): each row finds itself first, at its exact
+    distance (the ADC candidates are reranked exactly)."""
+    rows = np.random.default_rng(3).standard_normal((300, 8)).astype(np.float32)
+    pq = PQTable.train(rows, PQConfig(n_bits=4, m=4, dist="l2sqr"), seed=0, device="cpu")
+    idx = FlatIndex.from_numpy(rows, "l2sqr", device="cpu")
+    for i in (0, 5, 299):
+        first = idx.knn_pq(rows[i], 2, 10, pq)[0]
+        assert first.index == i and abs(first.distance) < 1e-4

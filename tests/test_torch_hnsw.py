@@ -17,10 +17,10 @@ from lab_1806_vec_db_tpu.models import FlatIndex as JFlat
 from lab_1806_vec_db_tpu.models import HNSWIndex as JHNSW
 from lab_1806_vec_db_tpu.utils.config import HNSWConfig as JConfig
 from lab_1806_vec_db_tpu_torch import VecDB
-from lab_1806_vec_db_tpu_torch.models import HNSWIndex, VecStore
+from lab_1806_vec_db_tpu_torch.models import HNSWIndex, PQTable, VecStore
 from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
 from lab_1806_vec_db_tpu_torch.ops import traverse as TR
-from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig
+from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig, PQConfig
 
 
 def _distinct_rows(x, n):
@@ -218,11 +218,12 @@ def test_hnsw_table_error_surface_and_delete(tmp_path):
         assert not db.has_hnsw_index("t")
     finally:
         db.close()
+    # PQ search on an HNSW index: a row finds itself, a bad route raises
     index = HNSWIndex.build(rows, "l2sqr", HNSWConfig(M=8), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="PQ"):
-        index.knn_pq(rows[0], 3, 32, None)
-    with pytest.raises(NotImplementedError, match="PQ"):
-        index.knn_pq_batch(rows[:2], 3, 32, None)
+    pq = PQTable.train(rows, PQConfig(n_bits=4, m=4, dist="l2sqr"), seed=0, device="cpu")
+    assert index.knn_pq(rows[0], 3, 32, pq)[0].index == 0
+    with pytest.raises(ValueError):
+        index.knn_pq_batch(rows[:2], 3, 32, pq, route="warp")
 
 
 def test_empty_single_and_index_bytes():
