@@ -48,12 +48,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                kernel against its plain version, and index_device_bytes;
      pq      — flat_pq_1m: PQTable.train from the store's device tensor,
                FlatIndex.knn_pq_batch at ef 100 / 200 (K7 + K2), and K7
-               against its plain version on all 1,000,000 rows, bit for bit.
+               against its plain version on all 1,000,000 rows, bit for bit;
+     ivf     — ivf_1m: IVFIndex.from_store on the same store (nlist 256, 10
+               k-means iterations), knn_batch's binned route (K10 + K1 on the
+               overflow + K2) at n_probes 4 / 8 / 16 / 32 / 64 with recall,
+               QPS and dropped pairs (recall must not fall with n_probes),
+               the 16-query route (posting union + rerank_topk_blocked on
+               K2), K10 against its plain version on the route's own inputs
+               and on a small cosine index (equal element for element), the
+               kernels-vs-plain recall gate on 128 queries;
+               K1 on the overflow segment and f32 K2 on the binned
+               rerank's candidates against their plain versions;
+               ivf_lean_4m: IVFIndex.from_device_blocks at 4,000,000 x 960
+               (nlist 1024, the ingest-sorted mirror), exact ground truth by
+               block regeneration, the same sweep and gate, Flat refusing
+               the sorted store, K10 on the store read in place, K1 on its
+               overflow and bf16 K2 against their plain versions;
+               lean_scan_1m: a 1M lean store (random-permutation mirror):
+               Flat's two-stage search with refined distances (within rtol
+               1e-5 of exact), its K1 and bf16 K2 against their plain
+               versions on its own inputs, the binned IVF through the
+               gathered sorted copy.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
 the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
-traversal_stats run; K6-K9: the first call of the PQ route that takes each),
+traversal_stats run; K6-K9: the first call of the PQ route that takes each;
+K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
 computes the same function (K6: a stable torch.sort and a gather; else null).
@@ -154,6 +175,28 @@ def profile_call(fn) -> dict:
         return {"wall_ms": wall_us / 1e3, "device_busy_share": "not measured (no device time seen)"}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us}
+
+
+def chained_qps(step, q, rounds: int, reps: int) -> dict:
+    """QPS the reference's way (bench.py:196-221): `reps` batches chained
+    through a scalar data dependency (`step(q) -> (dists, ids)` on the
+    card), best and median of `rounds` rounds."""
+    import numpy as np
+    import torch
+
+    round_s = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = torch.zeros((), device=q.device)
+        for _ in range(reps):
+            d_out, _ = step(q + s * 1e-30)
+            s = s + d_out[0, 0] * 1e-30
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+    B = q.shape[0]
+    return {"qps_best": reps * B / min(round_s), "qps_median": reps * B / float(np.median(round_s)),
+            "ms_per_batch_rounds": [t / reps * 1e3 for t in round_s]}
 
 
 def recall_at_k(gt_ids, ids, k: int) -> float:
@@ -434,10 +477,12 @@ def plain_kernels():
     from lab_1806_vec_db_tpu_torch.ops import gather as G
     from lab_1806_vec_db_tpu_torch.ops import merge as M
     from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
 
     swaps = [
         (S, "scan_chunkmin_int8_packed", lambda q8, qs2, qc, b, s, c:
             S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(b, s, c, S._NB))),
+        (SB, "scan_chunkmin_int8_binned", SB.scan_chunkmin_int8_binned_ref),
         (G, "gather_dists", G.gather_dists_ref),
         (BF, "beam_pre", BF.beam_pre_ref),
         (BF, "beam_post", BF.beam_post_ref),
@@ -458,16 +503,18 @@ def plain_kernels():
 
 
 def pq_counts(reset: bool = False) -> dict:
-    """The launch count of every kernel a PQ route can reach; with `reset`
-    the counts are set to 0 (and the zeros returned)."""
+    """The launch count of every kernel a PQ or IVF route can reach; with
+    `reset` the counts are set to 0 (and the zeros returned)."""
     from lab_1806_vec_db_tpu_torch.ops import adc as A
     from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
     from lab_1806_vec_db_tpu_torch.ops import gather as G
     from lab_1806_vec_db_tpu_torch.ops import merge as M
     from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
 
     plain = {"k1": S.scan_chunkmin_int8_packed, "k2": G.gather_dists, "k4": BF.beam_pre,
-             "k5": BF.beam_post, "k6": M.merge_sorted, "k7": A.adc_chunkmin}
+             "k5": BF.beam_post, "k6": M.merge_sorted, "k7": A.adc_chunkmin,
+             "k10": SB.scan_chunkmin_int8_binned}
     by_k = {"k8_dense": (A.adc_sums_dense, 16), "k8_ids": (A.adc_sums_ids, 16),
             "k9_dense": (A.adc_sums_dense, 256), "k9_ids": (A.adc_sums_ids, 256)}
     if reset:
@@ -820,6 +867,339 @@ def phase_pq_200k(db, q_host, gts, x_host):
 
 
 
+# --------------------------------------------------------------- ivf ----
+# The reference's IVF records: data/t_bench_1M_tpu.toml:73 (the full tier
+# at 1M, nlist 256), data/t_bench_1M_lean_tpu.toml:25 and
+# data/t_bench_4M_lean_tpu.toml (the lean tier; nlist 1024 and the
+# ingest-sorted mirror at 4M), all from bench.py:335-414: nlist 256 per 1M
+# rows, 10 k-means iterations, B = 1000, k = 10.
+IVF_PROBES = (4, 8, 16, 32, 64)
+IVF_GATE_PROBES = 16  # n_probes of the launch counts, the gate and the K10 check
+
+
+def ivf_sweep(idx, q, gt, tag, rounds=3, reps=4):
+    """The binned route through `knn_batch` at every n_probes: recall@10
+    against `gt`, QPS of chained rounds (best and median), the dropped
+    (query, list) pairs; the launch counts of the IVF_GATE_PROBES call (set
+    to 0 just before it, read just after).  Recall must not fall as n_probes
+    grows."""
+    import numpy as np
+    import torch
+
+    B, out, launches = q.shape[0], {}, None
+    for p in IVF_PROBES:
+        if p == IVF_GATE_PROBES:
+            pq_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, ids = idx.knn_batch(q, 10, p)
+        first_s = time.perf_counter() - t0
+        if p == IVF_GATE_PROBES:
+            launches = pq_counts()
+        check(ids.shape == (B, 10) and bool(np.isfinite(d).all()) and bool((ids >= 0).all()),
+              f"{tag} n_probes {p}: malformed result")
+        out[p] = {"recall_at_10": recall_at_k(gt, ids.tolist(), 10), "dropped_pairs": idx.last_dropped_pairs,
+                  "first_call_s": first_s,
+                  **chained_qps(lambda qq, p=p: idx._knn_device_binned(qq, 10, p), q, rounds, reps)}
+        idx._note_drops()
+    recs = [out[p]["recall_at_10"] for p in IVF_PROBES]
+    log(f"[ivf] {tag}: " + ", ".join(f"n_probes {p} recall {out[p]['recall_at_10']:.4f} QPS "
+                                     f"{out[p]['qps_best']:.0f} dropped {out[p]['dropped_pairs']}"
+                                     for p in IVF_PROBES))
+    check(all(b >= a for a, b in zip(recs, recs[1:])), f"{tag}: recall@10 falls as n_probes grows: {recs}")
+    check(launches["k10"] > 0 and launches["k2"] > 0, f"{tag}: the binned route launched {launches}")
+    return out, launches
+
+
+def ivf_gate(idx, q, gt, tag):
+    """The binned route on the first GATE_Q queries at IVF_GATE_PROBES, with
+    the kernels and with their plain versions: recalls within 0.005, and no
+    kernel count moves under the plain versions."""
+    rec_k = recall_at_k(gt[:GATE_Q], idx.knn_batch(q[:GATE_Q], 10, IVF_GATE_PROBES)[1].tolist(), 10)
+    pq_counts(reset=True)
+    with plain_kernels():
+        rec_p = recall_at_k(gt[:GATE_Q], idx.knn_batch(q[:GATE_Q], 10, IVF_GATE_PROBES)[1].tolist(), 10)
+    stray = {k: v for k, v in pq_counts().items() if v}
+    check(not stray, f"{tag}: kernels {stray} launched under plain_kernels()")
+    check(abs(rec_k - rec_p) <= 0.005, f"{tag}: recall@10 on {GATE_Q} queries {rec_k:.4f} with kernels, "
+                                       f"{rec_p:.4f} plain")
+    return {"gate_recall_kernels": rec_k, "gate_recall_plain": rec_p}
+
+
+def check_k10(idx, q, tag, timed=True):
+    """K10 against its plain version on the binned route's own inputs at
+    IVF_GATE_PROBES (every list of the sorted mirror, all of q): equal
+    element for element.  Timed in turns; bound priced from the run's
+    R = nlist * lpad rows: the mirror rows and their two channels, the
+    nlist * 128 gathered query rows with theirs, the (R/4, 128) int32 output
+    against 2 R 128 D int8 operations."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
+
+    _, _, args = idx._scan_inputs(q, IVF_GATE_PROBES)
+    got, ref = SB.scan_chunkmin_int8_binned(*args), SB.scan_chunkmin_int8_binned_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"K10 {tag}: {int((got != ref).sum())} packed values differ from the plain version")
+    nlist, lpad, D = args[3].shape[0], args[7], idx.dim
+    R = nlist * lpad
+    out = {"max_abs_err": max_abs_err(got, ref), "shape": [nlist, lpad, SB.QB, D], "rows": R}
+    if timed:
+        out["ms"], out["plain_ms"] = in_turns(lambda: SB.scan_chunkmin_int8_binned(*args),
+                                              lambda: SB.scan_chunkmin_int8_binned_ref(*args), 10, 1)
+        out["bound"] = bound_ms(R * (D + 8) + nlist * SB.QB * (D + 8) + R * SB.QB, 2.0 * R * SB.QB * D)
+    log(f"[ivf] K10 {tag} (nlist {nlist}, lpad {lpad}, {R} rows): equal to its plain version"
+        + (f"; {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, bound {out['bound']}" if timed else ""))
+    return out
+
+
+def check_k1_path(q, q8b, sc, ca, dist, tag):
+    """K1 against its plain version on a mirror that the path scans (the
+    IVF overflow segment, the lean store's mirror), the same queries: equal
+    element for element.  Returns (packed output, max abs error)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    q8, qs2, qc = S.quantize_queries(q, q8b.shape[1], dist)
+    got = S.scan_chunkmin_int8_packed(q8, qs2, qc, q8b, sc, ca)
+    ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(q8b, sc, ca, S._NB))
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"K1 {tag}: {int((got != ref).sum())} packed values differ from the plain version")
+    log(f"[ivf] K1 {tag} ({q8b.shape[0]} rows x {q.shape[0]} queries): equal to its plain version")
+    return got, max_abs_err(got, ref)
+
+
+def check_k2_path(q, rows, ids, dist, tag):
+    """K2 against its plain version on the path's candidates and rows (f32
+    or bf16): rtol 1e-5 / atol 1e-6, +inf exactly where the id is -1."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+
+    got, ref = G.gather_dists(q, rows, ids, dist), G.gather_dists_ref(q, rows, ids, dist)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isinf(got), ids < 0), f"K2 {tag}: +inf not exactly at id -1")
+    fin = ids >= 0
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5, atol=1e-6)
+    err = max_abs_err(got, ref)
+    log(f"[ivf] K2 {tag} ({tuple(ids.shape)}, {str(rows.dtype).replace('torch.', '')} rows): within "
+        f"rtol 1e-5 of its plain version (max abs err {err:.3g})")
+    return err
+
+
+def check_overflow_k1(idx, q, tag):
+    """K1 on the index's overflow segment (the rows spilled past lpad that
+    every query scans), as `_binned_candidates` gives it."""
+    ov = idx._device_sorted()[5]
+    if ov is None:
+        return 0.0
+    return check_k1_path(q, *ov[:3], idx.dist, f"{tag} overflow segment")[1]
+
+
+def phase_ivf_1m(store, q, gt, nlist=256):
+    """ivf_1m: IVFIndex.from_store on phase 6's store (nlist 256, 10
+    iterations), the n_probes sweep on the binned route, the small-batch
+    route (posting union + rerank_topk_blocked on K2), K10 against its plain
+    version (and on a small cosine index), the kernels-vs-plain gate."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import IVFIndex, VecStore
+    from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = IVFIndex.from_store(store, IVFConfig(k=nlist, k_means_max_iter=10), seed=0)
+    torch.cuda.synchronize()
+    out = {"cell": "ivf_1m", "n": len(store), "nlist": nlist, "build_s": time.perf_counter() - t0}
+    lens = idx.posting_len
+    out["list_len"] = {"min": int(lens.min()), "median": float(np.median(lens)), "max": int(lens.max())}
+    out["sweep"], launches = ivf_sweep(idx, q, gt, "ivf_1m")
+    _, _, _, _, lpad, ov = idx._device_sorted()
+    out.update(lpad=lpad, overflow_rows=0 if ov is None else int(ov[0].shape[0]),
+               index_bytes=idx.index_bytes(), launches=launches)
+    # the small-batch route: 16 queries take the posting union through K2
+    small = {}
+    for p in (IVF_GATE_PROBES, IVF_PROBES[-1]):
+        pq_counts(reset=True)
+        _, ids_s = idx.knn_batch(q[:16], 10, p)
+        k2_blocks = pq_counts()["k2"]
+        _, ids_b = idx.knn_batch(q, 10, p)
+        rec_s = recall_at_k(gt[:16], ids_s.tolist(), 10)
+        rec_b = recall_at_k(gt[:16], ids_b[:16].tolist(), 10)
+        small[p] = {"recall_small_batch": rec_s, "recall_binned": rec_b, "k2_launches": k2_blocks}
+        check(k2_blocks > 0, "ivf_1m: the small-batch route launched K2 no time")
+        check(abs(rec_s - rec_b) <= 0.02, f"ivf_1m n_probes {p}: small-batch recall {rec_s:.4f} vs binned {rec_b:.4f}")
+    out["small_batch"] = small
+    out.update(ivf_gate(idx, q, gt, "ivf_1m"))
+    out["profile_n_probes_16"] = profile_call(lambda: idx.knn_batch(q, 10, IVF_GATE_PROBES))
+    k10 = check_k10(idx, q, "ivf_1m l2sqr")
+    # the path's other launches, each against its plain version on its own
+    # inputs: K1 on the overflow segment, f32 K2 at the binned rerank's shape
+    out["k1_overflow_err"] = check_overflow_k1(idx, q, "ivf_1m")
+    cand, _ = idx._binned_candidates(q, 10, IVF_GATE_PROBES)
+    out["k2_binned_rerank_err"] = check_k2_path(q, store.device_rerank(), cand, store.dist,
+                                                "ivf_1m binned rerank")
+    # K10's cosine form on a small cosine index over the same rows
+    cos = IVFIndex.from_store(VecStore.from_device(store.device()[0][:65536], "cosine"),
+                              IVFConfig(k=16, k_means_max_iter=10), seed=0)
+    check_k10(cos, q, "cosine, 65,536 rows", timed=False)
+    out["k10_cosine_equal"] = True
+    log(f"[ivf] ivf_1m: build {out['build_s']:.1f} s, lpad {lpad}, overflow {out['overflow_rows']} rows, "
+        f"index_bytes {out['index_bytes']}, small batch {small}, gate {out['gate_recall_kernels']:.4f} / "
+        f"{out['gate_recall_plain']:.4f}")
+    del idx, cos
+    torch.cuda.empty_cache()
+    return out, k10
+
+
+def exact_l2_f64(fill, n, q, ids, block_rows=131072):
+    """Exact l2sqr distances of q[b] to rows ids[b, j] (all valid) in
+    float64, each row regenerated from `fill`: the yardstick of returned
+    distances."""
+    import torch
+
+    out = torch.empty(ids.shape, dtype=torch.float64, device=q.device)
+    qd = q.double()
+    for row0 in range(0, n, block_rows):
+        rows = min(block_rows, n - row0)
+        sel = (ids >= row0) & (ids < row0 + rows)
+        if not bool(sel.any()):
+            continue
+        v = fill(row0, rows).double()[(ids[sel] - row0).long()]
+        out[sel] = ((v - qd[torch.nonzero(sel)[:, 0]]) ** 2).sum(-1)
+    return out
+
+
+def phase_lean(card, n_lean=4_000_000, nlist_lean=1024, n_scan=1_000_000, nlist_scan=256,
+               device="cuda"):
+    """ivf_lean_4m (the lean tier with the ingest-sorted mirror: K10 + bf16
+    K2) and lean_scan_1m (the lean tier with the random-permutation mirror:
+    Flat's K1 + bf16 K2 + exact refinement, and the binned IVF through the
+    sorted copy that `_device_sorted` gathers)."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import synth
+    from lab_1806_vec_db_tpu_torch.models import FlatIndex, IVFIndex
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+    from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
+
+    dim, B, k = 960, 1000, 10
+    # ---- ivf_lean_4m ----
+    n = n_lean
+    fill, queries = synth.make_fill(0, dim, device)
+    q = queries(B)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = IVFIndex.from_device_blocks(fill, n, dim, "l2sqr", IVFConfig(k=nlist_lean, k_means_max_iter=10),
+                                      seed=0, mirror="sorted", device=device)
+    torch.cuda.synchronize()
+    lean = {"cell": "ivf_lean_4m", "n": n, "nlist": nlist_lean, "mirror": "sorted",
+            "build_s": time.perf_counter() - t0, "int8_reliable": idx.store.int8_reliable()}
+    t0 = time.perf_counter()
+    gt = synth.exact_gt_blocked(fill, n, q, k, "l2sqr").cpu().numpy().tolist()
+    lean["exact_gt_s"] = time.perf_counter() - t0
+    try:
+        FlatIndex.from_store(idx.store)
+        fail("ivf_lean_4m: FlatIndex accepted the cluster-sorted store")
+    except ValueError:
+        lean["flat_refuses_sorted_store"] = True
+    lean["sweep"], lean["launches"] = ivf_sweep(idx, q, gt, "ivf_lean_4m")
+    _, _, _, _, lpad, ov = idx._device_sorted()
+    lean.update(lpad=lpad, overflow_rows=0 if ov is None else int(ov[0].shape[0]),
+                index_bytes=idx.index_bytes(), store_capacity=idx.store.capacity)
+    lean.update(ivf_gate(idx, q, gt, "ivf_lean_4m"))
+    # K10 reading the ingest-sorted store in place (its mirror runs on past
+    # nlist * lpad with the overflow and capacity rows), K1 on that overflow
+    lean["k10_err"] = check_k10(idx, q, "ivf_lean_4m (ingest-sorted store)", timed=False)["max_abs_err"]
+    lean["k1_overflow_err"] = check_overflow_k1(idx, q, "ivf_lean_4m")
+    lean["profile_n_probes_16"] = profile_call(lambda: idx.knn_batch(q, 10, IVF_GATE_PROBES))
+    # bf16 K2 against its plain version on this path's candidates, every
+    # 7th one set to -1 (the path itself may hold none)
+    orig, _ = idx._binned_candidates(q, k, IVF_GATE_PROBES)
+    orig[:, ::7] = -1
+    rows = idx.store.device_rerank()
+    fin = orig >= 0
+    r = orig.shape[1]
+    k2 = {"max_abs_err": check_k2_path(q, rows, orig, "l2sqr", "ivf_lean_4m binned rerank"),
+          "shape": [B, r, dim, "bfloat16"]}
+    k2["ms"], k2["plain_ms"] = in_turns(lambda: G.gather_dists(q, rows, orig, "l2sqr"),
+                                        lambda: G.gather_dists_ref(q, rows, orig, "l2sqr"), 20, 5)
+    # bf16 rows of the valid candidates, the ids, the f32 queries; the output
+    k2["bound"] = bound_ms(int(fin.sum()) * dim * 2 + B * r * 4 + B * dim * 4 + B * r * 4)
+    lean["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[ivf] ivf_lean_4m: build {lean['build_s']:.1f} s, gt {lean['exact_gt_s']:.1f} s, lpad {lpad}, "
+        f"index_bytes {lean['index_bytes']}, peak {lean['peak_allocated_bytes']}; bf16 K2 (B {B}, r {r}) "
+        f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, err {k2['max_abs_err']:.3g}")
+    del idx, rows, orig
+    torch.cuda.empty_cache()
+
+    # ---- lean_scan_1m ----
+    n = n_scan
+    fill, queries = synth.make_fill(1, dim, device)
+    q = queries(B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = IVFIndex.from_device_blocks(fill, n, dim, "l2sqr", IVFConfig(k=nlist_scan, k_means_max_iter=10),
+                                      seed=0, mirror="scan", device=device)
+    torch.cuda.synchronize()
+    scan = {"cell": "lean_scan_1m", "n": n, "nlist": nlist_scan, "mirror": "scan",
+            "build_s": time.perf_counter() - t0, "store_device_bytes": idx.store.device_bytes()}
+    gt = synth.exact_gt_blocked(fill, n, q, k, "l2sqr")
+    flat = FlatIndex.from_store(idx.store)
+    pq_counts(reset=True)
+    t0 = time.perf_counter()
+    d, ids = flat.knn_batch(q, k)
+    scan["flat_first_call_s"] = time.perf_counter() - t0
+    scan["flat_launches"] = pq_counts()
+    check(scan["flat_launches"]["k1"] > 0 and scan["flat_launches"]["k2"] > 0,
+          f"lean_scan_1m: Flat launched {scan['flat_launches']}")
+    scan["flat_recall_at_10"] = recall_at_k(gt.tolist(), ids.tolist(), k)
+    # the lean Flat's launches against their plain versions on its own
+    # inputs: K1 over the store's permuted mirror, bf16 K2 on the
+    # candidates that K1's survivors decode to
+    base_i8, scales, cache8, perm = idx.store.device_int8()
+    packed, scan["flat_k1_err"] = check_k1_path(q, base_i8, scales, cache8, "l2sqr", "lean_scan_1m Flat")
+    _, cand = S.select_survivors(packed, flat.rerank_depth(k))
+    cand = T.decode_perm(cand, perm, n)
+    scan["flat_k2_bf16_err"] = check_k2_path(q, idx.store.device_rerank(), cand, "l2sqr",
+                                             "lean_scan_1m Flat rerank")
+    del packed, cand
+    exact = exact_l2_f64(fill, n, q, torch.from_numpy(ids).to(q.device)).cpu().numpy()
+    rel = float(np.max(np.abs(d - exact) / np.maximum(np.abs(exact), 1e-30)))
+    scan["flat_returned_dist_max_rel_err"] = rel
+    check(rel <= 1e-5, f"lean_scan_1m: returned distances off exact f32 by {rel:.3g} (> rtol 1e-5)")
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat.knn_batch(q, k)
+        calls.append(time.perf_counter() - t0)
+    scan["flat_knn_batch_s"] = calls
+    # the two searches on this store, like for like: device results, no
+    # refinement, chained batches
+    scan["flat_two_stage"] = chained_qps(lambda qq: flat._knn_device(qq, k), q, 3, 4)
+    scan["ivf_binned_n_probes_16"] = chained_qps(lambda qq: idx._knn_device_binned(qq, k, IVF_GATE_PROBES),
+                                                 q, 3, 4)
+    idx._note_drops()
+    pq_counts(reset=True)
+    t0 = time.perf_counter()
+    _, ids_i = idx.knn_batch(q, k, IVF_GATE_PROBES)
+    scan["ivf_first_call_s"] = time.perf_counter() - t0
+    scan["ivf_launches"] = pq_counts()
+    check(scan["ivf_launches"]["k10"] > 0, "lean_scan_1m: the binned IVF launched K10 no time")
+    scan["ivf_recall_at_10_n_probes_16"] = recall_at_k(gt.tolist(), ids_i.tolist(), k)
+    scan["index_bytes"] = idx.index_bytes()
+    log(f"[ivf] lean_scan_1m: build {scan['build_s']:.1f} s, Flat recall {scan['flat_recall_at_10']:.4f} "
+        f"(returned distances within {rel:.3g} of exact), binned IVF n_probes 16 recall "
+        f"{scan['ivf_recall_at_10_n_probes_16']:.4f}, index_bytes {scan['index_bytes']}; QPS best Flat "
+        f"{scan['flat_two_stage']['qps_best']:.0f}, IVF {scan['ivf_binned_n_probes_16']['qps_best']:.0f}")
+    check(scan["flat_recall_at_10"] >= 0.99, f"lean_scan_1m: Flat recall@10 {scan['flat_recall_at_10']:.4f} < 0.99")
+    del idx, flat
+    torch.cuda.empty_cache()
+    return lean, scan, k2
+
+
 def phase_vecdb(x_host, q_host):
     import numpy as np
     import torch
@@ -941,7 +1321,6 @@ def profile_round(flat, q, k: int, reps: int) -> dict:
 
 
 def phase_1m(card):
-    import numpy as np
     import torch
     from lab_1806_vec_db_tpu_torch.bench import synth
     from lab_1806_vec_db_tpu_torch.models import FlatIndex, VecStore
@@ -975,21 +1354,9 @@ def phase_1m(card):
     rec = recall_at_k(gt.tolist(), ids.tolist(), k)
     check(rec >= 0.99, f"1M: recall@10 {rec:.4f} < 0.99")
 
-    # QPS the reference's way: batches chained through a scalar data
-    # dependency, best and median of 5 rounds of 8
-    reps, rounds = 8, 5
-    round_s = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s = torch.zeros((), device="cuda")
-        for _ in range(reps):
-            d_out, _ = flat._knn_device(q + s * 1e-30, k)
-            s = s + d_out[0, 0] * 1e-30
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - t0)
-    qps_best = reps * B / min(round_s)
-    qps_median = reps * B / float(np.median(round_s))
+    # QPS the reference's way: best and median of 5 rounds of 8 chained batches
+    reps = 8
+    qps = chained_qps(lambda qq: flat._knn_device(qq, k), q, 5, reps)
     profile = profile_round(flat, q, k, reps)
 
     # per-stage split with CUDA events (mean of 10 passes)
@@ -1036,8 +1403,7 @@ def phase_1m(card):
     times["k2_bound"] = bound_ms(B * r * dim * 4 + B * r * 4 + B * dim * 4 + B * r * 4)
     out = {
         "phase": "flat_1m", "card": card, "n": n, "dim": dim, "batch": B, "k": k, "dist": dist,
-        "rerank_depth": r, "recall_at_10": rec, "qps_best": qps_best, "qps_median": qps_median,
-        "ms_per_batch_rounds": [t / reps * 1e3 for t in round_s],
+        "rerank_depth": r, "recall_at_10": rec, **qps,
         "first_call_s": t_first, "ingest_s": t_ingest, "exact_gt_s": t_gt,
         "stage_ms": split, **times, "k1_equal_at_1m": k1_equal, "k2_max_abs_err_at_1m": k2_err,
         "profile": profile,
@@ -1045,10 +1411,11 @@ def phase_1m(card):
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches_first_call": {"k1": launches[0], "k2": launches[1]},
     }
-    log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps_best:.0f} median {qps_median:.0f}, "
+    log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps['qps_best']:.0f} median {qps['qps_median']:.0f}, "
         f"stages {split}, {times}")
     pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
-    return out, pq_out, k7
+    ivf_out, k10 = phase_ivf_1m(store, q, gt.tolist())
+    return out, pq_out, k7, ivf_out, k10
 
 
 def main() -> None:
@@ -1074,12 +1441,24 @@ def main() -> None:
     del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
-    m, pq_1m, k7 = phase_1m(card)
+    m, pq_1m, k7, ivf_1m, k10 = phase_1m(card)
     print(json.dumps(m), flush=True)
     print(json.dumps({"phase": "pq", "card": card, "flat_pq_1m": pq_1m, **pq_out,
                       "kernels_vs_plain": {"k7_1m": k7, **pm}}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    ivf_lean, lean_scan, k2_bf16 = phase_lean(card)
+    print(json.dumps({"phase": "ivf", "card": card, "ivf_1m": ivf_1m, "ivf_lean_4m": ivf_lean,
+                      "lean_scan_1m": lean_scan,
+                      "kernels_vs_plain": {"k10_ivf_1m": k10, "k2_bf16_ivf_lean_4m": k2_bf16}},
+                     default=str), flush=True)
 
     main_launches = launches["gist_l2"]
+    # each error is the largest over every comparison of that kernel with its
+    # plain version, the IVF path's own inputs included
+    k1_err = max(k1_err, ivf_1m["k1_overflow_err"], ivf_lean["k1_overflow_err"], lean_scan["flat_k1_err"])
+    k2_err = max(k2_err, ivf_1m["k2_binned_rerank_err"])
+    k10 = {**k10, "max_abs_err": max(k10["max_abs_err"], ivf_lean["k10_err"])}
+    k2_bf16 = {**k2_bf16, "max_abs_err": max(k2_bf16["max_abs_err"], lean_scan["flat_k2_bf16_err"])}
     k3b, k4b, k5b = bound_ms(hm["k3_bytes"]), bound_ms(hm["k4_bytes"]), bound_ms(hm["k5_bytes"])
     kernels = [
         {"name": "scan_chunkmin_int8_packed", "route": "cuda",
@@ -1140,6 +1519,13 @@ def main() -> None:
                   pq_launches["nbits8_graph"]["k9_ids"], pm["k9_ids"]),
         pq_kernel("adc_sums_dense_k256", "adc_sums.cu", "pallas_adc.py:119",
                   pq_launches["nbits8_scan"]["k9_dense"], pm["k9_dense"]),
+        # K10 on ivf_1m's binned knn_batch at n_probes 16; checked and timed
+        # there on the whole sorted mirror
+        pq_kernel("scan_chunkmin_int8_binned", "scan_int8_binned.cu", "pallas_scan.py:726",
+                  ivf_1m["launches"]["k10"], k10),
+        # K2 on bf16 rows: ivf_lean_4m's binned knn_batch at n_probes 16
+        pq_kernel("gather_dists_bf16", "gather_dists.cu", "pallas_gather.py:261",
+                  ivf_lean["launches"]["k2"], k2_bf16),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 // Device code shared by the graph-search kernels, for Hopper (sm_90a):
 //
-//   row_dist / query_norm   the exact per-row distance (K2, K3)
+//   row_dist / query_norm   the exact per-row distance (K2, K3; f32 or bf16 rows)
 //   dedup_compact           K4's body: tile dedup + novel-first compaction
 //   bitonic_sort            K5's merge: sort of the 2W (d, rank<<1|e) keys
 //   remask_select           K5's epilogue: ef re-mask + expansion select
@@ -43,35 +43,51 @@ __device__ __forceinline__ float query_norm(const float* qb, int dim, int dim4, 
   return sqrtf(warp_sum(qq));
 }
 
-// Exact f32 distance of row v to query qb, one warp, float4 loads when dim4
-// > 0; every lane gets the result.
+// Row loads for row_dist: f32 rows as they are, bf16 rows (their raw 16
+// bits, uint16_t) upcast exactly to f32 (a bf16 is the high half of an f32).
+__device__ __forceinline__ float4 load4(const float* v, int i) {
+  return reinterpret_cast<const float4*>(v)[i];
+}
+__device__ __forceinline__ float4 load4(const uint16_t* v, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(v)[i];
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float load1(const float* v, int i) { return v[i]; }
+__device__ __forceinline__ float load1(const uint16_t* v, int i) {
+  return __uint_as_float(static_cast<unsigned>(v[i]) << 16);
+}
+
+// Exact f32 distance of row v (f32, or bf16 upcast to f32) to query qb, one
+// warp, 4-element vector loads when dim4 > 0; every lane gets the result.
 //   l2sqr:  sum_k (v[k] - q[k])^2 (no cached norms)
-//   cosine: 1 - dot / max(|v| * qn, 1e-10)
-__device__ __forceinline__ float row_dist(const float* __restrict__ v, const float* qb, int dim,
+//   cosine: 1 - dot / max(|v| * qn, 1e-10), |v| from the upcast row
+template <typename T>
+__device__ __forceinline__ float row_dist(const T* __restrict__ v, const float* qb, int dim,
                                           int dim4, bool cosine, float qn, int lane) {
-  const float4* v4 = reinterpret_cast<const float4*>(v);
   const float4* qb4 = reinterpret_cast<const float4*>(qb);
   float acc = 0.f, vv = 0.f;
   if (!cosine) {
     for (int i = lane; i < dim4; i += 32) {
-      const float4 a = v4[i], c = qb4[i];
+      const float4 a = load4(v, i), c = qb4[i];
       const float dx = a.x - c.x, dy = a.y - c.y, dz = a.z - c.z, dw = a.w - c.w;
       acc += dx * dx + dy * dy + dz * dz + dw * dw;
     }
     for (int i = dim4 * 4 + lane; i < dim; i += 32) {
-      const float dx = v[i] - qb[i];
+      const float dx = load1(v, i) - qb[i];
       acc += dx * dx;
     }
     return warp_sum(acc);
   }
   for (int i = lane; i < dim4; i += 32) {
-    const float4 a = v4[i], c = qb4[i];
+    const float4 a = load4(v, i), c = qb4[i];
     acc += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
     vv += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
   }
   for (int i = dim4 * 4 + lane; i < dim; i += 32) {
-    acc += v[i] * qb[i];
-    vv += v[i] * v[i];
+    const float a = load1(v, i);
+    acc += a * qb[i];
+    vv += a * a;
   }
   const float dot = warp_sum(acc);
   const float vn = sqrtf(warp_sum(vv));

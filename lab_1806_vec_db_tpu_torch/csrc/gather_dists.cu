@@ -5,7 +5,7 @@
 // gather_dists_rs_1q (_gather_dist_kernel): one kernel covers both.
 //
 // What it computes, for queries q (B, dim) f32, base rows (n_rows, dim) f32
-// and candidate ids (B, r) int32:
+// or bf16 and candidate ids (B, r) int32:
 //
 //   out[b, j] = sum_k (base[id, k] - q[b, k])^2                    (l2sqr)
 //             = 1 - dot / max(|base[id]| * |q[b]|, 1e-10)           (cosine)
@@ -24,8 +24,14 @@
 // The per-row distance itself (row_dist, query_norm) lives in beam_body.cuh,
 // shared with K3 (traverse.cu), so the two kernels give the same bits.
 //
-// flags: bit 0 = cosine, bit 1 = float4 path allowed (dim % 4 == 0 and both
-// row arrays 16-byte aligned; the wrapper checks).
+// The lean store tier keeps its rerank rows in bf16 (2 bytes a lane): the
+// same kernel reads them in place and upcasts each to f32 before the
+// arithmetic, as the reference does (pallas_gather.py:146), halving the
+// bytes per candidate.
+//
+// flags: bit 0 = cosine, bit 1 = vector path allowed (dim % 4 == 0, the
+// queries 16-byte and the rows 16-byte (f32) / 8-byte (bf16) aligned; the
+// wrapper checks), bit 2 = bf16 rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,8 +43,9 @@ namespace {
 
 constexpr int WARPS = 8;
 
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-gather_dists_kernel(const float* __restrict__ q, const float* __restrict__ base,
+gather_dists_kernel(const float* __restrict__ q, const T* __restrict__ base,
                     const int32_t* __restrict__ ids, float* __restrict__ out, int r, int dim,
                     long long n_rows, int flags) {
   const int b = blockIdx.x;
@@ -63,8 +70,15 @@ extern "C" int vecdb_gather_dists(const void* q, const void* base, const void* i
                                   int B, int r, int dim, long long n_rows, int flags,
                                   void* stream) {
   if (B <= 0 || r <= 0) return 0;
-  gather_dists_kernel<<<B, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(base),
-      static_cast<const int32_t*>(ids), static_cast<float*>(out), r, dim, n_rows, flags);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flags & 4) {
+    gather_dists_kernel<uint16_t><<<B, WARPS * 32, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const uint16_t*>(base),
+        static_cast<const int32_t*>(ids), static_cast<float*>(out), r, dim, n_rows, flags);
+  } else {
+    gather_dists_kernel<float><<<B, WARPS * 32, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(base),
+        static_cast<const int32_t*>(ids), static_cast<float*>(out), r, dim, n_rows, flags);
+  }
   return static_cast<int>(cudaGetLastError());
 }

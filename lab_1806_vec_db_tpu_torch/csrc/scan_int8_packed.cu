@@ -41,37 +41,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
+
+using namespace vecdb::i8;
 
 constexpr int CHUNK_ROWS = 2048;  // NB = CB of the reference (_tiles_for)
 constexpr int SLOTS = 16;         // SB = CB / 128 survivors per chunk
-constexpr int BM = 128;           // base rows per sub-tile: 8 levels x 16 slots
-constexpr int BN = 128;           // queries per CTA
-constexpr int BK = 64;            // int8 depth per pipeline stage
-constexpr int LDS = BK + 16;      // padded smem row stride in bytes
-constexpr int THREADS = 256;      // 8 warps: 2 (rows) x 4 (queries)
 constexpr int SUBTILES = CHUNK_ROWS / BM;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __global__ void __launch_bounds__(THREADS)
 scan_int8_packed_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs2,
@@ -142,28 +120,7 @@ scan_int8_packed_kernel(const int8_t* __restrict__ q8, const float* __restrict__
     __syncthreads();
     const int8_t* A = smA[s & 1];
     const int8_t* Bq = smB[s & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = warp_m * 64 + mt * 16 + g;
-        af[mt][0] = *reinterpret_cast<const unsigned*>(&A[r * LDS + kk + t * 4]);
-        af[mt][1] = *reinterpret_cast<const unsigned*>(&A[(r + 8) * LDS + kk + t * 4]);
-        af[mt][2] = *reinterpret_cast<const unsigned*>(&A[r * LDS + kk + 16 + t * 4]);
-        af[mt][3] = *reinterpret_cast<const unsigned*>(&A[(r + 8) * LDS + kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = warp_n * 32 + nt * 8 + g;
-        bf[nt][0] = *reinterpret_cast<const unsigned*>(&Bq[n * LDS + kk + t * 4]);
-        bf[nt][1] = *reinterpret_cast<const unsigned*>(&Bq[n * LDS + kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt]);
-    }
+    mma_step(A, Bq, acc, warp_m, warp_n, g, t);
     __syncthreads();  // stage s&1 is refilled by the next iteration's prefetch
 
     if (s % KT == KT - 1) {
@@ -182,9 +139,7 @@ scan_int8_packed_kernel(const int8_t* __restrict__ q8, const float* __restrict__
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              const float dots_f = __int2float_rn(acc[mt][nt][2 * h + j]);
-              const float d = __fsub_rn(__fadd_rn(ca[h], q_c[nt][j]),
-                                        __fmul_rn(dots_f, __fmul_rn(sc[h], q_s[nt][j])));
+              const float d = epilogue(acc[mt][nt][2 * h + j], ca[h], q_c[nt][j], sc[h], q_s[nt][j]);
               const int32_t m = (__float_as_int(d) & ~127) | level;
               mins[h][nt][j] = min(mins[h][nt][j], m);
               acc[mt][nt][2 * h + j] = 0;

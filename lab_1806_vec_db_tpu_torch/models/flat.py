@@ -13,6 +13,13 @@ package's CPU path is a different, bf16 XLA scan).
 
 `knn_pq_batch` (Flat+PQ) is the PQ table's ADC scan (K7, or K8 / K9) with
 ef candidates, then K2's exact rerank.
+
+On a lean-tier store (`VecStore.from_device_blocks`) the two-stage plan is
+the only one (there is no f32 copy to scan exactly): K2 reads the bf16
+rerank rows, and `knn_batch` refines the final (B, k) distances to exact
+f32 from the regenerated blocks when the store kept its generator.  A store
+whose mirror is cluster-sorted (IVF's scale layout) is refused: K1 keeps one
+survivor per strided 128-row group, which that layout would starve.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ class FlatIndex:
 
     @classmethod
     def from_store(cls, store: VecStore) -> "FlatIndex":
+        if store._mirror_layout == "sorted":
+            raise ValueError(
+                "store's int8 mirror is cluster-sorted (binned-IVF scale layout); "
+                "FlatIndex requires the randomly-permuted layout")
         idx = cls.__new__(cls)
         idx.store = store
         return idx
@@ -86,9 +97,15 @@ class FlatIndex:
     def knn_batch(self, queries, k: int, exact: bool | None = None):
         """Batched kNN -> ((B, k) f32 dists, (B, k) int32 ids) as numpy,
         -1 padded.  Returned distances are exact f32 on both paths;
-        `exact=True` forces the single-pass exact scan (ground truth)."""
+        `exact=True` forces the single-pass exact scan (ground truth).  On
+        the lean tier the rerank reads bf16 rows; the final distances are
+        then refined to exact f32 (and re-sorted) when the store kept its
+        generator, else they stay bf16-grade (`store.distance_precision`)."""
         d, i = self._knn_device(queries, k, exact)
-        return d.cpu().numpy(), i.cpu().numpy()
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        if self.store.tier == "lean":
+            return self.store.refine_result(self._queries(queries), d, i)
+        return d, i
 
     def rerank_depth(self, k: int, rerank_depth: int | None = None) -> int:
         """Stage-1 survivor count r of the two-stage plan."""
@@ -114,9 +131,15 @@ class FlatIndex:
         the stage-1 survivor count."""
         q = self._queries(queries)
         n = len(self.store)
+        lean = self.store.tier == "lean"
         if exact is None:
-            exact = n <= _EXACT_BELOW or not self.store.int8_reliable()
+            exact = (not lean and n <= _EXACT_BELOW) or not self.store.int8_reliable()
         if exact:
+            if lean:
+                raise RuntimeError(
+                    "exact f32 scan unavailable on a lean-tier store (no f32 device copy), and "
+                    "the int8 self-test failed or exact=True was asked, so the quantized stage 1 "
+                    "cannot stand in for it")
             vecs, cache = self.store.device()
             return T.knn_scan(q, vecs, cache, n, k, self.dist)
         r = self.rerank_depth(k, rerank_depth)
@@ -129,7 +152,11 @@ class FlatIndex:
     def knn(self, query, k: int) -> list[CandidatePair]:
         """Single-query search through the exact scan on the store's device
         (the reference serves it with its native exact scan, so the answer
-        stays exact here too)."""
+        stays exact here too); a lean store has no exact scan and takes
+        `knn_batch`'s refined two-stage plan."""
+        if self.store.tier == "lean":
+            d, i = self.knn_batch(query, k)
+            return pairs_from_arrays(d[0], i[0], k)
         d, i = self._knn_device(query, k, exact=True)
         return pairs_from_arrays(d[0].cpu().numpy(), i[0].cpu().numpy(), k)
 

@@ -443,7 +443,9 @@ class HNSWIndex:
         """Bulk build over a pre-filled store (e.g. `VecStore.from_device`):
         no vector crosses the host boundary.  Rows [0, n) join the graph in
         the same chunks as `build`'s, each searching the prefix below it, so
-        the graph equals `build`'s for the same rows and seed."""
+        the graph equals `build`'s for the same rows and seed.  A lean-tier
+        store is refused: the build reads the f32 rows."""
+        store._require_full("HNSWIndex.build_from_store")
         index = cls(store.dim, store.dist, config or HNSWConfig(), seed, device=store.torch_device)
         index.store = store
         index._reset_graph(store.capacity)

@@ -1,4 +1,4 @@
-"""Padded device-resident vector storage (port of models/store.py, full tier).
+"""Padded device-resident vector storage (port of models/store.py).
 
 - canonical storage is a host numpy array with geometric capacity growth
   (push / batch_push / swap_remove, the `_round_cap` ladder);
@@ -12,8 +12,14 @@
 - the bf16 traversal copy (`device_traversal`) serves only the HNSW graph
   search of the CPU route, built on first use.
 
-The lean tier and the PCA projection are not ported yet (ROADMAP queue 1,
-items 10 and 13).
+The LEAN tier (`from_device_blocks`) streams f32 blocks from a generator and
+keeps only the int8 mirror (randomly permuted, or any layout the caller
+gives, e.g. IVF's cluster-sorted one) and a bf16 (n, dim) rerank tensor
+indexed by original id: about 3 bytes a lane instead of the full tier's 9.
+Its f32 accessors, mutation and serde raise; exact returned distances come
+from regenerating the blocks that hold the result rows (`refine_distances`).
+
+The PCA projection is not ported yet (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -55,6 +61,15 @@ def _mirror_rows(v: torch.Tensor, cache: torch.Tensor, dim_pad: int, dist: str):
 
 
 class VecStore:
+    # lean-tier state, read through the class defaults by every full-tier
+    # construction path: the retained block generator (exact rows) and the
+    # mirror layout ("sorted" when the caller laid it out, e.g. IVF)
+    _tier = "full"
+    _mirror_layout = "scan"
+    _fill = None
+    _fill_block_rows = 0
+    _dev_rerank: torch.Tensor | None = None  # the lean tier's bf16 rows
+
     def __init__(self, dim: int, dist: str, capacity: int = 0, dtype=np.float32,
                  device="cuda"):
         D.check_dist(dist)
@@ -121,12 +136,191 @@ class VecStore:
             store.batch_push(vectors)
         return store
 
+    # ---- the lean tier ----
+    @property
+    def tier(self) -> str:
+        """"full" (f32 rows on the device + derived mirrors) or "lean" (the
+        int8 mirror + bf16 rerank rows only; see `from_device_blocks`)."""
+        return self._tier
+
+    def _require_full(self, what: str) -> None:
+        if self._tier == "lean":
+            raise RuntimeError(
+                f"{what} requires the full store tier; this store was ingested with "
+                "from_device_blocks (lean tier: int8 scan mirror + bf16 rerank rows, no f32 copy)")
+
+    @classmethod
+    def from_device_blocks(cls, fill, n: int, dim: int, dist: str,
+                           block_rows: int = 131072, assign_fn=None, perm: np.ndarray | None = None,
+                           cap: int | None = None, keep_fill: bool = True,
+                           device="cuda") -> "VecStore":
+        """Memory-LEAN ingest for sets whose f32 form does not fit the
+        device: stream `fill(row0, rows) -> (rows, dim) f32 tensor`, build
+        ONLY the int8 mirror and a bf16 (n_pad, dim) rerank tensor
+        indexed by original id, and drop each f32 block.
+
+        The mirror is the full tier's quantization (same bytes for the same
+        rows), scattered to `perm`'s layout: mirror slot i holds original row
+        perm[i] (default: the full tier's seeded random permutation of `cap`
+        = n rounded up to 16384).  A custom `perm` / `cap` (slots of ids >= n
+        are never written and keep the losing sentinel) marks the store
+        `_mirror_layout = "sorted"`, which the Flat scan refuses.
+        `assign_fn(v, row0)` runs on each f32 block before it is dropped
+        (IVF's cluster assignment).  The int8 ordering self-test runs on the
+        first block's first 4096 rows.  With `keep_fill` the generator is
+        kept for exact rows (`exact_rows`, `refine_distances`); `fill` must
+        then return the same rows for the same row ids, whatever the block
+        boundaries."""
+        D.check_dist(dist)
+        dev = resolve(device)
+        store = cls.__new__(cls)
+        store.torch_device = dev
+        store.dim = int(dim)
+        store.dist = dist
+        store.dtype = np.dtype(np.float32)
+        store._n = int(n)
+        store._cap = int(cap) if cap is not None else -(-int(n) // 16384) * 16384
+        if store._cap < n:
+            raise ValueError(f"cap {store._cap} < n {n}")
+        store._data = None
+        store._init_device_state()
+        store._dev_full_dirty = False
+        store._tier = "lean"
+        store._mirror_layout = "sorted" if perm is not None else "scan"
+        cap = store._cap
+        if perm is not None:
+            perm = np.asarray(perm, dtype=np.int32)
+            if perm.shape != (cap,):
+                raise ValueError(f"perm shape {perm.shape} != ({cap},)")
+            store._scan_perm = perm
+        else:
+            rng = np.random.default_rng(cap ^ 0x5EED)
+            store._scan_perm = rng.permutation(cap).astype(np.int32)
+        store._scan_inv = np.empty(cap, np.int32)
+        store._scan_inv[store._scan_perm] = np.arange(cap, dtype=np.int32)
+
+        dim_pad = ((dim + 127) // 128) * 128
+        q8 = torch.zeros((cap, dim_pad), dtype=torch.int8, device=dev)
+        scale = torch.zeros(cap, dtype=torch.float32, device=dev)
+        cache_ch = torch.full((cap,), _BIG, dtype=torch.float32, device=dev)  # sentinel everywhere
+        # indexed by ORIGINAL id (< n): no mirror layout padding
+        rerank = torch.zeros((-(-int(n) // 16384) * 16384, dim), dtype=torch.bfloat16, device=dev)
+        inv_dev = torch.from_numpy(store._scan_inv[:n].astype(np.int64)).to(dev)
+        verdict = None
+        for row0 in range(0, n, block_rows):
+            rows = min(block_rows, n - row0)
+            v = fill(row0, rows).to(dev, torch.float32)
+            if verdict is None:
+                m = min(rows, 4096)
+                verdict = T.int8_ordering_selftest(v[:m], m, dist) >= 0.95
+            if assign_fn is not None:
+                assign_fn(v, row0)
+            slots = inv_dev[row0 : row0 + rows]
+            q8v, scv, cpv = _mirror_rows(v, D.dist_cache(v, dist), dim_pad, dist)
+            q8[slots] = q8v
+            scale[slots] = scv
+            cache_ch[slots] = cpv
+            rerank[row0 : row0 + rows] = v.to(torch.bfloat16)
+            del v
+        store._dev_int8 = (q8, scale, cache_ch, torch.from_numpy(store._scan_perm).to(dev))
+        store._dev_rerank = rerank
+        store._int8_ok = (True if verdict is None else bool(verdict), max(n, 1))
+        if keep_fill:
+            store._fill = fill
+            store._fill_block_rows = int(block_rows)
+        return store
+
+    @property
+    def distance_precision(self) -> str:
+        """"f32" when an exact row source exists (the full tier, or a lean
+        tier that kept its generator), else the lean rerank rows' dtype name
+        ("bfloat16"): selection-grade distances only."""
+        if self._tier != "lean" or self._fill is not None:
+            return "f32"
+        return str(self._dev_rerank.dtype).replace("torch.", "")
+
+    def exact_rows(self, ids) -> torch.Tensor | None:
+        """Exact f32 rows for a small id set, in order, on the store's
+        device: a gather on the full tier; on the lean tier, regenerate only
+        the `block_rows`-aligned blocks that hold requested ids.  None when no
+        exact source exists (lean, keep_fill=False).  Negative ids give zero
+        rows."""
+        ids_h = np.asarray(ids, np.int64).ravel()
+        if self._tier != "lean":
+            vecs, _ = self.device()
+            return vecs[torch.from_numpy(np.maximum(ids_h, 0)).to(self.torch_device)]
+        if self._fill is None:
+            return None
+        br = self._fill_block_rows
+        out = torch.zeros((len(ids_h), self.dim), dtype=torch.float32, device=self.torch_device)
+        valid = ids_h >= 0
+        for b in np.unique(ids_h[valid] // br):
+            row0 = int(b) * br
+            rows = min(br, self._n - row0)
+            v = self._fill(row0, rows).to(self.torch_device, torch.float32)
+            sel = np.nonzero(valid & (ids_h >= row0) & (ids_h < row0 + rows))[0]
+            out[torch.from_numpy(sel).to(self.torch_device)] = v[
+                torch.from_numpy(ids_h[sel] - row0).to(self.torch_device)]
+            del v
+        return out
+
+    def refine_distances(self, queries, ids) -> np.ndarray | None:
+        """Exact f32 distances d(queries[b], row ids[b, j]) of a final (B, k)
+        result set as numpy, +inf where the id is < 0; None when no exact
+        source exists."""
+        ids_h = np.asarray(ids)
+        rows = self.exact_rows(ids_h)
+        if rows is None:
+            return None
+        B, k = ids_h.shape
+        if isinstance(queries, torch.Tensor):
+            q = torch.atleast_2d(queries).to(self.torch_device, torch.float32)
+        else:
+            q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.torch_device)
+        rows = rows.view(B, k, self.dim)
+        if self.dist == "l2sqr":
+            diff = rows - q[:, None, :]
+            d = (diff * diff).sum(-1)
+        else:
+            dots = (rows * q[:, None, :]).sum(-1)
+            qn = (q * q).sum(-1).sqrt()[:, None]
+            rn = (rows * rows).sum(-1).sqrt()
+            d = 1.0 - dots / (qn * rn).clamp_min(1e-30)
+        return np.where(ids_h >= 0, d.cpu().numpy(), np.inf)
+
+    def refine_result(self, queries, d: np.ndarray, ids: np.ndarray):
+        """A final (B, k) result of a search over the lean tier's bf16 rows
+        with its distances made exact f32 and each row re-sorted by them
+        (stable); (d, ids) unchanged when no exact source exists."""
+        refined = self.refine_distances(queries, ids)
+        if refined is None:
+            return d, ids
+        order = np.argsort(refined, axis=1, kind="stable")
+        return np.take_along_axis(refined, order, 1), np.take_along_axis(ids, order, 1)
+
     def device_bytes(self) -> int:
         """Bytes of this store's live device tensors: the f32 rows (which
-        are also the rerank rows), the distance cache, the int8 mirror with
-        its channels and permutation, and the bf16 traversal copy."""
-        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), self._dev_bf16]
+        are also the rerank rows on the full tier), the distance cache, the
+        int8 mirror with its channels and permutation, the bf16 traversal
+        copy, and the lean tier's bf16 rerank rows."""
+        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), self._dev_bf16, self._dev_rerank]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    def free_search_caches(self) -> None:
+        """Release every derived device tensor (the int8 mirror, the bf16
+        traversal copy); they rebuild on demand.  No-op on the lean tier,
+        where the mirror and the rerank rows ARE the data."""
+        if self._tier == "lean":
+            return
+        self._dev_int8 = None
+        self._dev_bf16 = None
+
+    def free_scan_mirrors(self) -> None:
+        """Release the int8 scan mirror (rebuilt on demand).  No-op on the
+        lean tier."""
+        if self._tier == "lean":
+            return
+        self._dev_int8 = None
 
     def set_scan_bound(self, bound: int | None) -> None:
         """Treat rows >= `bound` as INVALID in the int8 scan mirror.  Applied
@@ -137,6 +331,7 @@ class VecStore:
     def _host(self) -> np.ndarray:
         """The (cap, dim) host array, materialized from the device tensor on
         first access for device-born stores."""
+        self._require_full("host data access")
         if self._data is None:
             host = np.zeros((self._cap, self.dim), dtype=self.dtype)
             if self._n:
@@ -180,6 +375,7 @@ class VecStore:
         self._dirty_rows.clear()
 
     def push(self, vec) -> int:
+        self._require_full("push()")
         vec = np.asarray(vec, dtype=self.dtype).reshape(-1)
         if vec.shape[0] != self.dim:
             raise ValueError(f"Dimension mismatch: {vec.shape[0]} != {self.dim}")
@@ -191,6 +387,7 @@ class VecStore:
         return idx
 
     def batch_push(self, vecs) -> list[int]:
+        self._require_full("batch_push()")
         vecs = np.asarray(vecs, dtype=self.dtype)
         if vecs.ndim != 2 or vecs.shape[1] != self.dim:
             raise ValueError(f"Dimension mismatch: {vecs.shape} vs dim={self.dim}")
@@ -204,6 +401,7 @@ class VecStore:
 
     def swap_remove(self, i: int) -> None:
         """Remove row i by moving the last row into it."""
+        self._require_full("swap_remove()")
         if not (0 <= i < self._n):
             raise IndexError(i)
         last = self._n - 1
@@ -228,6 +426,7 @@ class VecStore:
     # ---- device view ----
     def device(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(vectors (cap, dim) f32, dist_cache (cap,) f32), synced."""
+        self._require_full("device() (the f32 canonical copy)")
         with self._lock:
             if self._dev is None or self._dev_full_dirty:
                 host = np.zeros((self._cap, self.dim), dtype=np.float32)
@@ -268,7 +467,10 @@ class VecStore:
         self._dirty_rows.clear()
 
     def device_rerank(self) -> torch.Tensor:
-        """The rows K2 reads: the synced f32 (cap, dim) tensor itself."""
+        """The rows K2 reads: the synced f32 (cap, dim) tensor itself, or the
+        lean tier's bf16 (n_pad, dim) rows."""
+        if self._tier == "lean":
+            return self._dev_rerank
         return self.device()[0]
 
     def device_traversal(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -293,7 +495,10 @@ class VecStore:
         128-row group, and a cluster-sorted ingest would otherwise put a
         query's neighbors into few groups.  dim_pad is dim rounded up to a
         multiple of 128.  Invalid rows hold scale 0 + cache +BIG; callers
-        still drop decoded ids >= len(store)."""
+        still drop decoded ids >= len(store).  The lean tier returns the
+        mirror it was ingested with (immutable)."""
+        if self._tier == "lean":
+            return self._dev_int8
         with self._lock:
             vecs, cache = self.device()
             if self._dev_int8 is None:
@@ -353,6 +558,7 @@ class VecStore:
     # ---- conversions ----
     def to_type(self, dtype) -> "VecStore":
         """dtype conversion via f32 mediation."""
+        self._require_full("to_type()")
         out = VecStore(self.dim, self.dist, capacity=self._n, dtype=dtype, device=self.torch_device)
         if self._n:
             out.batch_push(self._host()[: self._n].astype(np.float32).astype(dtype))
@@ -360,12 +566,14 @@ class VecStore:
 
     def random_sample(self, size: int, rng: np.random.Generator) -> np.ndarray:
         """Sample `size` rows without replacement."""
+        self._require_full("random_sample()")
         size = min(size, self._n)
         sel = rng.choice(self._n, size=size, replace=False)
         return self._host()[np.sort(sel)].copy()
 
     # ---- serde ----
     def state_arrays(self, include_vectors: bool = True) -> dict[str, np.ndarray]:
+        self._require_full("serialization")
         out = {}
         if include_vectors:
             out["vectors"] = self._host()[: self._n].copy()

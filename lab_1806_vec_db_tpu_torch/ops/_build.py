@@ -68,6 +68,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vecdb_scan_int8_packed.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
     lib.vecdb_scan_int8_packed.restype = I
+    lib.vecdb_scan_int8_binned.argtypes = [P] * 8 + [I, I, I, P]
+    lib.vecdb_scan_int8_binned.restype = I
     lib.vecdb_gather_dists.argtypes = [P, P, P, P, I, I, I, L, I, P]
     lib.vecdb_gather_dists.restype = I
     lib.vecdb_beam_pre.argtypes = [P] * 7 + [I] * 5 + [P]

@@ -4,7 +4,8 @@ package's Pallas kernel, run in interpret mode on the CPU.
 On the CPU the port's wrapper runs the kernel's plain PyTorch version; the
 CUDA kernel itself is held against it on the card by `chip_smoke.py`.  Both
 sides compute f32 distances with different summation orders, hence rtol 1e-5
-/ atol 1e-6."""
+/ atol 1e-6.  bf16 rows (the lean tier's rerank rows) are upcast to f32 on
+both sides before any arithmetic, so the same tolerance holds for them."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -75,6 +76,9 @@ def test_gather_dists_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         G.gather_dists(torch.from_numpy(qs), torch.from_numpy(base).half(), torch.from_numpy(ids), "l2sqr")
     with pytest.raises(TypeError):
+        G.gather_dists(torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(base), torch.from_numpy(ids),
+                       "l2sqr")
+    with pytest.raises(TypeError):
         G.gather_dists(torch.from_numpy(qs), torch.from_numpy(base), torch.from_numpy(ids).long(), "l2sqr")
     with pytest.raises(ValueError):
         G.gather_dists(torch.from_numpy(qs), torch.from_numpy(base[:, :4]), torch.from_numpy(ids), "l2sqr")
@@ -83,3 +87,42 @@ def test_gather_dists_rejects_what_the_kernel_does_not_take():
     strided = torch.from_numpy(base).T.contiguous().T  # same shape, column-major
     with pytest.raises(ValueError, match="contiguous"):
         G.gather_dists(torch.from_numpy(qs), strided, torch.from_numpy(ids), "l2sqr")
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_gather_dists_bf16_rows_match_pallas(dist):
+    """The lean tier's bf16 rows, read in place (no 128-lane slab), against
+    the Pallas kernel on the reference's bf16 slab of the same rows."""
+    base, qs, ids = _make(300, 70, 6, 24, seed=5)
+    rows16 = torch.from_numpy(base).to(torch.bfloat16)
+    slab = PG.prepare_rerank_base(jnp.asarray(base)).astype(jnp.bfloat16)
+    expect = np.asarray(PG.gather_dists_rs(jnp.asarray(qs), slab, jnp.asarray(ids), dist, interpret=True))
+    got = G.gather_dists(torch.from_numpy(qs), rows16, torch.from_numpy(ids), dist).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ids < 0)
+    fin = ids >= 0
+    np.testing.assert_allclose(got[fin], expect[fin], rtol=1e-5, atol=1e-6)
+    # the upcast rows, not the f32 ones: bf16 rounding shows
+    f32 = G.gather_dists(torch.from_numpy(qs), torch.from_numpy(base), torch.from_numpy(ids), dist).numpy()
+    assert not np.allclose(got[fin], f32[fin], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_rerank_topk_blocked_matches_pallas(dist, rows_dtype):
+    """A wide candidate list (700 ids: two 512-id K2 blocks, the last padded
+    with -1) with -1 holes: the reference's streamed top-k."""
+    k = 7
+    base, qs, ids = _make(1000, 40, 2, 700, seed=6)
+    ids[:, ::97] = -1
+    slab = PG.prepare_rerank_base(jnp.asarray(base))
+    if rows_dtype == torch.bfloat16:
+        slab = slab.astype(jnp.bfloat16)
+    od, oi = PG.rerank_topk_blocked(jnp.asarray(qs), slab, jnp.asarray(ids), k, dist, interpret=True)
+    bd, bi = G.rerank_topk_blocked(torch.from_numpy(qs), torch.from_numpy(base).to(rows_dtype),
+                                   torch.from_numpy(ids), k, dist)
+    np.testing.assert_array_equal(bi.numpy(), np.asarray(oi))
+    np.testing.assert_allclose(bd.numpy(), np.asarray(od), rtol=1e-5, atol=1e-6)
+    # narrow lists take rerank_topk directly; k past the candidates pads
+    nd, ni = G.rerank_topk_blocked(torch.from_numpy(qs), torch.from_numpy(base).to(rows_dtype),
+                                   torch.from_numpy(ids[:, :3]), 5, dist)
+    assert (ni.numpy()[:, 3:] == -1).all() and np.isinf(nd.numpy()[:, 3:]).all()
