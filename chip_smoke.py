@@ -69,12 +69,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                1e-5 of exact), its K1 and bf16 K2 against their plain
                versions on its own inputs, the binned IVF through the
                gathered sorted copy.
+  7. codes   — the codes-resident tiers at 10,000,000 x 960 on one
+               `make_fill(0, 960)` source (rows regenerated by id), 1000
+               queries and one exact ground truth by blocked regeneration:
+               codes_ivfpq_10m, IVFPQIndex (nlist 2048, m 320, chunk 16, qb
+               auto) at (n_probes, ef) 32/256, 48/256, 64/256, 96/320 (K11,
+               K7 on the overflow segment) with recall, QPS, dropped pairs
+               (recall must not fall with n_probes); codes_pq_10m,
+               PQCodesIndex (m 320, coarse_m 32) at (ef, c0) 200/2048 and
+               400/4096 (K7 at stage 0, K8 ids) with its stage split; per
+               index build s, lpad, overflow rows, index_bytes, peak
+               allocated; each tier's kernels-vs-plain gate on 128 queries
+               and its returned distances within rtol 1e-5 of float64 exact;
+               K11 against its plain version on every list (equal on filled
+               columns), K7 at stage 0 (all 10M coarse rows) and on the
+               overflow segment (equal), K8 ids at the (1000, c0) pool
+               (rtol 1e-5); a 200,000-row cosine IVF-PQ index for K11's and
+               K7's cosine columns.
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
 the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
 traversal_stats run; K6-K9: the first call of the PQ route that takes each;
-K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's),
+K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
+codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
+first search),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
 computes the same function (K6: a stable torch.sort and a gather; else null).
@@ -488,6 +507,7 @@ def plain_kernels():
         (BF, "beam_post", BF.beam_post_ref),
         (M, "merge_sorted", M.merge_sorted_ref),
         (A, "adc_chunkmin", A.adc_chunkmin_ref),
+        (A, "adc_chunkmin_binned", A.adc_chunkmin_binned_ref),
         (A, "adc_sums_dense", A.adc_sums_dense_ref),
         (A, "adc_sums_ids", lambda codes, lut, ids, m, packed, shared=False:
             A.adc_sums_ids_ref(codes, lut, ids, m, packed, shared)),
@@ -503,7 +523,7 @@ def plain_kernels():
 
 
 def pq_counts(reset: bool = False) -> dict:
-    """The launch count of every kernel a PQ or IVF route can reach; with
+    """The launch count of every kernel a PQ, IVF or codes route can reach; with
     `reset` the counts are set to 0 (and the zeros returned)."""
     from lab_1806_vec_db_tpu_torch.ops import adc as A
     from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
@@ -514,7 +534,7 @@ def pq_counts(reset: bool = False) -> dict:
 
     plain = {"k1": S.scan_chunkmin_int8_packed, "k2": G.gather_dists, "k4": BF.beam_pre,
              "k5": BF.beam_post, "k6": M.merge_sorted, "k7": A.adc_chunkmin,
-             "k10": SB.scan_chunkmin_int8_binned}
+             "k10": SB.scan_chunkmin_int8_binned, "k11": A.adc_chunkmin_binned}
     by_k = {"k8_dense": (A.adc_sums_dense, 16), "k8_ids": (A.adc_sums_ids, 16),
             "k9_dense": (A.adc_sums_dense, 256), "k9_ids": (A.adc_sums_ids, 256)}
     if reset:
@@ -1200,6 +1220,276 @@ def phase_lean(card, n_lean=4_000_000, nlist_lean=1024, n_scan=1_000_000, nlist_
     return lean, scan, k2
 
 
+CODES_POINTS = ((32, 256), (48, 256), (64, 256), (96, 320))  # (n_probes, ef), bench.py:746
+CODES_GATE_PROBES = 48  # n_probes of the launch counts, the gates and the K11 check
+CODES_PQ_POINTS = ((200, 2048), (400, 4096))  # (ef, c0) of PQCodesIndex.knn_batch
+
+
+def codes_point(step, q, gt, tag, dropped=None):
+    """One search point of a codes cell: recall@10 of `step(q)` against `gt`,
+    QPS of chained rounds (best and median), the dropped pairs."""
+    import numpy as np
+
+    B = q.shape[0]
+    d, ids = step(q)
+    d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    check(ids.shape == (B, 10) and bool(np.isfinite(d).all()) and bool((ids >= 0).all()),
+          f"{tag}: malformed result")
+    out = {"recall_at_10": recall_at_k(gt, ids.tolist(), 10)}
+    if dropped is not None:
+        out["dropped_pairs"] = dropped()
+    return {**out, **chained_qps(step, q, 3, 4)}
+
+
+def codes_gates(search, fill, n, q, gt, tag):
+    """The kernels-vs-plain recall gate on GATE_Q queries (no kernel count
+    moves under the plain versions) and the returned distances of those
+    queries against float64 exact distances of their ids (rtol 1e-5)."""
+    import numpy as np
+
+    d, ids = search(q[:GATE_Q])
+    rec_k = recall_at_k(gt[:GATE_Q], ids.cpu().numpy().tolist(), 10)
+    pq_counts(reset=True)
+    with plain_kernels():
+        rec_p = recall_at_k(gt[:GATE_Q], search(q[:GATE_Q])[1].cpu().numpy().tolist(), 10)
+    stray = {k: v for k, v in pq_counts().items() if v}
+    check(not stray, f"{tag}: kernels {stray} launched under plain_kernels()")
+    check(abs(rec_k - rec_p) <= 0.005, f"{tag}: recall@10 on {GATE_Q} queries {rec_k:.4f} with kernels, "
+                                       f"{rec_p:.4f} plain")
+    exact = exact_l2_f64(fill, n, q[:GATE_Q], ids).cpu().numpy()
+    rel = float(np.max(np.abs(d.cpu().numpy() - exact) / np.maximum(np.abs(exact), 1e-30)))
+    check(rel <= 1e-5, f"{tag}: returned distances off exact by {rel:.3g} (> rtol 1e-5)")
+    return {"gate_recall_kernels": rec_k, "gate_recall_plain": rec_p, "returned_dist_max_rel_err": rel}
+
+
+def check_k11(idx, q, n_probes, tag, timed=True):
+    """K11 against its plain version on the index's own inputs at n_probes
+    (every list, all of q; its auto bin width, chunk 16): survivors and
+    slots equal on every filled column.  Bound priced from this run's data:
+    the codes of every list, the int8 LUT with scales and norms, lens and
+    bins, the survivors; 2 m 16 int8 operations for each (valid row, filled
+    column) pair of a list."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    lookup, q_norms = idx.pq.create_lookup(q)
+    n_probes = min(n_probes, idx.nlist)
+    qb = idx._auto_qb(q.shape[0], n_probes)
+    _, bins, _ = idx.probe_and_bin(q, n_probes, qb)
+    args = idx.k11_inputs(lookup, q_norms, bins, 16)
+    got, ref = A.adc_chunkmin_binned(*args), A.adc_chunkmin_binned_ref(*args)
+    torch.cuda.synchronize()
+    filled = bins >= 0
+    for a, b, what in zip(got, ref, ("minima", "slots")):
+        check(torch.equal(a[filled], b[filled]),
+              f"K11 {tag}: {int((a[filled] != b[filled]).sum())} survivor {what} differ from the plain version")
+    codes, lut_q = args[0], args[1]
+    nlist, lpad, m = bins.shape[0], idx.lpad, idx.pq.config.m
+    out = {"max_abs_err": max(max_abs_err(got[0][filled], ref[0][filled]),
+                              max_abs_err(got[1][filled], ref[1][filled])),
+           "shape": [nlist, lpad, qb, m], "filled_columns": int(filled.sum())}
+    if timed:
+        out["ms"], out["plain_ms"] = in_turns(lambda: A.adc_chunkmin_binned(*args),
+                                              lambda: A.adc_chunkmin_binned_ref(*args), 10, 1)
+        lens = torch.from_numpy(idx.lens).to(bins.device).long()
+        pairs = float((lens * filled.sum(1)).sum())  # (valid row, filled column) pairs
+        moved = (nlist * lpad * codes.shape[1] + lut_q.numel() + 8 * lut_q.shape[0]
+                 + 4 * nlist * (1 + qb) + 8 * got[0].numel())
+        out["bound"] = bound_ms(moved, 2.0 * pairs * m * 16)
+        out["extra"] = {"bound_ms_every_slot_and_column": bound_ms(moved, 2.0 * nlist * lpad * qb * m * 16)[0],
+                        "valid_row_filled_column_pairs": pairs}
+    log(f"[codes] K11 {tag} (nlist {nlist}, lpad {lpad}, qb {qb}, {out['filled_columns']} filled columns): "
+        "equal to its plain version on every filled column"
+        + (f"; {out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms, bound {out['bound']}" if timed else ""))
+    return out
+
+
+def check_k7_codes(codes, lookup, cb_sq, q_norms, n_valid, chunk, dist, tag, timed=False):
+    """K7 against its plain version at one launch of the codes path (the
+    coarse stage-0 scan over every row, the overflow segment): survivors and
+    positions equal; timed and bounded like flat_pq_1m's K7, plus the time
+    of the top-c0 stable selection over the survivors when `timed` is the
+    pool size."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    N, cw = codes.shape
+    S = -(-N // A._NT) * A._NT // chunk
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(lookup, cb_sq, dist, True, cw)
+    args = (codes, lut_q, scales, q_norms.float(), cs_q, cs_scale, n_valid, True, S, chunk)
+    got, ref = A.adc_chunkmin(*args), A.adc_chunkmin_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          f"K7 {tag}: {int((got[1] != ref[1]).sum())} survivors differ from the plain version")
+    B, m = lut_q.shape[0], lookup.shape[1]
+    out = {"max_abs_err": max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1])),
+           "shape": [N, B, m, chunk]}
+    if timed:
+        out["ms"], out["plain_ms"] = in_turns(lambda: A.adc_chunkmin(*args), lambda: A.adc_chunkmin_ref(*args), 5, 1)
+        moved = N * cw + lut_q.numel() + 8 * B + (0 if cs_q is None else cs_q.numel()) + 8 * B * S
+        out["bound"] = bound_ms(moved, 2.0 * n_valid * B * m * 16)
+        out["extra"] = {"topc0_select_ms": cuda_ms(lambda: T.topk_smallest(got[0], got[1], timed), 3),
+                        "survivors_per_query": S, "c0": timed}
+    log(f"[codes] K7 {tag} ({N} rows, m {m}, chunk {chunk}, {B} queries): equal to its plain version"
+        + (f"; {out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms, bound {out['bound']}, top-{timed} "
+           f"selection over {S} survivors {out['extra']['topc0_select_ms']:.2f} ms" if timed else ""))
+    return out
+
+
+def phase_codes(card, n=10_000_000, nlist=2048, n_cos=200_000, nlist_cos=128, B=1000, device="cuda"):
+    """codes_ivfpq_10m and codes_pq_10m (the codes-resident tiers at the
+    reference's flagship 10,000,000 x 960, bench.py:672-759) on one
+    `make_fill(0, 960)` source, its 1000 queries and one exact ground truth
+    by blocked regeneration; then a 200,000-row cosine IVF-PQ index for the
+    cosine columns of K11 and K7."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import synth
+    from lab_1806_vec_db_tpu_torch.models import IVFPQIndex, PQCodesIndex
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+    from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
+
+    dim, k = 960, 10
+    t_phase = time.perf_counter()
+    fill, queries = synth.make_fill(0, dim, device)
+    q = queries(B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt = synth.exact_gt_blocked(fill, n, q, k, "l2sqr").cpu().numpy().tolist()
+    out = {"n": n, "dim": dim, "batch": B, "exact_gt_s": time.perf_counter() - t0}
+    log(f"[codes] exact ground truth over {n} regenerated rows: {out['exact_gt_s']:.1f} s")
+
+    # ---- codes_ivfpq_10m ----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = IVFPQIndex.build_from_fill(fill, n, dim, "l2sqr", nlist=nlist,
+                                     pq_config=PQConfig(n_bits=4, m=320, dist="l2sqr", k_means_size=25_000),
+                                     row_gen=fill.row_gen, block_rows=131072, device=device)
+    torch.cuda.synchronize()
+    ivf = {"cell": "codes_ivfpq_10m", "nlist": nlist, "m": 320, "chunk": 16, "build_s": time.perf_counter() - t0,
+           "lpad": idx.lpad, "overflow_rows": idx.ov_count, "index_bytes": idx.index_bytes(),
+           "adc_quality": idx.pq.adc_quality}
+    ivf["bytes_per_row"] = ivf["index_bytes"] / n
+    log(f"[codes] codes_ivfpq_10m: build {ivf['build_s']:.1f} s, lpad {idx.lpad}, overflow {idx.ov_count}, "
+        f"index_bytes {ivf['index_bytes']} ({ivf['bytes_per_row']:.1f} B/row)")
+    sweep, launches = {}, None
+    for p, ef in CODES_POINTS:
+        if p == CODES_GATE_PROBES:
+            pq_counts(reset=True)
+            idx.knn_batch(q, k, n_probes=p, ef=ef)
+            launches = pq_counts()
+        sweep[f"{p}/{ef}"] = {"qb": idx._auto_qb(B, p), **codes_point(
+            lambda qq, p=p, ef=ef: idx.knn_batch(qq, k, n_probes=p, ef=ef), q, gt,
+            f"codes_ivfpq_10m n_probes {p}", dropped=lambda: int(idx.last_dropped))}
+    ivf["sweep"], ivf["launches"] = sweep, launches
+    ivf["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    recs = [v["recall_at_10"] for v in sweep.values()]
+    log("[codes] codes_ivfpq_10m: " + ", ".join(f"{key} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f} "
+                                                f"dropped {v['dropped_pairs']}" for key, v in sweep.items()))
+    check(all(b >= a for a, b in zip(recs, recs[1:])), f"codes_ivfpq_10m: recall falls as n_probes grows: {recs}")
+    check(launches["k11"] > 0 and (idx.ov_count == 0 or launches["k7"] > 0),
+          f"codes_ivfpq_10m: the search launched {launches}")
+    ivf.update(codes_gates(lambda qq: idx.knn_batch(qq, k, n_probes=CODES_GATE_PROBES, ef=256), fill, n, q, gt,
+                           "codes_ivfpq_10m"))
+    ivf["profile_n_probes_48"] = profile_call(lambda: idx.knn_batch(q, k, n_probes=CODES_GATE_PROBES, ef=256))
+    k11 = check_k11(idx, q, CODES_GATE_PROBES, "codes_ivfpq_10m")
+    lookup, q_norms = idx.pq.create_lookup(q)
+    if idx.ov_count:
+        k_ov, ch = idx.overflow_chunk(k)
+        ivf["k7_overflow"] = check_k7_codes(idx._codes_ov, lookup, idx.pq.device()[2], q_norms, idx.ov_count,
+                                            ch, "l2sqr", "codes_ivfpq_10m overflow segment")
+    del idx, lookup, q_norms
+    torch.cuda.empty_cache()
+
+    # ---- codes_pq_10m ----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pqc = PQCodesIndex.build_from_fill(fill, n, dim, "l2sqr", row_gen=fill.row_gen, device=device)
+    torch.cuda.synchronize()
+    pqo = {"cell": "codes_pq_10m", "m": 320, "coarse_m": 32, "build_s": time.perf_counter() - t0,
+           "index_bytes": pqc.index_bytes(), "adc_quality": pqc.pq.adc_quality,
+           "coarse_adc_quality": pqc.coarse.adc_quality}
+    pqo["bytes_per_row"] = pqo["index_bytes"] / n
+    log(f"[codes] codes_pq_10m: build {pqo['build_s']:.1f} s, index_bytes {pqo['index_bytes']} "
+        f"({pqo['bytes_per_row']:.1f} B/row)")
+    points, pq_launches = {}, None
+    for ef, c0 in CODES_PQ_POINTS:
+        if pq_launches is None:
+            pq_counts(reset=True)
+            pqc.knn_batch(q, k, ef=ef, c0=c0)
+            pq_launches = pq_counts()
+        points[f"{ef}/{c0}"] = {"chunk": pqc.stage0_chunk(c0), **codes_point(
+            lambda qq, ef=ef, c0=c0: pqc.knn_batch(qq, k, ef=ef, c0=c0), q, gt, f"codes_pq_10m ef {ef}")}
+    pqo["points"], pqo["launches"] = points, pq_launches
+    pqo["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    check(pq_launches["k7"] > 0 and pq_launches["k8_ids"] > 0, f"codes_pq_10m: the search launched {pq_launches}")
+    log("[codes] codes_pq_10m: " + ", ".join(f"{key} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}"
+                                             for key, v in points.items()))
+    # stage split at the defaults with CUDA events (mean of 5 passes)
+    ef, c0 = CODES_PQ_POINTS[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    split = dict.fromkeys(("stage0_k7_and_topc0", "stage1_k8_and_topef", "refine", "exact_topk"), 0.0)
+    for i in range(6):
+        ev[0].record()
+        ids0 = pqc.stage0(q, c0)
+        ev[1].record()
+        td1, ti1 = pqc.stage1(q, ids0, ef)
+        ev[2].record()
+        d_ex = pqc.refine(q, ti1)
+        ev[3].record()
+        T.topk_smallest(torch.where(torch.isfinite(d_ex), d_ex, td1), ti1, k)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i:
+            for name, a, b in zip(split, ev, ev[1:]):
+                split[name] += a.elapsed_time(b) / 5
+    pqo["stage_ms"] = split
+    pqo.update(codes_gates(lambda qq: pqc.knn_batch(qq, k, ef=ef, c0=c0), fill, n, q, gt, "codes_pq_10m"))
+    pqo["profile_defaults"] = profile_call(lambda: pqc.knn_batch(q, k, ef=ef, c0=c0))
+    lut_c, qn_c = pqc.coarse.create_lookup(q)
+    k7s0 = check_k7_codes(pqc._codes_c, lut_c, pqc.coarse.device()[2], qn_c, n, pqc.stage0_chunk(c0), "l2sqr",
+                          "codes_pq_10m stage 0", timed=c0)
+    # K8's ids shape at the pool's (1000, c0) positions against its plain
+    # version (bf16 LUT): rtol 1e-5, as check_sums_ids holds it
+    lut_m, _ = pqc.pq.create_lookup(q)
+    pos = pqc._inv[ids0.clamp_min(0).long()]
+    lut_b = lut_m.to(torch.bfloat16)
+    got = A.adc_sums_ids(pqc._codes, lut_b, pos, 320, True)
+    ref = A.adc_sums_ids_ref(pqc._codes, lut_b, pos, 320, True, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    pqo["k8_ids_pool_max_abs_err"] = max_abs_err(got, ref)
+    log(f"[codes] K8 ids at the pool (B {B}, C {c0}) within rtol 1e-5 of its plain version; "
+        f"stages {split}")
+    del pqc, lut_c, qn_c, lut_m, pos, lut_b, got, ref, ids0, td1, ti1, d_ex
+    torch.cuda.empty_cache()
+
+    # ---- the cosine columns: a small cosine IVF-PQ index ----
+    cos = IVFPQIndex.build_from_fill(fill, n_cos, dim, "cosine", nlist=nlist_cos,
+                                     pq_config=PQConfig(n_bits=4, m=320, dist="cosine", k_means_size=25_000),
+                                     row_gen=fill.row_gen, device=device)
+    cos_out = {"n": n_cos, "nlist": nlist_cos, "lpad": cos.lpad, "overflow_rows": cos.ov_count}
+    cos_out["k11_max_abs_err"] = check_k11(cos, q, CODES_GATE_PROBES, "cosine, 200,000 rows", timed=False)["max_abs_err"]
+    lookup, q_norms = cos.pq.create_lookup(q)
+    # K7's cosine column on the index's real codes (its first 131,072 list
+    # slots, chunk 16), and on its overflow segment where lists spilled
+    k7_errs = [check_k7_codes(cos._codes[:131072], lookup, cos.pq.device()[2], q_norms, 131072, 16,
+                              "cosine", "cosine, 131,072 list slots")["max_abs_err"]]
+    if cos.ov_count:
+        k7_errs.append(check_k7_codes(cos._codes_ov, lookup, cos.pq.device()[2], q_norms, cos.ov_count,
+                                      cos.overflow_chunk(k)[1], "cosine", "cosine overflow segment")["max_abs_err"])
+    cos_out["k7_cosine_max_abs_err"] = max(k7_errs)
+    d, ids = cos.knn_batch(q, k, n_probes=16, ef=256)
+    check(bool(torch.isfinite(d).all()) and bool((ids >= 0).all()), "codes cosine: malformed result")
+    del cos, lookup, q_norms
+    torch.cuda.empty_cache()
+    out.update(codes_ivfpq_10m=ivf, codes_pq_10m=pqo, cosine_200k=cos_out, phase_s=time.perf_counter() - t_phase)
+    log(f"[codes] phase: {out['phase_s']:.1f} s")
+    return out, k11, k7s0
+
+
 def phase_vecdb(x_host, q_host):
     import numpy as np
     import torch
@@ -1451,6 +1741,11 @@ def main() -> None:
                       "lean_scan_1m": lean_scan,
                       "kernels_vs_plain": {"k10_ivf_1m": k10, "k2_bf16_ivf_lean_4m": k2_bf16}},
                      default=str), flush=True)
+    torch.cuda.empty_cache()
+    codes, k11, k7s0 = phase_codes(card)
+    print(json.dumps({"phase": "codes", "card": card, **codes,
+                      "kernels_vs_plain": {"k11_codes_ivfpq_10m": k11, "k7_codes_pq_10m_stage0": k7s0}},
+                     default=str), flush=True)
 
     main_launches = launches["gist_l2"]
     # each error is the largest over every comparison of that kernel with its
@@ -1526,6 +1821,17 @@ def main() -> None:
         # K2 on bf16 rows: ivf_lean_4m's binned knn_batch at n_probes 16
         pq_kernel("gather_dists_bf16", "gather_dists.cu", "pallas_gather.py:261",
                   ivf_lean["launches"]["k2"], k2_bf16),
+        # K11 on codes_ivfpq_10m's knn_batch at n_probes 48; checked and
+        # timed there on every list (the error also over the cosine index)
+        pq_kernel("adc_chunkmin_binned", "adc_chunkmin_binned.cu", "pallas_adc.py:629",
+                  codes["codes_ivfpq_10m"]["launches"]["k11"],
+                  {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_200k"]["k11_max_abs_err"])}),
+        # K7 at stage 0 of codes_pq_10m's first knn_batch (10M coarse rows,
+        # m 32); the error also over the overflow segment and the cosine codes
+        pq_kernel("adc_chunkmin_codes_stage0", "adc_scan_chunkmin.cu", "pallas_adc.py:415",
+                  codes["codes_pq_10m"]["launches"]["k7"],
+                  {**k7s0, "max_abs_err": max(k7s0["max_abs_err"], codes["cosine_200k"]["k7_cosine_max_abs_err"],
+                                              codes["codes_ivfpq_10m"].get("k7_overflow", {}).get("max_abs_err", 0.0))}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

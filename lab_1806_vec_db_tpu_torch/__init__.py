@@ -16,7 +16,13 @@ Ported so far, over float32 tables:
 - PQ tables (`models/pq_table.py`): k-means training, Flat+PQ and HNSW+PQ
   search, with kernels K7 (`ops/adc.py`, the ADC scan with a chunk-min),
   K8 / K9 (`ops/adc.py`, ADC sums for k = 16 / 256) and K6 (`ops/merge.py`,
-  the sorted beam merge of the classic lock-step loop).
+  the sorted beam merge of the classic lock-step loop);
+- IVF (`models/ivf.py`) and the lean store tier, with kernel K10
+  (`ops/scan_binned.py`, the binned int8 scan);
+- the codes-resident tiers (`models/pq_codes.py:PQCodesIndex`,
+  `models/ivfpq.py:IVFPQIndex`), which keep only PQ codes on the device and
+  regenerate exact rows from the row source, with kernel K11 (`ops/adc.py`,
+  the binned ADC chunk-min) beside K7 and K8.
 uint8 tables raise `NotImplementedError`.
 """
 

@@ -9,9 +9,11 @@ device from a seeded `torch.Generator` (the counterpart of the reference's
 `jax.random` generator in bench.py; the two give different rows from one
 seed, with the same distribution).
 
-`make_fill` is the lean-tier ingest's generator (bench.py:make_fill): row
-id r always gives the same row, so blocks can be regenerated after the f32
-data is gone; `exact_gt_blocked` computes exact ground truth that way.
+`make_fill` is the generator of the lean and codes tiers' ingest
+(bench.py:make_fill): a row depends only on (seed, row id), through a
+counter-based hash instead of a `torch.Generator`, so any block or any set of
+ids can be regenerated after the f32 data is gone; `exact_gt_blocked`
+computes exact ground truth that way.
 """
 
 from __future__ import annotations
@@ -63,40 +65,83 @@ def make_device(n: int, dim: int, seed: int, device, block_rows: int = 65536) ->
     return out
 
 
-_KEY_ROWS = 16384  # rows per generator key: divides every lean block size used
+_M32 = 0xFFFFFFFF
+_GEN_ROWS = 65536  # rows per pass of the row generator (bounds its int64 transients)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 in place, for x in [0, 2^32) held as int64: the
+    constant is split in 16-bit halves so no product leaves int64."""
+    hi = (x * (c >> 16)).bitwise_and_(0xFFFF).bitwise_left_shift_(16)
+    return x.mul_(c & 0xFFFF).add_(hi).bitwise_and_(_M32)
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 integer hash (shifts 16 / 15 / 16, multipliers
+    0x7feb352d and 0x846ca68b) of int64 values in [0, 2^32), in place."""
+    x.bitwise_xor_(x >> 16)
+    _mul32(x, 0x7FEB352D)
+    x.bitwise_xor_(x >> 15)
+    _mul32(x, 0x846CA68B)
+    return x.bitwise_xor_(x >> 16)
+
+
+def gaussian_rows(ids: torch.Tensor, n_comp: int, seed: int) -> torch.Tensor:
+    """(len(ids), n_comp) standard normals, a pure function of (seed, row id,
+    component): counter-based, so any set of rows can be drawn alone.
+    Component pair (2j, 2j + 1) of row r is the Box-Muller pair of two
+    uniforms from hash(hash(r ^ key) + (2j + h) * 0x9E3779B9), h = 0, 1."""
+    dev = ids.device
+    key = int(_hash32(torch.tensor([seed & _M32], dtype=torch.int64))[0])
+    row_h = _hash32(ids.to(torch.int64).bitwise_and(_M32).bitwise_xor_(key))
+    pairs = -(-n_comp // 2)
+    ctr = torch.arange(2 * pairs, dtype=torch.int64, device=dev).mul_(0x9E3779B9)
+    h = _hash32(row_h[:, None].add(ctr[None, :]).bitwise_and_(_M32)).view(-1, pairs, 2)
+    u1 = (h[:, :, 0] >> 8).add_(1).float().mul_(2.0 ** -24)  # (0, 1]
+    u2 = (h[:, :, 1] >> 8).float().mul_(2.0 ** -24 * 2.0 * np.pi)
+    del h
+    r = u1.log_().mul_(-2.0).sqrt_()
+    z = torch.stack([r * u2.cos(), r.mul_(u2.sin_())], dim=-1)
+    return z.view(ids.shape[0], 2 * pairs)[:, :n_comp]
 
 
 def make_fill(seed: int, dim: int, device):
     """Row-addressable Gist-spectrum generator -> (fill, queries).
 
-    `fill(row0, rows)` returns rows [row0, row0 + rows) as an f32 tensor on
-    `device`.  Every aligned group of 16,384 rows draws its Gaussians from its
-    own `torch.Generator` seeded from (seed, group), so a row's values depend
-    only on its id, never on the block boundaries of the call.
-    `queries(n)` draws n query rows from a separate seed."""
+    `fill.row_gen(ids)` returns the rows of an int tensor of ids as an
+    (len(ids), dim) f32 tensor on `device`: each row is the Gist-spectrum
+    model (`z * scales @ vt + mu`, clipped at 0) of the counter-based
+    Gaussians of `gaussian_rows`, so it depends only on (seed, id), and a
+    consumer can regenerate any id set (the codes tiers' exact refine draws
+    the B x ef candidate rows alone).  `fill(row0, rows)` is
+    `fill.row_gen(arange(row0, row0 + rows))`.  `queries(n)` draws n query
+    rows from a separate seed."""
     device = torch.device(device)
     mu_h, scales_h, vt_h = gist_spectrum(dim)
     mu = torch.from_numpy(mu_h).to(device)
     scales = torch.from_numpy(scales_h).to(device)
     vt = torch.from_numpy(vt_h).to(device)
 
-    def group(g: int) -> torch.Tensor:
-        gen = torch.Generator(device=device).manual_seed((seed << 32) + 1 + g)
-        z = torch.randn((_KEY_ROWS, len(scales_h)), generator=gen, device=device)
-        return torch.addmm(mu, z * scales, vt).clamp_(min=0.0)
+    def row_gen(ids: torch.Tensor) -> torch.Tensor:
+        ids = torch.as_tensor(ids).to(device).reshape(-1)
+        out = torch.empty((ids.shape[0], dim), dtype=torch.float32, device=device)
+        for r0 in range(0, ids.shape[0], _GEN_ROWS):
+            z = gaussian_rows(ids[r0 : r0 + _GEN_ROWS], len(scales_h), seed).mul_(scales)
+            rows = z.shape[0]
+            # every product has _GEN_ROWS rows, so a row's bits do not depend
+            # on how many rows were drawn with it (a GEMM may change its
+            # algorithm, and its rounding, with the row count)
+            z = torch.nn.functional.pad(z, (0, 0, 0, _GEN_ROWS - rows))
+            out[r0 : r0 + rows] = torch.addmm(mu, z, vt)[:rows].clamp_(min=0.0)
+        return out
 
     def fill(row0: int, rows: int) -> torch.Tensor:
-        g0, g1 = row0 // _KEY_ROWS, -(-(row0 + rows) // _KEY_ROWS)
-        if g1 - g0 == 1:
-            blk = group(g0)
-        else:
-            blk = torch.cat([group(g) for g in range(g0, g1)])
-        off = row0 - g0 * _KEY_ROWS
-        return blk[off : off + rows]
+        return row_gen(torch.arange(row0, row0 + rows, dtype=torch.int64, device=device))
 
     def queries(n_queries: int) -> torch.Tensor:
         return make_device(n_queries, dim, (seed << 32) + (1 << 31), device)
 
+    fill.row_gen = row_gen
     return fill, queries
 
 

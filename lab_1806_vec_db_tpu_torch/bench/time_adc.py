@@ -1,0 +1,96 @@
+"""Time the ADC chunk-min kernels at the smoke's shapes on one NVIDIA GPU.
+
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label]
+
+Run from the root of a checkout (it imports the package found there, so a
+second checkout, such as a parent commit unpacked with `git archive`, is
+timed by running this file from that checkout's root).  On random codes and
+LUTs it times, with CUDA events (three means of five launches each):
+
+- K7 at flat_pq_1m's shape: 1,000,000 rows x 1000 queries, m 320, chunk 32,
+  and its survivors against the plain version;
+- K7 at codes_pq_10m's stage 0: 10,000,000 rows x 1000 queries, m 32,
+  chunk 32;
+- K11 at codes_ivfpq_10m's shape (when the checkout has it): 2048 lists x
+  7,680 rows, qb 64 with 10-39 filled columns a list, lists 3,000-7,680 rows
+  long, m 320, chunk 16, against the plain version on the filled columns;
+
+and prints each kernel's registers from the build.
+"""
+
+from __future__ import annotations
+
+import inspect
+import os
+import sys
+
+
+def _ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> None:
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import _build
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    if not torch.cuda.is_available():
+        sys.exit("time_adc: no CUDA device")
+    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    _build.library()
+    print(label, "build s", round(_build.build_info["seconds"], 1))
+    log = _build.build_info["log"].splitlines()
+    for i, ln in enumerate(log[:-1]):
+        if "Function properties for" in ln and "chunkmin" in ln:
+            print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    has_chunk = "chunk" in inspect.signature(A.adc_chunkmin).parameters
+
+    def lut(m):
+        lookup = torch.rand((1000, m, 16), generator=g, device="cuda")
+        cb = torch.rand((m, 16), generator=g, device="cuda") + 0.1
+        qn = torch.rand(1000, generator=g, device="cuda") + 0.5
+        return A.chunkmin_inputs(lookup, cb, "l2sqr", True, m // 2), qn
+
+    for m, N in ((320, 1_000_000), (32, 10_000_000)):
+        codes = torch.randint(0, 256, (N, m // 2), generator=g, device="cuda", dtype=torch.uint8)
+        (lut_q, sc, cs_q, cs_s), qn = lut(m)
+        S = -(-N // 256) * 256 // 32
+        args = (codes, lut_q, sc, qn, cs_q, cs_s, N, True, S) + ((32,) if has_chunk else ())
+        times = [_ms(lambda: A.adc_chunkmin(*args)) for _ in range(3)]
+        equal = ""
+        if m == 320:
+            got, ref = A.adc_chunkmin(*args), A.adc_chunkmin_ref(*args)
+            equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        print(label, f"K7 N {N} m {m} chunk 32: ms {[round(t, 3) for t in times]} equal {equal}", flush=True)
+        del codes
+    if hasattr(A, "adc_chunkmin_binned"):
+        nl, lpad, qb, m = 2048, 7680, 64, 320
+        codes = torch.randint(0, 256, (nl * lpad, m // 2), generator=g, device="cuda", dtype=torch.uint8)
+        (lut_q, sc, cs_q, cs_s), qn = lut(m)
+        lens = torch.randint(3000, lpad + 1, (nl,), generator=g, device="cuda", dtype=torch.int32)
+        filled = torch.randint(10, 40, (nl,), generator=g, device="cuda")
+        bins = torch.randint(0, 1000, (nl, qb), generator=g, device="cuda", dtype=torch.int32)
+        bins = torch.where(torch.arange(qb, device="cuda")[None] < filled[:, None], bins, -1).int()
+        args = (codes, lut_q, sc, qn, cs_q, cs_s, lens, bins, lpad, True, 16)
+        times = [_ms(lambda: A.adc_chunkmin_binned(*args)) for _ in range(3)]
+        got, ref = A.adc_chunkmin_binned(*args), A.adc_chunkmin_binned_ref(*args)
+        f = bins >= 0
+        equal = torch.equal(got[0][f], ref[0][f]) and torch.equal(got[1][f], ref[1][f])
+        print(label, f"K11 {nl} x {lpad} qb {qb} m {m} chunk 16: ms {[round(t, 3) for t in times]} "
+              f"equal {equal}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,11 @@ from .store import VecStore
 from .flat import FlatIndex
 from .hnsw import HNSWIndex
 from .ivf import IVFIndex
+from .ivfpq import IVFPQIndex
 from .kmeans import KMeans
 from .pq_table import PQTable
+from .pq_codes import PQCodesIndex
 from . import base
 
-__all__ = ["VecStore", "FlatIndex", "HNSWIndex", "IVFIndex", "KMeans", "PQTable", "base"]
+__all__ = ["VecStore", "FlatIndex", "HNSWIndex", "IVFIndex", "IVFPQIndex", "KMeans", "PQTable",
+           "PQCodesIndex", "base"]

@@ -82,6 +82,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_merge_sorted.restype = I
     lib.vecdb_adc_chunkmin.argtypes = [P] * 5 + [ctypes.c_float, P, P] + [I] * 8 + [P]
     lib.vecdb_adc_chunkmin.restype = I
+    lib.vecdb_adc_chunkmin_binned.argtypes = [P] * 5 + [ctypes.c_float] + [P] * 4 + [I] * 7 + [P]
+    lib.vecdb_adc_chunkmin_binned.restype = I
     lib.vecdb_adc_sums_dense.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.vecdb_adc_sums_dense.restype = I
     lib.vecdb_adc_sums_ids.argtypes = [P] * 4 + [I] * 6 + [L, I, I, P]

@@ -1,9 +1,15 @@
-"""K7, K8 and K9: the PQ-ADC kernels (port of ops/pallas_adc.py).
+"""K7, K8, K9 and K11: the PQ-ADC kernels (port of ops/pallas_adc.py).
 
 - K7 `adc_chunkmin` (`csrc/adc_scan_chunkmin.cu`): the full ADC scan over
-  the permuted codes with an int8 LUT, fused with a 32-row chunk-min; the
-  scan of Flat+PQ and of HNSW+PQ route "scan".  `adc_scan_chunkmin` adds the
-  LUT quantization, the top-k over the survivors and the id decode.
+  the permuted codes with an int8 LUT, fused with a chunk-min (1, 2, 4, 8,
+  16 or 32 rows, default 32); the scan of Flat+PQ and of HNSW+PQ route
+  "scan", the codes tier's stage 0 and the IVF-PQ overflow segment.
+  `adc_scan_chunkmin` adds the LUT quantization, the top-k over the
+  survivors and the id decode.
+- K11 `adc_chunkmin_binned` (`csrc/adc_chunkmin_binned.cu`): the same
+  chunk-min over the cluster-sorted posting lists of IVF-PQ, each list row
+  scored against only the queries binned to its list.  K7 and K11 share the
+  one-hot pipeline of `csrc/adc_onehot.cuh`.
 - K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`, one body
   for k = 16 and k = 256): ADC sums of every code row against every LUT row
   (`adc_scan_pallas`, the scan of small sets and of n_bits = 8 tables) and
@@ -33,8 +39,10 @@ from . import _build
 from . import pq as P
 from . import topk as T
 
-CHUNK = 32  # rows per K7 survivor
+CHUNK = 32  # rows per K7 survivor by default
+CHUNKS = (1, 2, 4, 8, 16, 32)  # the chunk sizes K7 and K11 take
 _NT = 256  # the reference's row tile: survivors cover ceil(N / 256) * 256 rows
+_TILE_BIN = 512  # K11's list rows per CTA: lpad is a multiple
 _REF_BLOCK = 8192  # rows per block of K7's plain version (bounds the one-hot)
 _LUT_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
@@ -64,6 +72,13 @@ def unpack_codes(codes: torch.Tensor, m: int, packed: bool) -> torch.Tensor:
 _INV_127 = 1.0 / 127.0
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (the kernels' IEEE sqrtf): taken
+    in f64 and rounded once, since torch's vectorized f32 sqrt on the CPU is
+    off by an ulp on some inputs."""
+    return x.double().sqrt().float()
+
+
 def quantize_lut_int8(lut_flat: torch.Tensor):
     """Per-row symmetric int8 quantization of (R, W) f32 LUT rows ->
     ((R, W) int8, (R,) f32 scales): s = max|row| / 127 (1 where 0),
@@ -76,10 +91,11 @@ def quantize_lut_int8(lut_flat: torch.Tensor):
 # ---------------------------------------------------------------- K7 ----
 
 def adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, packed: bool,
-                     S: int):
-    """Plain version of K7 -> ((B, S) f32 chunk minima, (B, S) int32 their
-    lowest positions).  lut_q (B, Kd) int8 (or bf16 / f32, then `scales` are
-    ones), Kd = 16 * mk; cs_q (Kd,) with its scale, or None (l2sqr).  The
+                     S: int, chunk: int = CHUNK):
+    """Plain version of K7 -> ((B, S) f32 minima of each `chunk` rows,
+    (B, S) int32 their lowest positions).  lut_q (B, Kd) int8 (or bf16 /
+    f32, then `scales` are ones), Kd = 16 * mk; cs_q (Kd,) with its scale,
+    or None (l2sqr).  The
     one-hot product runs as an f32 matmul: its int8 sums are exact integers
     (< 2^24; TF32 is off)."""
     B, Kd = lut_q.shape
@@ -90,8 +106,8 @@ def adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int
     cs_f = None if cs_q is None else cs_q.float()
     out_d = torch.empty((B, S), dtype=torch.float32, device=dev)
     out_p = torch.empty((B, S), dtype=torch.int32, device=dev)
-    for r0 in range(0, S * CHUNK, _REF_BLOCK):
-        r1 = min(r0 + _REF_BLOCK, S * CHUNK)
+    for r0 in range(0, S * chunk, _REF_BLOCK):
+        r1 = min(r0 + _REF_BLOCK, S * chunk)
         c = unpack_codes(codes[r0:min(r1, N)], mk, packed)
         if c.shape[0] < r1 - r0:
             c = torch.nn.functional.pad(c, (0, 0, 0, r1 - r0 - c.shape[0]))
@@ -101,27 +117,34 @@ def adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int
         d = (oh @ lut_f) * scales[None, :]  # (rows, B)
         if cs_f is not None:
             c_sq = (oh @ cs_f) * cs_scale
-            norm0 = c_sq.clamp_min(0.0).sqrt()
+            norm0 = _sqrt_rn(c_sq.clamp_min(0.0))
             d = 1.0 - d / (norm0[:, None] * q_norms[None, :]).clamp_min(1e-10)
         pos = torch.arange(r0, r1, device=dev)
         d = torch.where(pos[:, None] < n_valid, d, float("inf"))
-        dc = d.T.reshape(B, -1, CHUNK)
+        dc = d.T.reshape(B, -1, chunk)
         arg = dc.argmin(-1)  # the first (lowest-position) minimum
-        s0, s1 = r0 // CHUNK, r1 // CHUNK
+        s0, s1 = r0 // chunk, r1 // chunk
         out_d[:, s0:s1] = torch.gather(dc, 2, arg[:, :, None])[:, :, 0]
-        out_p[:, s0:s1] = (pos[::CHUNK][None, :] + arg).to(torch.int32)
+        out_p[:, s0:s1] = (pos[::chunk][None, :] + arg).to(torch.int32)
     return out_d, out_p
 
 
+def _check_chunk(chunk: int) -> None:
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk must be one of {CHUNKS}, got {chunk}")
+
+
 def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, packed: bool,
-                 S: int):
+                 S: int, chunk: int = CHUNK):
     """K7: the (B, S) chunk-min survivors of the ADC scan over `codes`
     ((N, cw) uint8, cw % 4 == 0; see `adc_scan_chunkmin` for the rest).
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (int8 LUT only) and count it in `adc_chunkmin.launches`."""
+    _check_chunk(chunk)
     dev = _device_of(codes, lut_q, scales, q_norms, cs_q)
     if dev.type == "cpu":
-        return adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid, packed, S)
+        return adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid, packed, S,
+                                chunk)
     B, Kd = lut_q.shape
     N, cw = codes.shape
     mk = Kd // 16
@@ -130,7 +153,7 @@ def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, pa
     if codes.dtype != torch.uint8 or cw % 4 or Kd % 64 or mk != (2 * cw if packed else cw):
         raise ValueError(f"K7 needs uint8 codes with cw % 4 == 0 and 16 LUT columns per code "
                          f"group; got cw={cw}, Kd={Kd}, packed={packed}")
-    if -(-N // 2048) > 65535 or mk * 128 + mk * 16 + 21 * 1024 > 227 * 1024:
+    if -(-N // 2048) > 65535 or mk * 128 + mk * 16 + 22 * 1024 > 227 * 1024:
         raise ValueError(f"K7: {N} rows x {mk} groups exceed the kernel's grid or shared memory")
     codes, lut_q = codes.contiguous(), lut_q.contiguous()
     scales, q_norms = scales.float().contiguous(), q_norms.float().contiguous()
@@ -142,7 +165,7 @@ def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, pa
         status = lib.vecdb_adc_chunkmin(
             codes.data_ptr(), lut_q.data_ptr(), scales.data_ptr(), q_norms.data_ptr(), cs_ptr,
             float(cs_scale), out_d.data_ptr(), out_p.data_ptr(), B, N, int(n_valid), cw, mk, S,
-            int(packed), int(cs_q is not None), torch.cuda.current_stream(dev).cuda_stream)
+            int(packed), chunk, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "adc_chunkmin")
     adc_chunkmin.launches += 1
     return out_d, out_p
@@ -175,31 +198,133 @@ def chunkmin_inputs(lookup, cb_sqnorm, dist: str, packed: bool, cw: int, lut_dty
 
 
 def adc_scan_chunkmin(lookup, codes, perm, n_valid: int, cb_sqnorm, q_norms, k_out: int,
-                      dist: str, packed: bool = False, lut_dtype: str = "int8"):
+                      dist: str, packed: bool = False, lut_dtype: str = "int8",
+                      chunk: int = CHUNK, selector: str = "exact"):
     """Full ADC scan fused with a chunk-min partial top-k (K7) -> ((B, k_out)
     f32 ADC distances ascending, (B, k_out) int32 ORIGINAL ids), -1 padded.
 
     lookup (B, m, 16) f32; codes (N, cw) uint8, PERMUTED (position p holds
     row perm[p]; padding is masked by position, so positions [0, n_valid)
     must hold exactly the valid rows); cb_sqnorm (m, 16); q_norms (B,).
-    Each 32-position chunk keeps its minimum (the lowest position on ties);
-    the top-k over the ceil(N / 256) * 8 survivors is a stable sort, and
-    the positions decode through `perm` (pallas_adc.py:536-551)."""
+    Each `chunk`-position group keeps its minimum (the lowest position on
+    ties); the top-k over the S = ceil(N / 256) * 256 / chunk survivors is a
+    stable sort, and the positions decode through `perm`
+    (pallas_adc.py:536-551).  `selector="approx"` is the reference's
+    `approx_min_k(recall_target=0.95)` for wide survivor rows; on the CPU
+    that call is exact, and here both selectors take the exact stable
+    top-k."""
+    if selector not in ("exact", "approx"):
+        raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
     B, m, k = lookup.shape
     if k != 16:
         raise ValueError(f"adc_scan_chunkmin serves k = 16 tables, got k = {k}")
+    _check_chunk(chunk)
     N, cw = codes.shape
     if cw % 4:
         codes = torch.nn.functional.pad(codes, (0, 4 - cw % 4))
         cw = codes.shape[1]
-    S = -(-N // _NT) * _NT // CHUNK
+    S = -(-N // _NT) * _NT // chunk
     lut_q, scales, cs_q, cs_scale = chunkmin_inputs(lookup, cb_sqnorm, dist, packed, cw, lut_dtype)
     dmin, pos = adc_chunkmin(codes, lut_q, scales, q_norms.float(), cs_q, cs_scale, n_valid,
-                             packed, S)
+                             packed, S, chunk)
     kk = min(k_out, S)
     td, tp = T.topk_smallest(dmin, pos, kk)
     ids = torch.where(torch.isfinite(td), perm[tp.clamp(0, N - 1).long()].to(torch.int32), -1)
     return T._pad_k(td, ids, k_out)
+
+
+# ---------------------------------------------------------------- K11 ----
+
+def adc_chunkmin_binned_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bins, lpad: int,
+                            packed: bool, chunk: int):
+    """Plain version of K11 -> ((nlist, QB, lpad / chunk) f32 minima of each
+    `chunk` list rows, int32 their lowest GLOBAL slots l * lpad + x).  codes
+    (>= nlist * lpad, cw) cluster-sorted; lut_q (B, Kd) int8 with `scales`,
+    q_norms, cs_q / cs_scale as K7 takes them; lens (nlist,) valid rows per
+    list; bins (nlist, QB) query ids, -1 empty (those columns give +inf and
+    each chunk's first slot).  The one-hot product runs as an f32 matmul,
+    exact for int8 sums."""
+    nlist, QB = bins.shape
+    Kd = lut_q.shape[1]
+    mk = Kd // 16
+    dev = lut_q.device
+    SL = lpad // chunk
+    out_d = torch.empty((nlist, QB, SL), dtype=torch.float32, device=dev)
+    out_p = torch.empty((nlist, QB, SL), dtype=torch.int32, device=dev)
+    lut_f = lut_q.float()
+    cs_f = None if cs_q is None else cs_q.float()
+    x = torch.arange(lpad, device=dev)
+    first = torch.arange(SL, device=dev) * chunk
+    per = max(1, _REF_BLOCK // lpad)  # lists per block (bounds the one-hot)
+    for l0 in range(0, nlist, per):
+        l1 = min(l0 + per, nlist)
+        L = l1 - l0
+        c = unpack_codes(codes[l0 * lpad : l1 * lpad], mk, packed)
+        oh = torch.zeros((L * lpad, mk, 16), dtype=torch.float32, device=dev)
+        oh.scatter_(2, c[:, :, None], 1.0)
+        oh = oh.reshape(L, lpad, Kd)
+        b = bins[l0:l1].long()
+        safe = b.clamp_min(0)
+        d = torch.bmm(oh, lut_f[safe].transpose(1, 2)) * scales[safe][:, None, :]  # (L, lpad, QB)
+        if cs_f is not None:
+            c_sq = (oh @ cs_f) * cs_scale  # (L, lpad)
+            norm0 = _sqrt_rn(c_sq.clamp_min(0.0))
+            d = 1.0 - d / (norm0[:, :, None] * q_norms[safe][:, None, :]).clamp_min(1e-10)
+        keep = (x[None, :] < lens[l0:l1, None])[:, :, None] & (b >= 0)[:, None, :]
+        dc = torch.where(keep, d, float("inf")).transpose(1, 2).reshape(L, QB, SL, chunk)
+        arg = dc.argmin(-1)  # the first (lowest-slot) minimum
+        out_d[l0:l1] = torch.gather(dc, 3, arg[..., None])[..., 0]
+        base = torch.arange(l0, l1, device=dev) * lpad
+        out_p[l0:l1] = (base[:, None, None] + first[None, None, :] + arg).to(torch.int32)
+    return out_d, out_p
+
+
+def adc_chunkmin_binned(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bins, lpad: int,
+                        packed: bool, chunk: int):
+    """K11: the chunk-min survivors of the binned ADC over the probed posting
+    lists -> ((nlist, QB, lpad / chunk) f32, int32 global slots); see
+    `adc_chunkmin_binned_ref`.  Survivors of query bins[l, j] over list l
+    are the contiguous row [l, j]: the caller gathers them per (probe,
+    slot).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel and count it in `adc_chunkmin_binned.launches`."""
+    _check_chunk(chunk)
+    dev = _device_of(codes, lut_q, scales, q_norms, cs_q, lens, bins)
+    nlist, QB = bins.shape
+    if lpad % _TILE_BIN or codes.shape[0] < nlist * lpad:
+        raise ValueError(f"K11 needs lpad % {_TILE_BIN} == 0 and nlist * lpad code rows; got "
+                         f"lpad {lpad}, {codes.shape[0]} rows for {nlist} lists")
+    if dev.type == "cpu":
+        return adc_chunkmin_binned_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bins,
+                                       lpad, packed, chunk)
+    B, Kd = lut_q.shape
+    cw = codes.shape[1]
+    mk = Kd // 16
+    if lut_q.dtype != torch.int8 or codes.dtype != torch.uint8:
+        raise ValueError("the K11 kernel takes uint8 codes and an int8 LUT")
+    if cw % 4 or Kd % 64 or mk != (2 * cw if packed else cw):
+        raise ValueError(f"K11 needs cw % 4 == 0 and 16 LUT columns per code group; got cw={cw}, "
+                         f"Kd={Kd}, packed={packed}")
+    if mk * 128 + mk * 16 + 22 * 1024 > 227 * 1024 or nlist * (lpad // _TILE_BIN) >= 2**31:
+        raise ValueError(f"K11: {mk} groups x {nlist} lists exceed the kernel's shared memory or grid")
+    codes, lut_q = codes.contiguous(), lut_q.contiguous()
+    scales, q_norms = scales.float().contiguous(), q_norms.float().contiguous()
+    lens, bins = lens.to(torch.int32).contiguous(), bins.to(torch.int32).contiguous()
+    cs_ptr = 0 if cs_q is None else cs_q.contiguous().data_ptr()
+    SL = lpad // chunk
+    out_d = torch.empty((nlist, QB, SL), dtype=torch.float32, device=dev)
+    out_p = torch.empty((nlist, QB, SL), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.vecdb_adc_chunkmin_binned(
+            codes.data_ptr(), lut_q.data_ptr(), scales.data_ptr(), q_norms.data_ptr(), cs_ptr,
+            float(cs_scale), lens.data_ptr(), bins.data_ptr(), out_d.data_ptr(), out_p.data_ptr(),
+            nlist, lpad, QB, cw, mk, int(packed), chunk, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "adc_chunkmin_binned")
+    adc_chunkmin_binned.launches += 1
+    return out_d, out_p
+
+
+adc_chunkmin_binned.launches = 0
 
 
 # ------------------------------------------------------------- K8 / K9 ----

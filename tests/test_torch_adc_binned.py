@@ -1,0 +1,152 @@
+"""K11 (the binned ADC chunk-min of IVF-PQ) and K7's chunk and selector
+options, in the PyTorch port against the JAX package, on the CPU.
+
+On CPU tensors the port's wrappers run the kernels' plain versions; the CUDA
+kernels are held against those on the card by `chip_smoke.py`.  Both sides
+take the same numpy inputs and the reference kernels run with
+interpret=True.  The int8 sums are exact and both sides round the epilogue
+in the same IEEE operations, so survivors and positions are EQUAL; where
+the reference selects with `approx_min_k` (exact on the CPU, but its ties
+come out in no defined order) the ids are equal up to the order and the
+choice among equal distances.  The port
+writes K11's survivors as (nlist, QB, lpad / chunk), the reference as
+(nlist, lpad / chunk, QB); bin columns without a query are compared nowhere
+(the reference scores them against query 0, the port writes +inf)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lab_1806_vec_db_tpu.ops import pallas_adc as PA
+from lab_1806_vec_db_tpu.ops import pq as JP
+from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _lut_inputs(rng, B, m):
+    lookup = (rng.random((B, m, 16)) * rng.uniform(0.5, 2.0, (B, 1, 1))).astype(np.float32)
+    cb_sq = (rng.random((m, 16)) + 0.1).astype(np.float32)
+    q_norms = (rng.random(B) + 0.5).astype(np.float32)
+    return lookup, cb_sq, q_norms
+
+
+def _binned_inputs(seed, nlist=4, lpad=1024, QB=32, B=80, m=16):
+    """Cluster-sorted packed codes with lists shorter than lpad (one empty,
+    one full), and bins with a ragged number of filled columns per list (one
+    list probed by nobody, one with every column filled)."""
+    rng = np.random.default_rng(seed)
+    lookup, cb_sq, q_norms = _lut_inputs(rng, B, m)
+    codes = JP.pack_codes_4bit(rng.integers(0, 16, (nlist * lpad, m)).astype(np.uint8))
+    lens = np.array([lpad - 37, 0, lpad, 300][:nlist], np.int32)
+    bins = np.full((nlist, QB), -1, np.int32)
+    for l, filled in enumerate([5, QB, 0, 17][:nlist]):
+        bins[l, :filled] = rng.choice(B, filled, replace=False)
+    return lookup, codes, lens, bins, cb_sq, q_norms
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+@pytest.mark.parametrize("chunk,QB", [(8, 32), (16, 64), (32, 32)])
+def test_k11_plain_equals_reference(dist, chunk, QB):
+    """K11's plain version against `adc_chunkmin_binned(interpret=True)` on
+    the filled columns: minima and global slots equal."""
+    lookup, codes, lens, bins, cb_sq, q_norms = _binned_inputs(11, QB=QB)
+    nlist, lpad = bins.shape[0], codes.shape[0] // bins.shape[0]
+    ed, ei = PA.adc_chunkmin_binned(
+        jnp.asarray(lookup), jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(bins),
+        jnp.asarray(cb_sq), jnp.asarray(q_norms), dist, packed=True, chunk=chunk, lpad=lpad,
+        interpret=True)
+    cw = codes.shape[1]
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), dist, True, cw)
+    launches = A.adc_chunkmin_binned.launches
+    gd, gi = A.adc_chunkmin_binned(_t(codes), lut_q, scales, _t(q_norms), cs_q, cs_scale,
+                                   _t(lens), _t(bins), lpad, True, chunk)
+    assert A.adc_chunkmin_binned.launches == launches  # CPU tensors: the plain version
+    assert gd.shape == (nlist, QB, lpad // chunk)
+    filled = bins >= 0
+    ed, ei = np.swapaxes(np.asarray(ed), 1, 2), np.swapaxes(np.asarray(ei), 1, 2)
+    np.testing.assert_array_equal(gd.numpy()[filled], ed[filled])
+    np.testing.assert_array_equal(gi.numpy()[filled], ei[filled])
+    # rows past a list's length are +inf; an empty list's survivors too
+    assert np.isinf(gd.numpy()[0, :5, (lpad - 37) // chunk + 1:]).all()
+    assert np.isinf(gd.numpy()[~filled]).all()
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k11_survivors_tie_to_the_lowest_slot(dist):
+    """All-equal codes tie every row of a chunk: each survivor is the
+    chunk's first global slot."""
+    lookup, _, _, bins, cb_sq, q_norms = _binned_inputs(3, nlist=2, lpad=512)
+    codes = np.zeros((1024, 8), np.uint8)
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), dist, True, 8)
+    lens = _t(np.array([512, 200], np.int32))
+    d, p = A.adc_chunkmin_binned(_t(codes), lut_q, scales, _t(q_norms), cs_q, cs_scale, lens,
+                                 _t(bins[:2]), 512, True, 16)
+    first = np.arange(32) * 16
+    np.testing.assert_array_equal(p.numpy()[0, :5], np.broadcast_to(first, (5, 32)))
+    np.testing.assert_array_equal(p.numpy()[1, :32], np.broadcast_to(512 + first, (32, 32)))
+    assert np.isinf(d.numpy()[1, :, 13:]).all() and np.isfinite(d.numpy()[1, :, :12]).all()
+
+
+def _assert_equal_up_to_ties(gd, gi, ed, ei, surv_d, surv_id):
+    """Distances equal; every returned id is a survivor at its returned
+    distance, and below each row's last returned distance the ids of each
+    distance are the same set on both sides (all such survivors)."""
+    np.testing.assert_array_equal(gd, ed)
+    for b in range(gd.shape[0]):
+        last = gd[b][np.isfinite(gd[b])].max()
+        for v in np.unique(gd[b][np.isfinite(gd[b])]):
+            tied = set(surv_id[b][surv_d[b] == v].tolist())
+            mine, ref = set(gi[b][gd[b] == v].tolist()), set(ei[b][ed[b] == v].tolist())
+            assert mine <= tied and ref <= tied, (b, v)
+            if v < last:
+                assert mine == ref == tied, (b, v)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+@pytest.mark.parametrize("chunk", A.CHUNKS)
+def test_k7_chunks_equal_reference_approx_transposed(dist, chunk):
+    """K7's plain version at every chunk against the reference's
+    `adc_scan_chunkmin(chunk=c, selector="approx", transposed=True)` fed
+    the same codes transposed: distances equal, ids equal up to ties (the
+    reference takes approx_min_k where S > 4 k_out: chunks 1-8 here)."""
+    rng = np.random.default_rng(chunk)
+    N, B, m, n_valid, k_out = 1500, 12, 16, 1400, 24
+    lookup, cb_sq, q_norms = _lut_inputs(rng, B, m)
+    codes = JP.pack_codes_4bit(rng.integers(0, 16, (N, m)).astype(np.uint8))
+    perm = rng.permutation(N).astype(np.int32)
+    ed, ei = PA.adc_scan_chunkmin(
+        jnp.asarray(lookup), jnp.asarray(codes.T), jnp.asarray(perm), n_valid,
+        jnp.asarray(cb_sq), jnp.asarray(q_norms), k_out, dist, packed=True, chunk=chunk,
+        selector="approx", transposed=True, interpret=True)
+    gd, gi = A.adc_scan_chunkmin(_t(lookup), _t(codes), _t(perm), n_valid, _t(cb_sq), _t(q_norms),
+                                 k_out, dist, packed=True, chunk=chunk, selector="approx")
+    S = 1536 // chunk
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), dist, True, 8)
+    sd, sp = A.adc_chunkmin(_t(codes), lut_q, scales, _t(q_norms), cs_q, cs_scale, n_valid, True,
+                            S, chunk)
+    surv_id = perm[np.minimum(sp.numpy(), N - 1)]
+    _assert_equal_up_to_ties(gd.numpy(), gi.numpy(), np.asarray(ed), np.asarray(ei), sd.numpy(),
+                             surv_id)
+    if S <= 4 * k_out:  # the reference's exact top-k: ties to the lower position
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+
+
+def test_chunk_and_selector_are_checked():
+    lookup, cb_sq, q_norms = _lut_inputs(np.random.default_rng(0), 4, 8)
+    codes = torch.zeros((256, 4), dtype=torch.uint8)
+    perm = torch.arange(256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunk"):
+        A.adc_scan_chunkmin(_t(lookup), codes, perm, 256, _t(cb_sq), _t(q_norms), 4, "l2sqr",
+                            packed=True, chunk=12)
+    with pytest.raises(ValueError, match="selector"):
+        A.adc_scan_chunkmin(_t(lookup), codes, perm, 256, _t(cb_sq), _t(q_norms), 4, "l2sqr",
+                            packed=True, selector="fast")
+    lut_q, scales, _, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), "l2sqr", True, 4)
+    bins = torch.zeros((1, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="lpad"):
+        A.adc_chunkmin_binned(codes, lut_q, scales, _t(q_norms), None, cs_scale,
+                              torch.tensor([256], dtype=torch.int32), bins, 256, True, 16)
