@@ -14,6 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   4. K2      — the rerank gather kernel against its plain version (B = 1000,
                r = 40, dim 960, some -1 ids), both metrics: rtol 1e-5,
                atol 1e-6, +inf exactly where the id is -1;
+               then the cosine columns of K12-K14 on the same 200,000 rows
+               against their plain versions (K13 / K14 equal element for
+               element, K12 within rtol 1e-5 / atol 1e-6 with ids equal
+               except between rows within that of each other);
   5. VecDB   — the user's entry points on two 200,000 x 960 Gist-spectrum
                tables (l2sqr, cosine): batch_add, batch_search (B = 1000,
                k = 10) through both kernels, recall@10 against the exact scan,
@@ -46,6 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
                kernel against its plain version, and index_device_bytes;
+     resident — on the same rows (l2sqr, B = 1000): the three q-resident
+               stage-1 entry points (K12 on the store's bf16 copy, K13 and
+               K14 on int8 rows with raw channels) each feeding r = 40
+               candidates to K2, recall@10 and QPS, the launch counts from 0
+               around the three; each kernel against its plain version,
+               timed in turns, with its bound;
      pq      — flat_pq_1m: PQTable.train from the store's device tensor,
                FlatIndex.knn_pq_batch at ef 100 / 200 (K7 + K2), and K7
                against its plain version on all 1,000,000 rows, bit for bit;
@@ -85,7 +95,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                columns), K7 at stage 0 (all 10M coarse rows) and on the
                overflow segment (equal), K8 ids at the (1000, c0) pool
                (rtol 1e-5); a 200,000-row cosine IVF-PQ index for K11's and
-               K7's cosine columns.
+               K7's cosine columns; index_bytes again after the first search
+               (IVF-PQ uploads its centroids and lens then);
+  8. u8      — u8_1m: FlatIndexU8 at 1,000,000 x 128 uint8 rows (BIGANN's
+               shape; Gist-spectrum rows scaled and clipped to 0-255), B =
+               1000, k = 10, QPS of chained batches, the returned distances
+               of 64 queries equal to float64 exact and to the exact top-10;
+               vecdb_u8_100k: a uint8 VecDB table of 100,000 rows through the
+               API (batch_add, batch_search against the index, the 200.7 ->
+               200 cast, HNSW and PQ refused with RuntimeError, reopen).
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
@@ -93,7 +111,7 @@ the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
 traversal_stats run; K6-K9: the first call of the PQ route that takes each;
 K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
 codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
-first search),
+first search; K12-K14: the resident phase's three entry points),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
 computes the same function (K6: a stable torch.sort and a gather; else null).
@@ -144,9 +162,11 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-# NVIDIA H100 SXM data sheet peaks (700 W): HBM bytes/s, dense int8 ops/s
+# NVIDIA H100 SXM data sheet peaks (700 W): HBM bytes/s, dense int8 and
+# bf16 ops/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
+BF16_OPS_S = 989.4e12
 
 
 def bound_ms(bytes_moved: float, ops: float = 0.0, ops_rate: float = INT8_OPS_S):
@@ -523,18 +543,20 @@ def plain_kernels():
 
 
 def pq_counts(reset: bool = False) -> dict:
-    """The launch count of every kernel a PQ, IVF or codes route can reach; with
-    `reset` the counts are set to 0 (and the zeros returned)."""
+    """The launch count of every kernel a PQ, IVF, codes or resident route can
+    reach; with `reset` the counts are set to 0 (and the zeros returned)."""
     from lab_1806_vec_db_tpu_torch.ops import adc as A
     from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
     from lab_1806_vec_db_tpu_torch.ops import gather as G
     from lab_1806_vec_db_tpu_torch.ops import merge as M
     from lab_1806_vec_db_tpu_torch.ops import scan as S
     from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
 
     plain = {"k1": S.scan_chunkmin_int8_packed, "k2": G.gather_dists, "k4": BF.beam_pre,
              "k5": BF.beam_post, "k6": M.merge_sorted, "k7": A.adc_chunkmin,
-             "k10": SB.scan_chunkmin_int8_binned, "k11": A.adc_chunkmin_binned}
+             "k10": SB.scan_chunkmin_int8_binned, "k11": A.adc_chunkmin_binned,
+             "k12": SR.scan_chunkmin, "k13": SR.scan_dist_int8, "k14": SR.scan_chunkmin_int8_t}
     by_k = {"k8_dense": (A.adc_sums_dense, 16), "k8_ids": (A.adc_sums_ids, 16),
             "k9_dense": (A.adc_sums_dense, 256), "k9_ids": (A.adc_sums_ids, 256)}
     if reset:
@@ -1385,9 +1407,11 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=200_000, nlist_cos=128, B=
             f"codes_ivfpq_10m n_probes {p}", dropped=lambda: int(idx.last_dropped))}
     ivf["sweep"], ivf["launches"] = sweep, launches
     ivf["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    ivf["index_bytes_after_search"] = idx.index_bytes()  # + the centroids and lens the first search uploads
     recs = [v["recall_at_10"] for v in sweep.values()]
     log("[codes] codes_ivfpq_10m: " + ", ".join(f"{key} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f} "
-                                                f"dropped {v['dropped_pairs']}" for key, v in sweep.items()))
+                                                f"dropped {v['dropped_pairs']}" for key, v in sweep.items())
+        + f"; index_bytes after the first search {ivf['index_bytes_after_search']}")
     check(all(b >= a for a, b in zip(recs, recs[1:])), f"codes_ivfpq_10m: recall falls as n_probes grows: {recs}")
     check(launches["k11"] > 0 and (idx.ov_count == 0 or launches["k7"] > 0),
           f"codes_ivfpq_10m: the search launched {launches}")
@@ -1424,6 +1448,7 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=200_000, nlist_cos=128, B=
             lambda qq, ef=ef, c0=c0: pqc.knn_batch(qq, k, ef=ef, c0=c0), q, gt, f"codes_pq_10m ef {ef}")}
     pqo["points"], pqo["launches"] = points, pq_launches
     pqo["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    pqo["index_bytes_after_search"] = pqc.index_bytes()
     check(pq_launches["k7"] > 0 and pq_launches["k8_ids"] > 0, f"codes_pq_10m: the search launched {pq_launches}")
     log("[codes] codes_pq_10m: " + ", ".join(f"{key} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}"
                                              for key, v in points.items()))
@@ -1580,6 +1605,287 @@ def phase_vecdb(x_host, q_host):
     return out, launches, hnsw_launches, hnsw_meas, (pq_out, pq_launches, pq_meas)
 
 
+# ---------------------------------------------------------- resident ----
+RESIDENT_R = 40  # stage-1 candidates of each q-resident entry point, reranked by K2
+
+
+def check_k12(q, base_bf, cache, n_valid, dist, tag, timed=False):
+    """K12 against its plain version: survivors within rtol 1e-5 / atol 1e-6
+    (+inf at the same places); where the ids differ, the two rows' float64
+    distances lie within that tolerance of each other."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+
+    qb, qc = q.to(torch.bfloat16), D.dist_cache(q, dist)
+    args = (qb, qc, base_bf, cache, n_valid, dist)
+    got = SR.scan_chunkmin(*args)
+    ref = SR.scan_chunkmin_ref(qb, qc, *SR._pad_rows(SR._NB, base_bf, cache), n_valid, dist)
+    torch.cuda.synchronize()
+    check(got[0].shape == ref[0].shape == (q.shape[0], -(-base_bf.shape[0] // SR._NB) * 8), f"K12 {tag} shape")
+    fin = torch.isfinite(ref[0])
+    check(torch.equal(fin, torch.isfinite(got[0])) and torch.equal(got[0][~fin], ref[0][~fin]),
+          f"K12 {tag}: +inf survivors differ from the plain version's")
+    err = (got[0] - ref[0]).abs()[fin]
+    over = int((err > 1e-6 + 1e-5 * ref[0].abs()[fin]).sum())
+    max_rel = float((err / ref[0].abs()[fin].clamp_min(1e-30)).max())
+    log(f"[resident] K12 {tag}: max abs err {float(err.max()):.3g}, max rel err {max_rel:.3g}, "
+        f"{over} of {int(fin.sum())} survivors outside rtol 1e-5 / atol 1e-6")
+    check(over == 0, f"K12 {tag}: {over} survivors outside rtol 1e-5 / atol 1e-6 of the plain version")
+    diff = got[1] != ref[1]
+    b = torch.nonzero(diff)[:, 0]
+    rows_k, rows_r = got[1][diff].long(), ref[1][diff].long()
+    qd = qb[b].double()
+
+    def d64(rows):
+        dot = (qd * base_bf[rows].double()).sum(-1)
+        if dist == "l2sqr":
+            return qc[b].double() + cache[rows].double() - 2.0 * dot
+        return 1.0 - dot / (qc[b].double() * cache[rows].double()).clamp_min(1e-10)
+
+    dk, dr = d64(rows_k), d64(rows_r)
+    check(bool((torch.abs(dk - dr) <= 1e-5 * torch.abs(dr) + 1e-6).all()),
+          f"K12 {tag}: ids differ between rows farther apart than rtol 1e-5")
+    out = {"max_abs_err": max_abs_err(got[0], ref[0]), "max_rel_err": max_rel, "ids_differ": int(diff.sum()),
+           "survivors": got[0].numel()}
+    if timed:
+        out["ms"], out["plain_ms"] = in_turns(lambda: SR.scan_chunkmin(*args), lambda: SR.scan_chunkmin_ref(
+            qb, qc, *SR._pad_rows(SR._NB, base_bf, cache), n_valid, dist), 5, 1)
+        n, dim, B = n_valid, base_bf.shape[1], q.shape[0]
+        # bf16 rows and their cache, the bf16 queries and their cache, the
+        # (B, S) f32 + int32 survivors; 2 B n dim bf16 operations
+        out["bound"] = bound_ms(n * (2 * dim + 4) + B * (2 * dim + 4) + 8 * got[0].numel(),
+                                2.0 * B * n * dim, BF16_OPS_S)
+    log(f"[resident] K12 {tag} ({base_bf.shape[0]} rows x {q.shape[0]} queries): within rtol 1e-5 of its plain "
+        f"version (max rel err {out['max_rel_err']:.3g}, ids differ at {out['ids_differ']} of "
+        f"{out['survivors']} survivors, all between near-equal rows)"
+        + (f"; {out['ms']:.3f} ms, plain {out['plain_ms']:.2f} ms, bound {out['bound']}" if timed else ""))
+    return out
+
+
+def check_int8_resident(q, b8, bsc, cache, n_valid, dist, tag, timed=False):
+    """K13 and K14 against their plain versions on the same raw int8
+    operands: equal element for element (K14's ids too).  K14 takes the
+    queries padded to 1024 as its entry point pads them."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    out = {}
+    for name, fn, ref, mult, qq in (
+            ("k13", SR.scan_dist_int8, SR.scan_dist_int8_ref, SR._NB, q),
+            ("k14", SR.scan_chunkmin_int8_t, SR.scan_chunkmin_int8_t_ref, SR._NB_T,
+             torch.cat([q, q.new_zeros((-q.shape[0] % 128, q.shape[1]))]))):
+        q8, qsc = T.quantize_rows_int8(qq)
+        qc = D.dist_cache(qq, dist)
+        args = (q8, qsc, qc, b8, bsc, cache, n_valid, dist)
+        pargs = (q8, qsc, qc, *SR._pad_rows(mult, b8, bsc, cache), n_valid, dist)
+        got, want = fn(*args), ref(*pargs)
+        torch.cuda.synchronize()
+        got, want = (got, want) if name == "k14" else ((got,), (want,))
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"{name.upper()} {tag}: {int((a != b).sum())} values differ from the plain version")
+        o = {"max_abs_err": max(max_abs_err(a.float(), b.float()) for a, b in zip(got, want)),
+             "shape": [qq.shape[0], b8.shape[0], b8.shape[1]]}
+        del got, want
+        if timed:
+            o["ms"], o["plain_ms"] = in_turns(lambda: fn(*args), lambda: ref(*pargs), 5, 1)
+            Bq, n, dim = qq.shape[0], n_valid, b8.shape[1]
+            n_pad = -(-b8.shape[0] // mult) * mult
+            # int8 rows with scale and cache, int8 queries with theirs; K13's
+            # (B, N_pad) bf16 matrix or K14's (N_pad/128, B) f32 + int32
+            written = Bq * n_pad * 2 if name == "k13" else n_pad // 128 * Bq * 8
+            o["bound"] = bound_ms(n * (dim + 8) + Bq * (dim + 8) + written, 2.0 * Bq * n * dim)
+        out[name] = o
+        log(f"[resident] {name.upper()} {tag} ({b8.shape[0]} rows x {qq.shape[0]} queries): equal to its plain "
+            "version element for element"
+            + (f"; {o['ms']:.3f} ms, plain {o['plain_ms']:.2f} ms, bound {o['bound']}" if timed else ""))
+    return out
+
+
+def phase_resident(store, q, gt):
+    """The three q-resident scans on flat_1m's rows (l2sqr, B = 1000): each
+    entry point's r = 40 candidates reranked exactly by K2 (recall@10, QPS
+    of chained batches, the launch counts from 0 around the three), then
+    each kernel against its plain version, timed in turns, with its bound."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    n, dist, k = len(store), store.dist, 10
+    t0 = time.perf_counter()
+    vecs, cache = store.device()  # cache: the raw |x|^2 that K12-K14 take
+    base_bf, _ = store.device_traversal()
+    b8, bsc = T.quantize_rows_int8(vecs)
+    torch.cuda.synchronize()
+    out = {"cell": "resident_1m", "n": n, "rows": vecs.shape[0], "batch": q.shape[0], "r": RESIDENT_R,
+           "inputs_s": time.perf_counter() - t0}
+    entries = {
+        "k12": lambda qq: SR.scan_candidates_pallas(qq, base_bf, cache, n, RESIDENT_R, dist),
+        "k13": lambda qq: SR.scan_candidates_int8_pallas(qq, b8, bsc, cache, n, RESIDENT_R, dist),
+        "k14": lambda qq: SR.scan_candidates_int8_chunkmin(qq, b8, bsc, cache, n, RESIDENT_R, dist),
+    }
+    search = {name: (lambda qq, e=e: G.rerank_topk(qq, vecs, e(qq)[1], k, dist)) for name, e in entries.items()}
+    pq_counts(reset=True)
+    results = {name: s(q) for name, s in search.items()}
+    torch.cuda.synchronize()
+    out["launches"] = {name: v for name, v in pq_counts().items() if name in entries}
+    check(min(out["launches"].values()) > 0, f"resident: the entry points launched {out['launches']}")
+    for name, (d, ids) in results.items():
+        check(bool(torch.isfinite(d).all()) and bool((ids >= 0).all()) and ids.shape == (q.shape[0], k),
+              f"resident {name}: malformed result")
+        out[name] = {"recall_at_10": recall_at_k(gt, ids.cpu().numpy().tolist(), k),
+                     **chained_qps(search[name], q, 3, 4)}
+    log("[resident] " + ", ".join(f"{name} stage 1 + K2: recall@10 {out[name]['recall_at_10']:.4f} QPS "
+                                  f"{out[name]['qps_best']:.0f}" for name in entries) + f"; launches {out['launches']}")
+    del results
+    # K12's f32 survivors keep flat_1m's Flat bar; K13 / K14 select on bf16
+    # distances (3 significant digits, many ties among 1M rows): 0.90
+    for name, bar in (("k12", 0.99), ("k13", 0.90), ("k14", 0.90)):
+        check(out[name]["recall_at_10"] >= bar, f"resident: {name} recall@10 {out[name]['recall_at_10']:.4f} < {bar}")
+    k12 = check_k12(q, base_bf, cache, n, dist, "resident_1m", timed=True)
+    k1314 = check_int8_resident(q, b8, bsc, cache, n, dist, "resident_1m", timed=True)
+    del b8, bsc, base_bf
+    store._dev_bf16 = None  # the traversal copy serves no later phase
+    torch.cuda.empty_cache()
+    return out, {"k12": k12, **k1314}
+
+
+def phase_resident_cosine(x, queries):
+    """The cosine columns of K12-K14 on the 200,000 x 960 rows of phases
+    3-4: each kernel against its plain version."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    cache = D.dist_cache(x, "cosine")
+    b8, bsc = T.quantize_rows_int8(x)
+    base_bf = x.to(torch.bfloat16)
+    k12 = check_k12(queries, base_bf, cache, x.shape[0], "cosine", "cosine 200,000")
+    k1314 = check_int8_resident(queries, b8, bsc, cache, x.shape[0], "cosine", "cosine 200,000")
+    return {"k12": k12, **k1314}
+
+
+# ---------------------------------------------------------------- u8 ----
+U8_DIM = 128  # BIGANN's (SIFT1B's) uint8 base vectors, cut to 1M rows
+
+
+def u8_rows(n, seed, device, scale=None):
+    """(n, 128) uint8 rows on `device`: Gist-spectrum rows (`make_device`)
+    scaled so that the 99.9% quantile of the first 4096 rows maps to 255,
+    truncated and clipped to 0-255 (the table's `as u8` cast).  Returns the
+    rows and the scale, which the queries reuse."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import synth
+
+    x = synth.make_device(n, U8_DIM, seed, device)
+    if scale is None:
+        scale = 255.0 / float(torch.quantile(x[:4096].flatten(), 0.999))
+    return (x * scale).trunc_().clamp_(0.0, 255.0).to(torch.uint8), scale
+
+
+def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
+    """u8_1m: FlatIndexU8 at 1,000,000 x 128 uint8 rows, B = 1000, k = 10
+    (QPS of chained batches; on 64 queries the returned distances and the
+    exact top-10 distances of a float64 brute force on the card must be
+    equal); vecdb_u8_100k: a uint8 VecDB table of 100,000 x 128 through the
+    API (batch_add, batch_search against the index, the 200.7 -> 200 cast,
+    RuntimeError naming float32 for HNSW and PQ, close and reopen)."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch import VecDB
+    from lab_1806_vec_db_tpu_torch.models import FlatIndexU8
+
+    k = 10
+    x, scale = u8_rows(n, 6, device)
+    q, _ = u8_rows(B, 7, device, scale)
+    x_host, q_host = x.cpu().numpy(), q.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = FlatIndexU8.from_numpy(x_host, "l2sqr", device=device)
+    idx.store.device()
+    torch.cuda.synchronize()
+    out = {"cell": "u8_1m", "n": n, "dim": U8_DIM, "batch": B, "k": k, "scale": scale,
+           "build_s": time.perf_counter() - t0, "index_bytes": idx.index_bytes()}
+    t0 = time.perf_counter()
+    d, ids = idx.knn_batch(q_host, k)
+    out["first_call_s"] = time.perf_counter() - t0
+    check(d.shape == ids.shape == (B, k) and bool((ids >= 0).all()) and bool(np.isfinite(d).all()),
+          "u8_1m: malformed result")
+    # the returned distances and the exact top-10 of a float64 brute force
+    qd = q[:64].double()
+    d64 = (qd.square().sum(1, keepdim=True) + x.double().square().sum(1)[None, :]
+           - 2.0 * qd @ x.double().T)
+    top64 = torch.topk(d64, k, dim=1, largest=False).values
+    got = torch.from_numpy(d[:64]).to(device).double()
+    rows = x[torch.from_numpy(ids[:64]).to(device).long()].double()
+    exact = ((rows - qd[:, None, :]) ** 2).sum(-1)
+    check(torch.equal(got, exact), f"u8_1m: returned distances differ from float64 exact by "
+                                   f"{float((got - exact).abs().max())}")
+    check(torch.equal(got, top64), "u8_1m: the returned top-10 distances are not the exact top-10")
+    out["distances_equal_float64_exact_64_queries"] = True
+    del d64, qd, rows
+    qf = q.float()
+    out.update(chained_qps(lambda qq: idx._knn_device(qq.to(torch.uint8), k), qf, 3, 4))
+    out["profile"] = profile_call(lambda: idx._knn_device(q, k))
+    log(f"[u8] u8_1m: build {out['build_s']:.2f} s, QPS best {out['qps_best']:.0f} median "
+        f"{out['qps_median']:.0f}, distances equal float64 exact, index_bytes {out['index_bytes']}")
+    del idx, x, q
+    torch.cuda.empty_cache()
+
+    # ---- vecdb_u8_100k ----
+    db_dir = os.path.join(HERE, "tmp", "chip_smoke_u8_db")
+    shutil.rmtree(db_dir, ignore_errors=True)
+    rows = x_host[:n_db]
+    vd = {"cell": "vecdb_u8_100k", "rows": n_db}
+    db = VecDB(db_dir, device=device)
+    try:
+        check(db.create_table_if_not_exists("u8", U8_DIM, "l2sqr", data_type="uint8"), "u8: create table")
+        t0 = time.perf_counter()
+        db.batch_add("u8", rows, [{"id": str(i)} for i in range(n_db)])
+        vd["batch_add_s"] = time.perf_counter() - t0
+        db.add("u8", [200.7] * U8_DIM, {"id": "cast"})
+        t0 = time.perf_counter()
+        res = db.batch_search("u8", q_host, k)
+        vd["batch_search_first_s"] = time.perf_counter() - t0
+        calls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = db.batch_search("u8", q_host, k)
+            calls.append(time.perf_counter() - t0)
+        vd["batch_search_median_s"] = float(np.median(calls))
+        _, ref = FlatIndexU8.from_numpy(rows, "l2sqr", device=device).knn_batch(q_host, k)
+        check([[int(m["id"]) for m, _ in r] for r in res] == ref.tolist(),
+              "vecdb_u8_100k: batch_search differs from FlatIndexU8")
+        hit = db.search("u8", [201] * U8_DIM, 1)
+        check(hit == [({"id": "cast"}, float(U8_DIM))], f"vecdb_u8_100k: the 200.7 -> 200 cast: {hit}")
+        for name, call in (("build_hnsw_index", lambda: db.build_hnsw_index("u8")),
+                           ("build_pq_table", lambda: db.build_pq_table("u8"))):
+            try:
+                call()
+                fail(f"vecdb_u8_100k: {name} accepted a uint8 table")
+            except RuntimeError as e:
+                check("float32" in str(e), f"vecdb_u8_100k: {name} raised {e!r}")
+        before = db.batch_search("u8", q_host, k)
+    finally:
+        db.close()
+    db = VecDB(db_dir, device=device)
+    try:
+        check(db.get_len("u8") == n_db + 1, "vecdb_u8_100k: length after reopen")
+        check(db.batch_search("u8", q_host, k) == before, "vecdb_u8_100k: batch_search differs after reopen")
+    finally:
+        db.close()
+    shutil.rmtree(db_dir, ignore_errors=True)
+    vd["checks"] = ["batch_search == FlatIndexU8", "200.7 -> 200", "HNSW / PQ raise RuntimeError (float32)",
+                    "close / reopen identical"]
+    log(f"[u8] vecdb_u8_100k: batch_add {vd['batch_add_s']:.2f} s, batch_search {vd['batch_search_median_s']*1e3:.1f} "
+        "ms, cast / refusals / reopen checked")
+    return {"u8_1m": out, "vecdb_u8_100k": vd}
+
+
 def profile_round(flat, q, k: int, reps: int) -> dict:
     """One chained round of `reps` batches under torch.profiler: device busy
     share (kernel time summed over the round's host wall time, profiler
@@ -1703,9 +2009,10 @@ def phase_1m(card):
     }
     log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps['qps_best']:.0f} median {qps['qps_median']:.0f}, "
         f"stages {split}, {times}")
+    resident = phase_resident(store, q, gt.tolist())
     pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
     ivf_out, k10 = phase_ivf_1m(store, q, gt.tolist())
-    return out, pq_out, k7, ivf_out, k10
+    return out, resident, pq_out, k7, ivf_out, k10
 
 
 def main() -> None:
@@ -1724,6 +2031,7 @@ def main() -> None:
     queries = synth.make_device(1000, 960, 3, "cuda")
     k1_err = phase_k1(x, queries)
     k2_err = phase_k2(x, queries)
+    resident_cos = phase_resident_cosine(x, queries)
     x_host, q_host = x.cpu().numpy(), queries.cpu().numpy()
     del x, queries
     torch.cuda.empty_cache()
@@ -1731,8 +2039,10 @@ def main() -> None:
     del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
-    m, pq_1m, k7, ivf_1m, k10 = phase_1m(card)
+    m, (resident, rm), pq_1m, k7, ivf_1m, k10 = phase_1m(card)
     print(json.dumps(m), flush=True)
+    print(json.dumps({"phase": "resident", "card": card, "resident_1m": resident,
+                      "kernels_vs_plain": {**rm, "cosine_200k": resident_cos}}, default=str), flush=True)
     print(json.dumps({"phase": "pq", "card": card, "flat_pq_1m": pq_1m, **pq_out,
                       "kernels_vs_plain": {"k7_1m": k7, **pm}}, default=str), flush=True)
     torch.cuda.empty_cache()
@@ -1746,6 +2056,8 @@ def main() -> None:
     print(json.dumps({"phase": "codes", "card": card, **codes,
                       "kernels_vs_plain": {"k11_codes_ivfpq_10m": k11, "k7_codes_pq_10m_stage0": k7s0}},
                      default=str), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "u8", "card": card, **phase_u8()}, default=str), flush=True)
 
     main_launches = launches["gist_l2"]
     # each error is the largest over every comparison of that kernel with its
@@ -1833,6 +2145,14 @@ def main() -> None:
                   {**k7s0, "max_abs_err": max(k7s0["max_abs_err"], codes["cosine_200k"]["k7_cosine_max_abs_err"],
                                               codes["codes_ivfpq_10m"].get("k7_overflow", {}).get("max_abs_err", 0.0))}),
     ]
+    # K12-K14 on the resident phase's entry points (flat_1m's rows, B = 1000);
+    # checked and timed there, the error also over the cosine 200,000 rows
+    for name, src, replaces, key in (("scan_chunkmin", "scan_bf16_chunkmin.cu", "pallas_scan.py:81", "k12"),
+                                     ("scan_dist_int8", "scan_int8_bf16.cu", "pallas_scan.py:171", "k13"),
+                                     ("scan_chunkmin_int8_t", "scan_int8_bf16.cu", "pallas_scan.py:286", "k14")):
+        kernels.append(pq_kernel(name, src, replaces, resident["launches"][key],
+                                 {**rm[key], "max_abs_err": max(rm[key]["max_abs_err"],
+                                                                resident_cos[key]["max_abs_err"])}))
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,12 @@ Ported so far, over float32 tables:
 - the codes-resident tiers (`models/pq_codes.py:PQCodesIndex`,
   `models/ivfpq.py:IVFPQIndex`), which keep only PQ codes on the device and
   regenerate exact rows from the row source, with kernel K11 (`ops/adc.py`,
-  the binned ADC chunk-min) beside K7 and K8.
-uint8 tables raise `NotImplementedError`.
+  the binned ADC chunk-min) beside K7 and K8;
+- the q-resident stage-1 scans (`ops/scan_resident.py`): K12 (bf16 with a
+  chunk-min), K13 (int8, the bf16 distance matrix) and K14 (int8 with a
+  chunk-min), each behind its candidate function;
+- uint8 tables (`models/u8.py`: `U8VecSet`, `FlatIndexU8`; `ops/u8.py`):
+  exact integer distances through int8 GEMMs, through `VecDB` too.
 """
 
 import torch

@@ -10,9 +10,9 @@ the heavy work happens inside PyTorch device calls, which release the GIL
 during execution, so concurrent Python threads overlap the same way.
 
 Port of lab_1806_vec_db_tpu/db/api.py.  `VecDB(dir, device="cuda")` serves
-float32 Flat and HNSW tables, with or without a PQ table, on the given
-device and raises RuntimeError when that device is unavailable; uint8
-tables raise NotImplementedError.
+float32 Flat and HNSW tables, with or without a PQ table, and uint8 Flat
+tables (exact integer distances) on the given device, and raises
+RuntimeError when that device is unavailable.
 """
 
 from __future__ import annotations
@@ -64,7 +64,9 @@ class VecDB:
         self, key: str, dim: int, dist: str = "cosine", data_type: str = "float32"
     ) -> bool:
         """Extension over the reference stub: `data_type` selects the table
-        dtype.  Only "float32" is ported; "uint8" raises NotImplementedError."""
+        dtype, "float32" or "uint8".  A uint8 table stores rows cast by
+        truncation and saturation to 0-255, searches them exactly, and
+        refuses HNSW and PQ (RuntimeError)."""
         return self._inner.create_table_if_not_exists(key, dim, dist, data_type)
 
     @_runtime_wrap

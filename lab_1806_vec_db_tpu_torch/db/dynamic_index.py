@@ -1,28 +1,29 @@
-"""Runtime Flat | HNSW dispatch (port of db/dynamic_index.py) for float32
-tables.
+"""Runtime Flat | HNSW | FlatU8 dispatch (port of db/dynamic_index.py).
 
-uint8 (FlatU8) tables and the sharded VECDB_TPU_MESH mirror are not ported
-yet; asking for a uint8 table raises NotImplementedError naming the ROADMAP
-item that ports it.
+The runtime-dtype dispatch is the DB-layer face of the reference's
+DynamicVecSet (src/vec_set.rs:237-263): float32 tables hold a Flat index
+that can be upgraded to HNSW, uint8 tables the exact u8 Flat index
+(`models/u8.py`), which never casts the set to f32 and refuses HNSW.  The
+sharded VECDB_TPU_MESH mirror is not ported yet (ROADMAP.md queue 1,
+item 14).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..models import FlatIndex, HNSWIndex
+from ..models import FlatIndex, FlatIndexU8, HNSWIndex
 from ..utils.config import HNSWConfig
-
-U8_TODO = "uint8 tables are not ported yet (ROADMAP.md queue 1, item 12: u8)"
 
 
 class DynamicIndex:
     def __init__(self, dim: int, dist: str, data_type: str = "float32", device="cuda"):
         if data_type == "uint8":
-            raise NotImplementedError(U8_TODO)
-        if data_type != "float32":
+            self.inner: FlatIndex | FlatIndexU8 | HNSWIndex = FlatIndexU8(dim, dist, device=device)
+        elif data_type == "float32":
+            self.inner = FlatIndex(dim, dist, device=device)
+        else:
             raise ValueError(f"Unsupported data_type: {data_type!r}")
-        self.inner: FlatIndex | HNSWIndex = FlatIndex(dim, dist, device=device)
         self.data_type = data_type
 
     @property
@@ -53,6 +54,8 @@ class DynamicIndex:
         (metadata_vec_table.rs:84-98)."""
         if self.is_hnsw:
             return
+        if self.data_type == "uint8":
+            raise RuntimeError("HNSW index requires a float32 table")
         flat: FlatIndex = self.inner
         cfg = HNSWConfig(max_elements=len(flat))
         if ef_construction is not None:
@@ -97,12 +100,13 @@ class DynamicIndex:
 
     @classmethod
     def from_state(cls, arrays: dict, meta: dict, device="cuda") -> "DynamicIndex":
-        if meta["algorithm"] == "FlatU8":
-            raise NotImplementedError(f"loading a FlatU8 checkpoint: {U8_TODO}")
         self = cls.__new__(cls)
+        self.data_type = "float32"
         if meta["algorithm"] == "HNSW":
             self.inner = HNSWIndex.from_state(arrays, meta, device=device)
+        elif meta["algorithm"] == "FlatU8":
+            self.inner = FlatIndexU8.from_state(arrays, meta, device=device)
+            self.data_type = "uint8"
         else:
             self.inner = FlatIndex.from_state(arrays, meta, device=device)
-        self.data_type = "float32"
         return self

@@ -6,10 +6,11 @@ reference's lifecycle invariants:
 - search routing: (ef, pq) -> knn_pq, ef -> knn_with_ef, else knn; then the
   upper_bound filter and the metadata join.
 
-Flat and HNSW tables, each with an optional PQ table (the ADC sidecar that
-`batch_search` with ef routes through), are ported.  Checkpoints are the JAX
-package's single-file npz + JSON format, PQ arrays and meta included, so a
-table saved by either package loads in the other.
+float32 Flat and HNSW tables, each with an optional PQ table (the ADC
+sidecar that `batch_search` with ef routes through), and uint8 Flat tables
+are ported.  Checkpoints are the JAX package's single-file npz + JSON
+format, PQ arrays and meta included, so a table saved by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -35,7 +36,12 @@ class MetadataVecTable:
         return self.inner.data_type
 
     def _cast_rows(self, vecs) -> np.ndarray:
-        """Cast input rows to the table dtype (float32)."""
+        """Cast input rows to the table dtype.  uint8 tables apply the
+        reference's `as u8` semantics: round toward zero, saturate
+        (src/scalar.rs:19-35); NaN becomes 0."""
+        if self.data_type == "uint8":
+            a = np.atleast_2d(np.asarray(vecs, dtype=np.float64))
+            return np.clip(np.trunc(np.nan_to_num(a)), 0, 255).astype(np.uint8)
         return np.atleast_2d(np.asarray(vecs, dtype=np.float32))
 
     def __len__(self) -> int:

@@ -6,7 +6,8 @@ from .ivfpq import IVFPQIndex
 from .kmeans import KMeans
 from .pq_table import PQTable
 from .pq_codes import PQCodesIndex
+from .u8 import FlatIndexU8, U8VecSet
 from . import base
 
 __all__ = ["VecStore", "FlatIndex", "HNSWIndex", "IVFIndex", "IVFPQIndex", "KMeans", "PQTable",
-           "PQCodesIndex", "base"]
+           "PQCodesIndex", "FlatIndexU8", "U8VecSet", "base"]

@@ -26,6 +26,30 @@ def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
     return d[..., :k], torch.gather(ids, -1, pos)
 
 
+_KEY_QUERIES = 64  # rows per block of `smallest_positions` (bounds its int64 keys)
+
+
+def smallest_positions(d: torch.Tensor, k: int):
+    """The k smallest entries of each row of a wide (B, N) tensor, ascending,
+    ties to the lower position (a stable sort's order), without sorting the
+    row: one int64 key per entry, (order-preserving int of the f32 value)
+    << 32 | position, selected by `torch.topk`, 64 rows at a time.  -0.0
+    ties with +0.0.  Returns ((B, k) f32 values, (B, k) int64 positions)."""
+    B, n = d.shape
+    pos = torch.arange(n, dtype=torch.int64, device=d.device)
+    out_d = torch.empty((B, k), dtype=torch.float32, device=d.device)
+    out_p = torch.empty((B, k), dtype=torch.int64, device=d.device)
+    for b0 in range(0, B, _KEY_QUERIES):
+        f = d[b0 : b0 + _KEY_QUERIES].float() + 0.0  # -0.0 -> +0.0
+        bits = f.view(torch.int32)
+        ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+        key = torch.topk((ordered << 32) | pos, k, dim=1, largest=False, sorted=True).values
+        p = key & 0xFFFFFFFF
+        out_d[b0 : b0 + _KEY_QUERIES] = torch.gather(f, 1, p)
+        out_p[b0 : b0 + _KEY_QUERIES] = p
+    return out_d, out_p
+
+
 def merge_topk(best_d, best_i, new_d, new_i, k: int):
     """Merge a new candidate tile into the running k-best.  The running set
     comes first, so on a tie it keeps the earlier (lower) id."""

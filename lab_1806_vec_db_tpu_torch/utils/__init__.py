@@ -1,3 +1,3 @@
-from . import config, candidates, serde, device
+from . import config, candidates, serde, device, io
 
-__all__ = ["config", "candidates", "serde", "device"]
+__all__ = ["config", "candidates", "serde", "device", "io"]

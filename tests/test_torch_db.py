@@ -4,8 +4,8 @@ One sequence of user calls runs on both packages (the port on the CPU), and
 the results must agree: the same metadata in the same order, distances to
 rtol 1e-5 / atol 1e-6 (the reference answers single queries with its native
 scan, the port with its exact f32 GEMM scan).  DB directories interchange,
-the error surface matches, and what is not ported (uint8 tables) raises
-NotImplementedError."""
+the error surface matches, and uint8 tables (once unported) work, with the
+reference's refusals."""
 
 import os
 import subprocess
@@ -118,27 +118,34 @@ def test_error_surface(which, tmp_path):
 
 
 def test_unported_features_raise_not_implemented(tmp_path):
+    """The features that raised NotImplementedError before they were ported
+    now work: PQ, HNSW and uint8 tables (whose HNSW and PQ refusals name
+    float32, as the reference's do), and a uint8 directory written by the
+    JAX package opens and searches exactly."""
     db = VecDB(str(tmp_path / "db"), device="cpu")
     try:
         db.create_table_if_not_exists("t", 4, "l2sqr")
         db.add("t", [1.0, 0.0, 0.0, 0.0], {"a": "b"})
         db.build_pq_table("t")  # PQ is ported
         assert db.has_pq_table("t")
-        with pytest.raises(NotImplementedError, match="uint8"):
-            db.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
         db.build_hnsw_index("t")  # HNSW is ported
         assert db.has_hnsw_index("t")
+        assert db.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
+        db.batch_add("u", [[0, 0, 0, 0], [200.7, 3, 300, -1]], [{"i": "0"}, {"i": "1"}])
+        assert db.search("u", [200, 3, 255, 0], 1) == [({"i": "1"}, 0.0)]
+        for build in (db.build_hnsw_index, db.build_pq_table):
+            with pytest.raises(RuntimeError, match="float32"):
+                build("u")
     finally:
         db.close()
-    # a uint8 checkpoint written by the JAX package does not load yet
     jdb = JVecDB(str(tmp_path / "jdb"))
     jdb.create_table_if_not_exists("u", 4, "l2sqr", data_type="uint8")
-    jdb.batch_add("u", np.eye(4, dtype=np.float32), [{"i": str(i)} for i in range(4)])
+    jdb.batch_add("u", np.eye(4, dtype=np.float32) * 9, [{"i": str(i)} for i in range(4)])
     jdb.close()
     db = VecDB(str(tmp_path / "jdb"), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="uint8"):
-            db.get_len("u")
+        assert db.get_len("u") == 4
+        assert db.search("u", [9, 1, 0, 0], 2) == [({"i": "0"}, 1.0), ({"i": "1"}, 145.0)]
     finally:
         db.close()
 
