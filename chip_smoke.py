@@ -45,7 +45,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                plain versions (must agree within 0.005, with every kernel
                count still 0 after the plain run); K6 against its plain
                version at B = 1000, EL = 128 and ef 180 / 360 / 600, K8 and
-               K9 ids at widths 1 / 16 / 128, K8 / K9 dense on one block;
+               K9 ids at widths 1 / 16 / 128 (K9 equal, K8 rtol 1e-5), K8 /
+               K9 dense on one block (equal; K9 also on the scan's last
+               partial block at the cosine route's R = 1001), K8 / K9 with
+               their lookup bounds beside the byte bounds;
   6. 1M      — FlatIndex at 1,000,000 x 960 (device-born): recall@10 against
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
@@ -94,8 +97,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                K11 against its plain version on every list (equal on filled
                columns), K7 at stage 0 (all 10M coarse rows) and on the
                overflow segment (equal), K8 ids at the (1000, c0) pool
-               (rtol 1e-5); a 200,000-row cosine IVF-PQ index for K11's and
-               K7's cosine columns; index_bytes again after the first search
+               (rtol 1e-5); a 300,000-row cosine IVF-PQ index (64 lists, some
+               spilling) for K11's and K7's cosine columns, K7's also on its
+               overflow segment; index_bytes again after the first search
                (IVF-PQ uploads its centroids and lens then);
   8. u8      — u8_1m: FlatIndexU8 at 1,000,000 x 128 uint8 rows (BIGANN's
                shape; Gist-spectrum rows scaled and clipped to 0-255), B =
@@ -661,18 +665,25 @@ def check_k6(B, ef, EL, N):
             "shape": [B, ef, EL]}
 
 
+def lookup_bound_ms(lookups: float) -> float:
+    """Shared-memory lookups at 32 a clock per SM (one 4-byte word per bank)
+    on 132 SMs at 1.98 GHz: the floor of a table-lookup kernel (K8 / K9),
+    which no byte or tensor-core bound sees."""
+    return lookups / (32 * 132 * 1.98e9) * 1e3
+
+
 def check_sums_ids(codes, lookup, m, packed, N, tag):
     """K8 / K9's ids shape against its plain version at each width the
     graph route gives it: C 1 (a descent's entry), 16 (an upper level's
     links) and 128 (the fused loop's tile: E 4 x L 32), 10% of the ids -1,
-    with the route's bf16 LUT: rtol 1e-5 (only the summation order may
-    differ).  Timed and bounded at C 128."""
+    with the route's bf16 LUT: K9 (k 256) equal (both add the groups in
+    order), K8 rtol 1e-5.  Timed and bounded at C 128."""
     import torch
     from lab_1806_vec_db_tpu_torch.ops import adc as A
 
     B, k = lookup.shape[0], lookup.shape[2]
     gen = torch.Generator(device="cuda").manual_seed(8)
-    lut = lookup.to(torch.bfloat16)
+    lut = lookup.to(torch.bfloat16).contiguous()  # as the graph route rounds it, once a batch
     err = 0.0
     for C in (1, 16, 128):
         ids = torch.randint(0, N, (B, C), generator=gen, device="cuda", dtype=torch.int32)
@@ -680,32 +691,49 @@ def check_sums_ids(codes, lookup, m, packed, N, tag):
         got, ref = A.adc_sums_ids(codes, lut, ids, m, packed), A.adc_sums_ids_ref(codes, lut, ids, m, packed, False)
         torch.cuda.synchronize()
         check(torch.equal(torch.isinf(got), ids < 0), f"{tag} ids (C {C}): +inf not exactly at id -1")
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+        if k == 256:
+            check(torch.equal(got, ref), f"{tag} ids (C {C}): differs from its plain version")
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
         err = max(err, max_abs_err(got, ref))
     ms, plain_ms = in_turns(lambda: A.adc_sums_ids(codes, lut, ids, m, packed),
                             lambda: A.adc_sums_ids_ref(codes, lut, ids, m, packed, False), 20, 3)
     cw = codes.shape[1]
     # ids, the gathered code rows, the bf16 LUT; the (B, 128) f32 output
     bound = bound_ms(B * 128 * 4 + B * 128 * cw + B * m * k * 2 + B * 128 * 4)
-    log(f"[pq] {tag} ids (B {B}, C 1 / 16 / 128, m {m}, k {k}) within rtol 1e-5 of its plain "
-        f"version (max abs err {err:.3g}); at C 128 {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    lookups = lookup_bound_ms(B * 128 * m)
+    log(f"[pq] {tag} ids (B {B}, C 1 / 16 / 128, m {m}, k {k}) "
+        f"{'equal to' if k == 256 else 'within rtol 1e-5 of'} its plain version (max abs err "
+        f"{err:.3g}); at C 128 {ms:.4f} ms, plain {plain_ms:.4f} ms, byte bound {bound[0]:.4f} ms, "
+        f"lookup bound {lookups:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "shape": [B, 128, m, k], "widths_checked": [1, 16, 128]}
+            "shape": [B, 128, m, k], "widths_checked": [1, 16, 128],
+            "extra": {"lookup_bound_ms": lookups}}
 
 
-def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype):
+def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype, cb_sq=None):
     """K8 / K9's dense shape against its plain version on one scan block
-    of `adc_scan_pallas` with the route's LUT rounding: int8 bit for bit,
-    bf16 rtol 1e-5."""
+    of `adc_scan_pallas` with the route's LUT rounding: int8 and K9's bf16
+    (its groups added in order) bit for bit, K8's bf16 rtol 1e-5.  With
+    `cb_sq`, K9 is also held on the scan's last, partial block with the
+    cosine route's R = B + 1 rows (the centroid-sqnorm row appended)."""
     import torch
     from lab_1806_vec_db_tpu_torch.ops import adc as A
 
+    k = lookup.shape[2]
+    if cb_sq is not None and codes.shape[0] > 131072:
+        lut1, sc1 = A.round_lut(torch.cat([lookup, cb_sq[None]], 0), lut_dtype)
+        tail = codes[131072:]
+        got = A.adc_sums_dense(tail, lut1, sc1, m, packed)
+        check(torch.equal(got, A.adc_sums_dense_ref(tail, lut1, sc1, m, packed)),
+              f"{tag} dense (R {lut1.shape[0]}, N {tail.shape[0]}): differs from its plain version")
+        del got
     codes = codes[:131072]
     lut, scales = A.round_lut(lookup, lut_dtype)
     got, ref = A.adc_sums_dense(codes, lut, scales, m, packed), A.adc_sums_dense_ref(codes, lut, scales, m, packed)
     torch.cuda.synchronize()
-    if lut.dtype == torch.int8:
-        check(torch.equal(got, ref), f"{tag} dense: differs from its plain version (int8 LUT)")
+    if lut.dtype == torch.int8 or k == 256:
+        check(torch.equal(got, ref), f"{tag} dense: differs from its plain version ({lut.dtype} LUT)")
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
     ms, plain_ms = in_turns(lambda: A.adc_sums_dense(codes, lut, scales, m, packed),
@@ -713,10 +741,12 @@ def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype):
     R, k, N = lut.shape[0], lut.shape[2], codes.shape[0]
     # the codes, the LUT (+ int8 scales); the (R, N) f32 output
     bound = bound_ms(N * codes.shape[1] + lut.numel() * lut.element_size() + 4 * R + 4 * R * N)
+    lookups = lookup_bound_ms(R * N * m)
     log(f"[pq] {tag} dense (R {R}, N {N}, m {m}, k {k}, {lut.dtype}) agrees with its plain version "
-        f"(max abs err {max_abs_err(got, ref):.3g}); {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"(max abs err {max_abs_err(got, ref):.3g}); {ms:.3f} ms, plain {plain_ms:.3f} ms, byte bound "
+        f"{bound[0]:.4f} ms, lookup bound {lookups:.3f} ms")
     return {"max_abs_err": max_abs_err(got, ref), "ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "shape": [R, N, m, k]}
+            "shape": [R, N, m, k], "extra": {"lookup_bound_ms": lookups}}
 
 
 def check_k7(pq, q, tag):
@@ -877,13 +907,15 @@ def phase_pq_200k(db, q_host, gts, x_host):
                                      gt, need, B, 2, 1)
             if ef == 180:
                 launches[f"nbits8_{name}"] = h8[name][ef]["launches"]
+        k9 = "k9_dense" if name == "scan" else "k9_ids"
         log(f"[pq] hnsw_pq_200k n_bits 8 {name}: " + ", ".join(
-            f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in h8[name].items()))
+            f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f} ({k9} launches "
+            f"{v['launches'][k9]})" for ef, v in h8[name].items()))
     h8["device_bytes"] = pq8.device_bytes()
-    codes8, _, _ = pq8.device()
+    codes8, _, cb_sq8 = pq8.device()
     lookup8, _ = pq8.create_lookup(q)
     meas["k9_ids"] = check_sums_ids(codes8, lookup8, PQ_M, False, len(pq8), "K9")
-    meas["k9_dense"] = check_sums_dense(codes8, lookup8, PQ_M, False, "K9", "bf16")
+    meas["k9_dense"] = check_sums_dense(codes8, lookup8, PQ_M, False, "K9", "bf16", cb_sq8)
     out["hnsw_pq_200k_nbits8"] = h8
     del pq8, codes8, lookup8
 
@@ -1359,12 +1391,13 @@ def check_k7_codes(codes, lookup, cb_sq, q_norms, n_valid, chunk, dist, tag, tim
     return out
 
 
-def phase_codes(card, n=10_000_000, nlist=2048, n_cos=200_000, nlist_cos=128, B=1000, device="cuda"):
+def phase_codes(card, n=10_000_000, nlist=2048, n_cos=300_000, nlist_cos=64, B=1000, device="cuda"):
     """codes_ivfpq_10m and codes_pq_10m (the codes-resident tiers at the
     reference's flagship 10,000,000 x 960, bench.py:672-759) on one
     `make_fill(0, 960)` source, its 1000 queries and one exact ground truth
-    by blocked regeneration; then a 200,000-row cosine IVF-PQ index for the
-    cosine columns of K11 and K7."""
+    by blocked regeneration; then a 300,000-row cosine IVF-PQ index with 64
+    lists for the cosine columns of K11 and K7 (sized so that lists spill:
+    K7's cosine column is held on an overflow segment of real rows)."""
     import numpy as np
     import torch
     from lab_1806_vec_db_tpu_torch.bench import synth
@@ -1491,26 +1524,27 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=200_000, nlist_cos=128, B=
     del pqc, lut_c, qn_c, lut_m, pos, lut_b, got, ref, ids0, td1, ti1, d_ex
     torch.cuda.empty_cache()
 
-    # ---- the cosine columns: a small cosine IVF-PQ index ----
+    # ---- the cosine columns: a small cosine IVF-PQ index whose lists spill ----
     cos = IVFPQIndex.build_from_fill(fill, n_cos, dim, "cosine", nlist=nlist_cos,
                                      pq_config=PQConfig(n_bits=4, m=320, dist="cosine", k_means_size=25_000),
                                      row_gen=fill.row_gen, device=device)
     cos_out = {"n": n_cos, "nlist": nlist_cos, "lpad": cos.lpad, "overflow_rows": cos.ov_count}
-    cos_out["k11_max_abs_err"] = check_k11(cos, q, CODES_GATE_PROBES, "cosine, 200,000 rows", timed=False)["max_abs_err"]
+    check(cos.ov_count > 0, f"codes cosine: no list of the {n_cos}-row index spilled (lpad {cos.lpad})")
+    cos_out["k11_max_abs_err"] = check_k11(cos, q, CODES_GATE_PROBES, f"cosine, {n_cos} rows", timed=False)["max_abs_err"]
     lookup, q_norms = cos.pq.create_lookup(q)
     # K7's cosine column on the index's real codes (its first 131,072 list
-    # slots, chunk 16), and on its overflow segment where lists spilled
+    # slots, chunk 16), and on its overflow segment of spilled rows
     k7_errs = [check_k7_codes(cos._codes[:131072], lookup, cos.pq.device()[2], q_norms, 131072, 16,
-                              "cosine", "cosine, 131,072 list slots")["max_abs_err"]]
-    if cos.ov_count:
-        k7_errs.append(check_k7_codes(cos._codes_ov, lookup, cos.pq.device()[2], q_norms, cos.ov_count,
-                                      cos.overflow_chunk(k)[1], "cosine", "cosine overflow segment")["max_abs_err"])
+                              "cosine", "cosine, 131,072 list slots")["max_abs_err"],
+               check_k7_codes(cos._codes_ov, lookup, cos.pq.device()[2], q_norms, cos.ov_count,
+                              cos.overflow_chunk(k)[1], "cosine",
+                              f"cosine overflow segment ({cos.ov_count} rows)")["max_abs_err"]]
     cos_out["k7_cosine_max_abs_err"] = max(k7_errs)
     d, ids = cos.knn_batch(q, k, n_probes=16, ef=256)
     check(bool(torch.isfinite(d).all()) and bool((ids >= 0).all()), "codes cosine: malformed result")
     del cos, lookup, q_norms
     torch.cuda.empty_cache()
-    out.update(codes_ivfpq_10m=ivf, codes_pq_10m=pqo, cosine_200k=cos_out, phase_s=time.perf_counter() - t_phase)
+    out.update(codes_ivfpq_10m=ivf, codes_pq_10m=pqo, cosine_300k=cos_out, phase_s=time.perf_counter() - t_phase)
     log(f"[codes] phase: {out['phase_s']:.1f} s")
     return out, k11, k7s0
 
@@ -2113,7 +2147,7 @@ def main() -> None:
                   {**k6, "max_abs_err": max(v["max_abs_err"] for v in pm["k6"].values())},
                   k6["library_ms"]),
         # K7 on flat_pq_1m's first search (ef 100); measured there at 1M rows
-        pq_kernel("adc_chunkmin", "adc_scan_chunkmin.cu", "pallas_adc.py:415",
+        pq_kernel("adc_chunkmin", "adc_scan_chunkmin.cuh", "pallas_adc.py:415",
                   pq_1m[100]["launches"]["k7"], k7),
         # K8 ids inside the fused loop (hnsw_pq_200k graph, ef 180)
         pq_kernel("adc_sums_ids_k16", "adc_sums.cu", "pallas_adc.py:253",
@@ -2137,12 +2171,12 @@ def main() -> None:
         # timed there on every list (the error also over the cosine index)
         pq_kernel("adc_chunkmin_binned", "adc_chunkmin_binned.cu", "pallas_adc.py:629",
                   codes["codes_ivfpq_10m"]["launches"]["k11"],
-                  {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_200k"]["k11_max_abs_err"])}),
+                  {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_300k"]["k11_max_abs_err"])}),
         # K7 at stage 0 of codes_pq_10m's first knn_batch (10M coarse rows,
         # m 32); the error also over the overflow segment and the cosine codes
-        pq_kernel("adc_chunkmin_codes_stage0", "adc_scan_chunkmin.cu", "pallas_adc.py:415",
+        pq_kernel("adc_chunkmin_codes_stage0", "adc_scan_chunkmin.cuh", "pallas_adc.py:415",
                   codes["codes_pq_10m"]["launches"]["k7"],
-                  {**k7s0, "max_abs_err": max(k7s0["max_abs_err"], codes["cosine_200k"]["k7_cosine_max_abs_err"],
+                  {**k7s0, "max_abs_err": max(k7s0["max_abs_err"], codes["cosine_300k"]["k7_cosine_max_abs_err"],
                                               codes["codes_ivfpq_10m"].get("k7_overflow", {}).get("max_abs_err", 0.0))}),
     ]
     # K12-K14 on the resident phase's entry points (flat_1m's rows, B = 1000);

@@ -1,6 +1,8 @@
-"""Time the ADC chunk-min kernels at the smoke's shapes on one NVIDIA GPU.
+"""Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k7] [k8] [k9] [k11]
+
+(the named kernels only; all four without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -14,8 +16,14 @@ LUTs it times, with CUDA events (three means of five launches each):
 - K11 at codes_ivfpq_10m's shape (when the checkout has it): 2048 lists x
   7,680 rows, qb 64 with 10-39 filled columns a list, lists 3,000-7,680 rows
   long, m 320, chunk 16, against the plain version on the filled columns;
+- K9 at the 8-bit scan's shape: 1000 LUT rows (bf16, m 320, k 256) x one
+  131,072-row block, and its ids shape: 1000 queries x 128 candidates of a
+  200,000-row table, 10% of the ids -1;
+- K8 at its ids shape (1000 x 128, m 320, k 16, bf16, packed codes) and
+  dense shape (1000 x 60,000, int8 LUT);
 
-and prints each kernel's registers from the build.
+each K8 / K9 result against its plain version (torch.equal), and prints each
+kernel's registers from the build.
 """
 
 from __future__ import annotations
@@ -48,12 +56,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    which = set(sys.argv[2:]) or {"k7", "k8", "k9", "k11"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
-        if "Function properties for" in ln and "chunkmin" in ln:
-            print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60])
+        if "Function properties for" in ln and ("chunkmin" in ln or "adc_sums" in ln or "k9" in ln):
+            print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
+                  log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
     has_chunk = "chunk" in inspect.signature(A.adc_chunkmin).parameters
 
@@ -63,7 +73,7 @@ def main() -> None:
         qn = torch.rand(1000, generator=g, device="cuda") + 0.5
         return A.chunkmin_inputs(lookup, cb, "l2sqr", True, m // 2), qn
 
-    for m, N in ((320, 1_000_000), (32, 10_000_000)):
+    for m, N in ((320, 1_000_000), (32, 10_000_000)) if "k7" in which else ():
         codes = torch.randint(0, 256, (N, m // 2), generator=g, device="cuda", dtype=torch.uint8)
         (lut_q, sc, cs_q, cs_s), qn = lut(m)
         S = -(-N // 256) * 256 // 32
@@ -75,7 +85,11 @@ def main() -> None:
             equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         print(label, f"K7 N {N} m {m} chunk 32: ms {[round(t, 3) for t in times]} equal {equal}", flush=True)
         del codes
-    if hasattr(A, "adc_chunkmin_binned"):
+    if "k9" in which:
+        _time_sums(label, g, 256, False, torch.bfloat16, 131_072, 200_000)
+    if "k8" in which:
+        _time_sums(label, g, 16, True, torch.int8, 60_000, 200_000)
+    if "k11" in which and hasattr(A, "adc_chunkmin_binned"):
         nl, lpad, qb, m = 2048, 7680, 64, 320
         codes = torch.randint(0, 256, (nl * lpad, m // 2), generator=g, device="cuda", dtype=torch.uint8)
         (lut_q, sc, cs_q, cs_s), qn = lut(m)
@@ -90,6 +104,32 @@ def main() -> None:
         equal = torch.equal(got[0][f], ref[0][f]) and torch.equal(got[1][f], ref[1][f])
         print(label, f"K11 {nl} x {lpad} qb {qb} m {m} chunk 16: ms {[round(t, 3) for t in times]} "
               f"equal {equal}", flush=True)
+
+
+def _time_sums(label, g, k, packed, dense_dtype, n_dense, n_table, m=320, B=1000):
+    """K8 (k 16) or K9 (k 256): the dense shape on n_dense rows with a
+    dense_dtype LUT, the ids shape at C 128 on an n_table-row table with a
+    bf16 LUT; each equal to its plain version."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    cw = m // 2 if packed else m
+    codes = torch.randint(0, 256, (n_table, cw), generator=g, device="cuda", dtype=torch.uint8)
+    rows = torch.rand((B, m, k), generator=g, device="cuda")
+    lut, scales = A.round_lut(rows, "int8" if dense_dtype == torch.int8 else "bf16")
+    dense = (codes[:n_dense], lut, scales, m, packed)
+    times = [_ms(lambda: A.adc_sums_dense(*dense), 3) for _ in range(3)]
+    equal = torch.equal(A.adc_sums_dense(*dense), A.adc_sums_dense_ref(*dense))
+    print(label, f"K{9 if k == 256 else 8} dense {B} x {n_dense} m {m} k {k} {lut.dtype}: "
+          f"ms {[round(t, 3) for t in times]} equal {equal}", flush=True)
+    ids = torch.randint(0, n_table, (B, 128), generator=g, device="cuda", dtype=torch.int32)
+    ids[torch.rand((B, 128), generator=g, device="cuda") < 0.1] = -1
+    lut_b = rows.to(torch.bfloat16)
+    args = (codes, lut_b, ids, m, packed)
+    times = [_ms(lambda: A.adc_sums_ids(*args), 20) for _ in range(3)]
+    equal = torch.equal(A.adc_sums_ids(*args), A.adc_sums_ids_ref(*args, False))
+    print(label, f"K{9 if k == 256 else 8} ids {B} x 128 m {m} k {k}: "
+          f"ms {[round(t, 4) for t in times]} equal {equal}", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,14 +2,15 @@
 //
 // Replaces lab_1806_vec_db_tpu/ops/pallas_adc.py:_adc_sums_v2 (K8, Pallas
 // body _adc_kernel_v2, k = 16) and _adc_sums_stepwise (K9, body
-// _adc_kernel_stepwise, k = 256): one body, templated on k and on the LUT
-// type (int8 with a per-row scale, bf16, or f32).
+// _adc_kernel_stepwise, k = 256).
 //
 //   sum[r, x] = sum_i lut[r, i, code(x, i)]       i = 0 .. m-1, in order
 //
 // accumulated in int32 for int8 (then float(sum) * scale[r]) and in f32 for
-// bf16 / f32.  Codes are (n_rows, cw) uint8, 4-bit codes packed two per byte
-// (low nibble first) when `packed`.  Two launch shapes over that body:
+// bf16 / f32 (__fadd_rn, group by group), so the sums equal the plain
+// versions (ops/adc.py) bit for bit.  Codes are (n_rows, cw) uint8, 4-bit
+// codes packed two per byte (low nibble first) when `packed`.  Two launch
+// shapes:
 //
 //   dense  out (R, N): every code row against every LUT row (the scan of
 //          adc_scan_pallas; the top-k is taken outside the kernel);
@@ -20,17 +21,37 @@
 //          (pallas_adc.py:786-803), which scored every gathered row against
 //          128 LUTs to keep one.
 //
-// What bounds it on the H100: shared-memory lookups, not bytes.  Each output
-// costs m lookups (3.2e2 at m = 320) against m/2 code bytes.  The LUT is
-// staged in shared memory by groups of subspaces (a k = 256 bf16 LUT is
-// 160 KB per query at m = 320, so it is staged G groups at a time), the
-// codes of the tile's rows unpacked and transposed to [group][row], so the
-// 32 lanes of a warp read 32 rows' codes as consecutive bytes and look up
-// one LUT row's 16-entry group (k = 16: one conflict-free access, the lanes
-// only differ in which of 16 consecutive words they read).  Each thread keeps
-// RQ_T accumulators (dense) or one (ids) in registers and adds the groups in
-// order, so the sums equal the plain versions (ops/adc.py) bit for bit.
-
+// What bounds them on the H100: shared-memory lookups, not bytes.  Each
+// output costs m lookups against m (k = 256) or m / 2 (k = 16) code bytes.
+//
+// K8 (k = 16; int8, bf16 or f32 LUT): one body for both shapes.  The LUT is
+// staged in shared memory by groups of subspaces, the codes of the tile's
+// rows unpacked and transposed to [group][row], so the 32 lanes of a warp
+// read 32 rows' codes as consecutive bytes and look up one LUT row's
+// 16-entry group (one conflict-free access: the lanes only differ in which
+// of 16 consecutive words they read).
+//
+// K9 (k = 256; bf16, or f32 under `exact`), its own kernels:
+//
+//   dense  A CTA is 32 LUT rows (one per lane) x 1024 code rows (64 per
+//          thread, 16 warps), so each staged LUT entry serves 4 lookups and
+//          the LUT crosses L2 N / 1024 times (21 GB at R = 1000, N =
+//          131,072, against 172 GB for a 128-row tile).  Four groups a
+//          stage (the rows' code bytes are one 4-byte word), copied with
+//          cp.async into a two-stage ring (one stage for f32), so the next
+//          stage arrives while this one is looked up.  The lanes of a warp
+//          share one code row (the code read is a broadcast) and differ in
+//          the LUT row, whose stage stride is an odd number of 4-byte
+//          words: 32 lanes reading the same code hit 32 distinct banks.
+//          That stride is why the copies are 4 bytes wide: a 16-byte copy
+//          keeps every row's entry c in one of 8 bank quads.  The row block
+//          is the fast grid index, so the CTAs running together share one
+//          LUT row block in L2.
+//   ids    A CTA per query streams that query's LUT (160 KB in bf16 at
+//          m = 320) once per 256 candidates in 16 KB stages of 16-byte
+//          cp.async copies, four stages in flight; a thread per candidate
+//          reads its row's codes straight from device memory, one stage
+//          ahead, 4 groups a load.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +65,7 @@ constexpr int RQ = 32;     // dense: LUT rows per CTA (16 per thread)
 constexpr int RQ_T = RQ / 2;
 constexpr int IDS_THREADS = 128;  // ids: candidates per pass (one per thread)
 constexpr int STAGE_BYTES = 32 * 1024;
+constexpr int K = 16;  // K8's codebook size; K9 (k = 256) is namespace k9
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int; };
@@ -70,17 +92,16 @@ __device__ __forceinline__ unsigned code_at(const uint8_t* row, int g, int packe
 }
 
 // groups per stage so that the dense LUT stage (RQ x G x K of T) fits 32 KB
-template <int K, typename T> struct DenseGroups {
-  static constexpr int per_stage = STAGE_BYTES / (RQ * K * static_cast<int>(sizeof(T)));
-  static constexpr int value = per_stage < 1 ? 1 : per_stage;
+template <typename T> struct DenseGroups {
+  static constexpr int value = STAGE_BYTES / (RQ * K * static_cast<int>(sizeof(T)));
 };
 
-template <int K, typename T>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 adc_sums_dense_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ lut,
                       const float* __restrict__ scales, float* __restrict__ out, int N, int R,
                       int m, int cw, int packed) {
-  constexpr int G = DenseGroups<K, T>::value;
+  constexpr int G = DenseGroups<T>::value;
   using A = typename Acc<T>::type;
   __shared__ __align__(16) T lut_s[RQ * G * K];
   __shared__ uint8_t codes_s[G * ROWS];
@@ -126,15 +147,14 @@ adc_sums_dense_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ l
   }
 }
 
-template <int K, typename T>
+template <typename T>
 __global__ void __launch_bounds__(IDS_THREADS)
 adc_sums_ids_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ lut,
                     const int32_t* __restrict__ ids, float* __restrict__ out, int C, int m,
                     int cw, int packed, long long n_rows, int shared) {
-  // groups per stage: the LUT stage (G x K of T) and the code stage
-  // (G x 128 bytes) each within 16 KB
-  constexpr int G_LUT = 16 * 1024 / (K * static_cast<int>(sizeof(T)));
-  constexpr int G = G_LUT < 128 ? G_LUT : 128;
+  // groups per stage: the LUT stage (G x K of T, at most 8 KB) and the code
+  // stage (G x 128 bytes, 16 KB)
+  constexpr int G = 128;
   using A = typename Acc<T>::type;
   __shared__ __align__(16) T lut_s[G * K];
   __shared__ uint8_t codes_s[G * IDS_THREADS];
@@ -159,8 +179,262 @@ adc_sums_ids_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ lut
   }
 }
 
+// ------------------------------------------------------------------ K9 ----
+
+namespace k9 {
+
+constexpr int K = 256;
+constexpr int THREADS = 512;             // dense: 16 warps
+constexpr int QB = 32;                   // dense: LUT rows per CTA, one per lane
+constexpr int RT = 64;                   // dense: code rows per thread
+constexpr int RB = RT * (THREADS / 32);  // dense: code rows per CTA (1024)
+constexpr int G = 4;                     // dense: groups per stage (one code word a row)
+constexpr int IDS_THREADS = 256;         // ids: candidates per pass, one per thread
+constexpr int IDS_STAGE = 16 * 1024;     // ids: LUT bytes per stage
+constexpr int IDS_STAGES = 4;
+
+// the dense kernel's shared memory: per stage, QB LUT rows of G groups at
+// an odd stride of QSW words, then RB code words
+template <typename T> struct Dense {
+  static constexpr int WORDS = G * K * static_cast<int>(sizeof(T)) / 4;  // a LUT row's words
+  static constexpr int QSW = WORDS + 1;
+  static constexpr int STAGES = sizeof(T) == 2 ? 2 : 1;  // f32 (exact): 128 KB, one stage
+  static constexpr int LUT_BYTES = QB * QSW * 4;
+  static constexpr int STAGE_BYTES = LUT_BYTES + RB * 4;
+  static constexpr int BYTES = STAGES * STAGE_BYTES;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// entry c of a staged LUT group (bf16 widened exactly: its bits are the
+// high half of the f32)
+__device__ __forceinline__ float entry(const __nv_bfloat16* g, unsigned c) {
+  return __uint_as_float(static_cast<unsigned>(reinterpret_cast<const unsigned short*>(g)[c]) << 16);
+}
+__device__ __forceinline__ float entry(const float* g, unsigned c) { return g[c]; }
+
+// four code bytes of a row from group g on (0 past m): one load when rows
+// are 4-byte aligned (cw % 4 == 0, g % 4 == 0: the word ends within cw)
+__device__ __forceinline__ unsigned code_word(const uint8_t* row, int g, int m, bool aligned) {
+  if (aligned) return g < m ? __ldg(reinterpret_cast<const unsigned*>(row + g)) : 0u;
+  unsigned v = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v |= (g + e < m ? static_cast<unsigned>(row[g + e]) : 0u) << (8 * e);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ lut, float* __restrict__ out,
+             int N, int R, int m, int cw) {
+  using L = Dense<T>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long n0 = static_cast<long long>(blockIdx.x) * RB;
+  const int r0 = blockIdx.y * QB;
+  const int steps = (m + G - 1) / G;
+  const bool aligned = (cw & 3) == 0;
+
+  // stage `step`'s LUT slice (groups past m and rows past R zero-filled: a
+  // zero code word then adds +0, which leaves every sum as it is) and code
+  // words into buffer st
+  auto load = [&](int st, int step) {
+    uint8_t* base = smem + st * L::STAGE_BYTES;
+    unsigned* lut_s = reinterpret_cast<unsigned*>(base);
+    unsigned* codes_s = reinterpret_cast<unsigned*>(base + L::LUT_BYTES);
+    const int g0 = step * G;
+    const int real_words = min(G, m - g0) * (K * static_cast<int>(sizeof(T)) / 4);
+#pragma unroll 8
+    for (int j = 0; j < QB * L::WORDS / THREADS; ++j) {
+      const int i = tid + j * THREADS;
+      const int q = i / L::WORDS, w = i % L::WORDS;  // powers of two: shifts
+      const bool ok = r0 + q < R && w < real_words;
+      const unsigned* src =
+          reinterpret_cast<const unsigned*>(lut + (static_cast<size_t>(r0 + q) * m + g0) * K) + w;
+      cp_async4(lut_s + q * L::QSW + w, ok ? static_cast<const void*>(src) : lut, ok ? 4 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < RB / THREADS; ++j) {
+      const int r = tid + j * THREADS;
+      const long long x = n0 + r;
+      const uint8_t* row = codes + x * cw;
+      if (aligned)
+        cp_async4(codes_s + r, x < N && g0 < m ? static_cast<const void*>(row + g0) : codes,
+                  x < N ? 4 : 0);
+      else
+        codes_s[r] = x < N ? code_word(row, g0, m, false) : 0u;
+    }
+  };
+
+  float acc[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+
+  load(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    int st = 0;
+    if (L::STAGES == 2) {
+      st = s & 1;
+      if (s + 1 < steps) {
+        load(st ^ 1, s + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint8_t* base = smem + st * L::STAGE_BYTES;
+    const unsigned* codes_s = reinterpret_cast<const unsigned*>(base + L::LUT_BYTES) + warp * RT;
+    const T* lq = reinterpret_cast<const T*>(base + lane * L::QSW * 4);
+#pragma unroll
+    for (int r0 = 0; r0 < RT; r0 += 4) {
+      // four rows' code words in one load (a broadcast: the warp's lanes share the rows)
+      const uint4 w4 = *reinterpret_cast<const uint4*>(codes_s + r0);
+      const unsigned ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          acc[r0 + i] = __fadd_rn(acc[r0 + i], entry(lq + g * K, (ws[i] >> (8 * g)) & 255u));
+    }
+    __syncthreads();  // buffer st is refilled next
+    if (L::STAGES == 1 && s + 1 < steps) {
+      load(0, s + 1);
+      cp_async_commit();
+    }
+  }
+
+  const int q = r0 + lane;
+  const long long xb = n0 + warp * RT;
+  if (q < R) {
+    float* o = out + static_cast<size_t>(q) * N + xb;
+    if ((N & 3) == 0 && xb + RT <= N) {
+#pragma unroll
+      for (int r = 0; r < RT; r += 4)
+        *reinterpret_cast<float4*>(o + r) = make_float4(acc[r], acc[r + 1], acc[r + 2], acc[r + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+        if (xb + r < N) o[r] = acc[r];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(IDS_THREADS)
+ids_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ lut,
+           const int32_t* __restrict__ ids, float* __restrict__ out, int C, int m, int cw,
+           long long n_rows, int shared) {
+  constexpr int GS = IDS_STAGE / (K * static_cast<int>(sizeof(T)));  // groups a stage: 32 bf16, 16 f32
+  constexpr int W = GS / 4;                                          // code words a stage
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* lut_b =
+      reinterpret_cast<const uint8_t*>(lut + (shared ? 0 : static_cast<size_t>(b) * m * K));
+  const long long lut_bytes = static_cast<long long>(m) * K * sizeof(T);
+  const int steps = (m + GS - 1) / GS;
+  const bool aligned = (cw & 3) == 0;
+
+  auto load = [&](int step) {  // one commit group per call, empty past the end
+    if (step < steps) {
+      uint8_t* dst = smem + (step % IDS_STAGES) * IDS_STAGE;
+#pragma unroll
+      for (int j = 0; j < IDS_STAGE / 16 / IDS_THREADS; ++j) {
+        const int i = tid + j * IDS_THREADS;
+        const long long o = static_cast<long long>(step) * IDS_STAGE + i * 16;
+        cp_async16(dst + i * 16, o < lut_bytes ? lut_b + o : lut_b, o < lut_bytes ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c0 = 0; c0 < C; c0 += IDS_THREADS) {
+    const int c = c0 + tid;
+    const int id = c < C ? ids[static_cast<size_t>(b) * C + c] : -1;
+    const bool ok = id >= 0 && id < n_rows;
+    const uint8_t* row = codes + (ok ? static_cast<long long>(id) * cw : 0);
+    unsigned cur[W], nxt[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) cur[j] = ok ? code_word(row, 4 * j, m, aligned) : 0u;
+    float acc = 0.f;
+#pragma unroll
+    for (int p = 0; p < IDS_STAGES - 1; ++p) load(p);
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<IDS_STAGES - 2>();
+      __syncthreads();  // stage s landed for every thread; stage s - 1's slot is free
+      load(s + IDS_STAGES - 1);
+      const int g0 = s * GS;
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        nxt[j] = ok && s + 1 < steps ? code_word(row, g0 + GS + 4 * j, m, aligned) : 0u;
+      const T* ls = reinterpret_cast<const T*>(smem + (s % IDS_STAGES) * IDS_STAGE);
+      const int gl = min(GS, m - g0);
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * j + e < gl)
+            acc = __fadd_rn(acc, entry(ls + (4 * j + e) * K, (cur[j] >> (8 * e)) & 255u));
+#pragma unroll
+      for (int j = 0; j < W; ++j) cur[j] = nxt[j];
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next pass refills every slot
+    if (c < C) out[static_cast<size_t>(b) * C + c] = ok ? acc : INFINITY;
+  }
+}
+
+template <typename T>
+int launch_dense(const void* codes, const void* lut, void* out, int N, int R, int m, int cw,
+                 cudaStream_t stream) {
+  const int smem = Dense<T>::BYTES;
+  const cudaError_t err =
+      cudaFuncSetAttribute(dense_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + RB - 1) / RB, (R + QB - 1) / QB);  // row blocks fastest: CTAs in flight share a LUT block
+  dense_kernel<T><<<grid, THREADS, smem, stream>>>(static_cast<const uint8_t*>(codes),
+                                                   static_cast<const T*>(lut), static_cast<float*>(out),
+                                                   N, R, m, cw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_ids(const void* codes, const void* lut, const void* ids, void* out, int B, int C, int m,
+               int cw, long long n_rows, int shared, cudaStream_t stream) {
+  constexpr int smem = IDS_STAGES * IDS_STAGE;
+  const cudaError_t err =
+      cudaFuncSetAttribute(ids_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ids_kernel<T><<<B, IDS_THREADS, smem, stream>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const T*>(lut), static_cast<const int32_t*>(ids),
+      static_cast<float*>(out), C, m, cw, n_rows, shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k9
+
+// ------------------------------------------------------------------ K8 ----
+
 // lut_type: 0 int8 (scales required), 1 bf16, 2 f32
-template <int K>
 int launch_dense(const void* codes, const void* lut, const void* scales, void* out, int N, int R,
                  int m, int cw, int packed, int lut_type, cudaStream_t stream) {
   dim3 grid((N + ROWS - 1) / ROWS, (R + RQ - 1) / RQ);
@@ -168,18 +442,17 @@ int launch_dense(const void* codes, const void* lut, const void* scales, void* o
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   if (lut_type == 0)
-    adc_sums_dense_kernel<K, int8_t><<<grid, THREADS, 0, stream>>>(
+    adc_sums_dense_kernel<int8_t><<<grid, THREADS, 0, stream>>>(
         cd, static_cast<const int8_t*>(lut), sc, o, N, R, m, cw, packed);
   else if (lut_type == 1)
-    adc_sums_dense_kernel<K, __nv_bfloat16><<<grid, THREADS, 0, stream>>>(
+    adc_sums_dense_kernel<__nv_bfloat16><<<grid, THREADS, 0, stream>>>(
         cd, static_cast<const __nv_bfloat16*>(lut), sc, o, N, R, m, cw, packed);
   else
-    adc_sums_dense_kernel<K, float><<<grid, THREADS, 0, stream>>>(
+    adc_sums_dense_kernel<float><<<grid, THREADS, 0, stream>>>(
         cd, static_cast<const float*>(lut), sc, o, N, R, m, cw, packed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int K>
 int launch_ids(const void* codes, const void* lut, const void* ids, void* out, int B, int C, int m,
                int cw, int packed, long long n_rows, int shared, int lut_type,
                cudaStream_t stream) {
@@ -187,10 +460,10 @@ int launch_ids(const void* codes, const void* lut, const void* ids, void* out, i
   const int32_t* id = static_cast<const int32_t*>(ids);
   float* o = static_cast<float*>(out);
   if (lut_type == 1)
-    adc_sums_ids_kernel<K, __nv_bfloat16><<<B, IDS_THREADS, 0, stream>>>(
+    adc_sums_ids_kernel<__nv_bfloat16><<<B, IDS_THREADS, 0, stream>>>(
         cd, static_cast<const __nv_bfloat16*>(lut), id, o, C, m, cw, packed, n_rows, shared);
   else
-    adc_sums_ids_kernel<K, float><<<B, IDS_THREADS, 0, stream>>>(
+    adc_sums_ids_kernel<float><<<B, IDS_THREADS, 0, stream>>>(
         cd, static_cast<const float*>(lut), id, o, C, m, cw, packed, n_rows, shared);
   return static_cast<int>(cudaGetLastError());
 }
@@ -202,8 +475,11 @@ extern "C" int vecdb_adc_sums_dense(const void* codes, const void* lut, const vo
                                     int lut_type, void* stream) {
   if (N <= 0 || R <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 16) return launch_dense<16>(codes, lut, scales, out, N, R, m, cw, packed, lut_type, s);
-  if (k == 256) return launch_dense<256>(codes, lut, scales, out, N, R, m, cw, packed, lut_type, s);
+  if (k == 16) return launch_dense(codes, lut, scales, out, N, R, m, cw, packed, lut_type, s);
+  if (k == 256 && !packed) {  // K9: bf16, or f32 under `exact`
+    if (lut_type == 1) return k9::launch_dense<__nv_bfloat16>(codes, lut, out, N, R, m, cw, s);
+    if (lut_type == 2) return k9::launch_dense<float>(codes, lut, out, N, R, m, cw, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -214,8 +490,11 @@ extern "C" int vecdb_adc_sums_ids(const void* codes, const void* lut, const void
   if (lut_type == 0) return static_cast<int>(cudaErrorInvalidValue);  // ids take bf16 / f32
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 16)
-    return launch_ids<16>(codes, lut, ids, out, B, C, m, cw, packed, n_rows, shared, lut_type, s);
-  if (k == 256)
-    return launch_ids<256>(codes, lut, ids, out, B, C, m, cw, packed, n_rows, shared, lut_type, s);
+    return launch_ids(codes, lut, ids, out, B, C, m, cw, packed, n_rows, shared, lut_type, s);
+  if (k == 256 && !packed) {
+    if (lut_type == 1)
+      return k9::launch_ids<__nv_bfloat16>(codes, lut, ids, out, B, C, m, cw, n_rows, shared, s);
+    return k9::launch_ids<float>(codes, lut, ids, out, B, C, m, cw, n_rows, shared, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

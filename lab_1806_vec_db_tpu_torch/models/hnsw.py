@@ -138,8 +138,11 @@ def _make_node_dist(q, q_cache, vecs, vcache, dist):
 def _make_adc_node_dist(lookup, q_norms, codes, cb_sq, dist: str, m: int, packed: bool):
     """ADC node distances of the PQ traversal: K8 (k = 16) or K9 (k = 256)
     in their ids shape on CUDA, their plain versions (the same bf16 LUT) on
-    the CPU.  Ids of -1 give +inf."""
-    return lambda ids: A.adc_dists_for_ids(lookup, q_norms, codes, cb_sq, ids, dist, m, packed)
+    the CPU.  Ids of -1 give +inf.  The LUT is rounded to bf16 once per
+    batch (a contiguous copy: the l2sqr lookup is a permuted view), not at
+    each of the search's calls."""
+    lut = lookup.to(torch.bfloat16).contiguous()
+    return lambda ids: A.adc_dists_for_ids(lut, q_norms, codes, cb_sq, ids, dist, m, packed)
 
 
 def _exact_to(q, q_cache, v, vcache, dist):

@@ -1,6 +1,6 @@
 """K7, K8, K9 and K11: the PQ-ADC kernels (port of ops/pallas_adc.py).
 
-- K7 `adc_chunkmin` (`csrc/adc_scan_chunkmin.cu`): the full ADC scan over
+- K7 `adc_chunkmin` (`csrc/adc_scan_chunkmin.cuh`): the full ADC scan over
   the permuted codes with an int8 LUT, fused with a chunk-min (1, 2, 4, 8,
   16 or 32 rows, default 32); the scan of Flat+PQ and of HNSW+PQ route
   "scan", the codes tier's stage 0 and the IVF-PQ overflow segment.
@@ -8,13 +8,15 @@
   survivors and the id decode.
 - K11 `adc_chunkmin_binned` (`csrc/adc_chunkmin_binned.cu`): the same
   chunk-min over the cluster-sorted posting lists of IVF-PQ, each list row
-  scored against only the queries binned to its list.  K7 and K11 share the
-  one-hot pipeline of `csrc/adc_onehot.cuh`.
-- K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`, one body
-  for k = 16 and k = 256): ADC sums of every code row against every LUT row
-  (`adc_scan_pallas`, the scan of small sets and of n_bits = 8 tables) and
-  of per-query candidate ids (`adc_dists_for_ids`, the HNSW+PQ node
-  distance; it replaces the TPU's 128-query diagonal trick).
+  scored against only the queries binned to its list, on the one-hot
+  `mma.sync` pipeline of `csrc/adc_onehot.cuh`; K7 has its own `wgmma`
+  one (`k7_stage_offset` says where its LUT lands).
+- K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`; K8's
+  one body for k = 16, K9's own kernels for k = 256, `k9_dense_layout`):
+  ADC sums of every code row against every LUT row (`adc_scan_pallas`, the
+  scan of small sets and of n_bits = 8 tables) and of per-query candidate
+  ids (`adc_dists_for_ids`, the HNSW+PQ node distance; it replaces the
+  TPU's 128-query diagonal trick).
 
 The LUT is rounded as the reference rounds it (`_prep_lut_quant`,
 `_adc_sums_v2`, `_adc_sums_stepwise`): int8 with a per-row scale
@@ -45,6 +47,7 @@ _NT = 256  # the reference's row tile: survivors cover ceil(N / 256) * 256 rows
 _TILE_BIN = 512  # K11's list rows per CTA: lpad is a multiple
 _REF_BLOCK = 8192  # rows per block of K7's plain version (bounds the one-hot)
 _LUT_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+_SMEM_MAX = 232448  # shared memory one H100 CTA may take
 
 
 def _device_of(*tensors) -> torch.device:
@@ -129,6 +132,35 @@ def adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int
     return out_d, out_p
 
 
+# K7's kernel (csrc/adc_scan_chunkmin.cuh) stages its LUT in 128-column TMA
+# boxes of 128 queries with a 128-byte swizzle: query n's column c lands at
+# byte n * 128 + (((c % 128) // 16) ^ (n % 8)) * 16 + c % 16 of the stage;
+# the cosine column shares the rest of its shared memory
+_K7_BK, _K7_BN = 128, 128
+_K7_KD_MAX = _SMEM_MAX - (1024 + 8 * _K7_BK * _K7_BN + 128 + 8 * _K7_BN)
+
+
+def k7_stage_offset(n, c):
+    """Byte offset of LUT column c of CTA query n within its K7 stage
+    (works on ints and integer tensors / arrays)."""
+    return n * _K7_BK + ((((c % _K7_BK) // 16) ^ (n % 8)) * 16) + c % 16
+
+
+def k7_pack(codes, lut_q, cs_q):
+    """K7's kernel takes nibble-packed codes: one code a byte (N, cw) ->
+    ((N, cw') packed, low nibble first, cw' a multiple of 4; the LUT and the
+    cosine column zero-padded to 32 cw' columns).  Padding groups read code
+    0 against zero columns, so every sum stays as it was."""
+    N, cw = codes.shape
+    c = torch.nn.functional.pad(codes, (0, cw % 2))
+    packed = c[:, 0::2] | (c[:, 1::2] << 4)
+    packed = torch.nn.functional.pad(packed, (0, -packed.shape[1] % 4)).contiguous()
+    extra = 32 * packed.shape[1] - lut_q.shape[1]
+    lut_q = torch.nn.functional.pad(lut_q, (0, extra))
+    cs_q = None if cs_q is None else torch.nn.functional.pad(cs_q, (0, extra))
+    return packed, lut_q, cs_q
+
+
 def _check_chunk(chunk: int) -> None:
     if chunk not in CHUNKS:
         raise ValueError(f"chunk must be one of {CHUNKS}, got {chunk}")
@@ -137,25 +169,31 @@ def _check_chunk(chunk: int) -> None:
 def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, packed: bool,
                  S: int, chunk: int = CHUNK):
     """K7: the (B, S) chunk-min survivors of the ADC scan over `codes`
-    ((N, cw) uint8, cw % 4 == 0; see `adc_scan_chunkmin` for the rest).
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (int8 LUT only) and count it in `adc_chunkmin.launches`."""
+    ((N, cw) uint8, cw % 4 == 0, Kd = 16 groups per code byte (32 when
+    packed); see `adc_scan_chunkmin` for the rest).  CPU tensors run the
+    plain version; CUDA tensors launch the kernel (int8 LUT only; one code
+    a byte is packed first, `k7_pack`) and count it in
+    `adc_chunkmin.launches`."""
     _check_chunk(chunk)
     dev = _device_of(codes, lut_q, scales, q_norms, cs_q)
+    B, Kd = lut_q.shape
+    N, cw = codes.shape
+    if codes.dtype != torch.uint8 or cw % 4 or Kd != 16 * (2 * cw if packed else cw):
+        raise ValueError(f"K7 needs uint8 codes with cw % 4 == 0 and 16 LUT columns per code "
+                         f"group; got cw={cw}, Kd={Kd}, packed={packed}")
     if dev.type == "cpu":
         return adc_chunkmin_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid, packed, S,
                                 chunk)
-    B, Kd = lut_q.shape
-    N, cw = codes.shape
-    mk = Kd // 16
     if lut_q.dtype != torch.int8:
         raise ValueError("the K7 kernel takes an int8 LUT (lut_dtype='int8')")
-    if codes.dtype != torch.uint8 or cw % 4 or Kd % 64 or mk != (2 * cw if packed else cw):
-        raise ValueError(f"K7 needs uint8 codes with cw % 4 == 0 and 16 LUT columns per code "
-                         f"group; got cw={cw}, Kd={Kd}, packed={packed}")
-    if -(-N // 2048) > 65535 or mk * 128 + mk * 16 + 22 * 1024 > 227 * 1024:
-        raise ValueError(f"K7: {N} rows x {mk} groups exceed the kernel's grid or shared memory")
+    if not packed:
+        codes, lut_q, cs_q = k7_pack(codes, lut_q, cs_q)
+        cw = codes.shape[1]
+    if -(-N // 2048) > 65535 or 32 * cw > _K7_KD_MAX:
+        raise ValueError(f"K7: {N} rows x {2 * cw} groups exceed the kernel's grid or shared memory")
     codes, lut_q = codes.contiguous(), lut_q.contiguous()
+    if lut_q.data_ptr() % 16:  # the TMA reads the LUT from a 16-byte aligned base
+        lut_q = lut_q.clone()
     scales, q_norms = scales.float().contiguous(), q_norms.float().contiguous()
     cs_ptr = 0 if cs_q is None else cs_q.contiguous().data_ptr()
     out_d = torch.empty((B, S), dtype=torch.float32, device=dev)
@@ -164,8 +202,8 @@ def adc_chunkmin(codes, lut_q, scales, q_norms, cs_q, cs_scale, n_valid: int, pa
     with torch.cuda.device(dev):
         status = lib.vecdb_adc_chunkmin(
             codes.data_ptr(), lut_q.data_ptr(), scales.data_ptr(), q_norms.data_ptr(), cs_ptr,
-            float(cs_scale), out_d.data_ptr(), out_p.data_ptr(), B, N, int(n_valid), cw, mk, S,
-            int(packed), chunk, torch.cuda.current_stream(dev).cuda_stream)
+            float(cs_scale), out_d.data_ptr(), out_p.data_ptr(), B, N, int(n_valid), cw, 2 * cw, S,
+            1, chunk, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "adc_chunkmin")
     adc_chunkmin.launches += 1
     return out_d, out_p
@@ -343,6 +381,28 @@ def round_lut(lut_rows, lut_dtype: str = "bf16", exact: bool = False):
     return lut.to(torch.bfloat16).contiguous(), None
 
 
+# K9's dense tile (csrc/adc_sums.cu, namespace k9): a CTA sums 32 LUT rows
+# (one per lane) against 1024 code rows, 4 groups a stage
+K9_QB, K9_RB, K9_G = 32, 1024, 4
+
+
+def k9_dense_layout(lut_dtype: torch.dtype) -> dict:
+    """Shared-memory layout of K9's dense kernel for a bf16 or f32 LUT:
+    each stage holds K9_QB LUT rows of K9_G groups (`words` 4-byte words a
+    row) at a stride of `stride` words, odd so that the 32 lanes (one LUT
+    row each) looking up one code hit 32 distinct banks, then K9_RB code
+    words (the rows' K9_G code bytes); `stages` buffers (two for bf16,
+    whose next stage is copied while this one is looked up)."""
+    if lut_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K9 takes a bf16 or f32 LUT, got {lut_dtype}")
+    size = 2 if lut_dtype == torch.bfloat16 else 4
+    words = K9_G * 256 * size // 4
+    stride = words + 1
+    stages = 2 if size == 2 else 1
+    return {"words": words, "stride": stride, "stages": stages,
+            "smem_bytes": stages * (K9_QB * stride * 4 + K9_RB * 4)}
+
+
 def _sums_args(codes, lut, m: int, packed: bool):
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise TypeError("codes must be (n, cw) uint8")
@@ -354,6 +414,8 @@ def _sums_args(codes, lut, m: int, packed: bool):
         raise ValueError(f"ADC sums take k = 16 (packed or not) or k = 256 (unpacked), got {k}")
     if codes.shape[1] * (2 if packed else 1) < m:
         raise ValueError(f"codes of width {codes.shape[1]} hold fewer than m = {m} groups")
+    if k == 256 and lut.dtype == torch.int8:
+        raise ValueError("k = 256 sums take a bf16 or f32 LUT (`round_lut` never makes an int8 one)")
     return k
 
 

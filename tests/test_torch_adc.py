@@ -176,4 +176,125 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         A.adc_scan_chunkmin(_t(lookup), _t(stored), torch.arange(100, dtype=torch.int32), 100,
                             torch.zeros((8, 256)), torch.ones(2), 5, "l2sqr")
     with pytest.raises(ValueError):  # the int8 LUT needs its scales
-        A.adc_sums_dense(_t(stored), torch.zeros((2, 8, 256), dtype=torch.int8), None, 8, False)
+        A.adc_sums_dense(_t(stored), torch.zeros((2, 8, 16), dtype=torch.int8), None, 8, False)
+
+
+@pytest.mark.parametrize("R,N", [(1001, 1100), (33, 2050)])
+def test_k9_dense_plain_equals_stepwise_reference(R, N):
+    """K9's dense plain version at the cosine route's R = B + 1 = 1001 and at
+    N past K9's 1024-row tile (and 32-row LUT block), against the reference's
+    `_adc_sums_stepwise` in interpret mode: equal (one group a step, so the
+    reference adds the groups in order too)."""
+    lookup, _, stored, _, _, _ = _inputs(13, N=N, B=R, m=3, k=256, packed=False)
+    expect = PA._adc_sums_stepwise(jnp.asarray(stored), jnp.asarray(lookup), False, False, True)
+    lut, scales = A.round_lut(_t(lookup))
+    got = A.adc_sums_dense(_t(stored), lut, scales, 3, False)
+    assert got.shape == (R, N)
+    np.testing.assert_array_equal(got.numpy().T, np.asarray(expect))
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.bfloat16, torch.float32])
+def test_k9_dense_layout_emulated(lut_dtype):
+    """A numpy emulation of K9's dense kernel on `k9_dense_layout`: each
+    stage's LUT rows at the odd word stride, the rows' code words, the
+    lookups of each lane (one LUT row) and the in-order f32 adds.  The 32
+    lanes looking up one code hit 32 distinct banks, the stages fit a CTA's
+    shared memory, and the emulated sums equal the plain version bit for
+    bit at R and N past one CTA's block, with m not a multiple of 4."""
+    lay = A.k9_dense_layout(lut_dtype)
+    size = 2 if lut_dtype == torch.bfloat16 else 4
+    assert lay["stride"] % 2 == 1 and lay["words"] == A.K9_G * 256 * size // 4
+    assert lay["smem_bytes"] <= A._SMEM_MAX
+    lanes = np.arange(A.K9_QB)
+    for g in range(A.K9_G):
+        for c in range(256):
+            banks = (lanes * lay["stride"] + (g * 256 + c) * size // 4) % 32
+            assert len(set(banks.tolist())) == 32
+    R, N, m = 40, 1100, 6
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, 256, (N, m)).astype(np.uint8)
+    lut = torch.from_numpy(rng.random((R, m, 256)).astype(np.float32) * 4 - 1).to(lut_dtype)
+    lut_f = lut.float().numpy()
+    out = np.zeros((R, N), np.float32)
+    steps = -(-m // A.K9_G)
+    for r0 in range(0, R, A.K9_QB):
+        for n0 in range(0, N, A.K9_RB):
+            acc = np.zeros((A.K9_QB, A.K9_RB), np.float32)
+            for s in range(steps):
+                stage = np.zeros(A.K9_QB * lay["stride"] * 4 // size, np.float32)  # entries
+                words = np.zeros(A.K9_RB, np.uint32)
+                for q in range(min(A.K9_QB, R - r0)):
+                    for g in range(min(A.K9_G, m - s * A.K9_G)):
+                        at = (q * lay["stride"] * 4 + g * 256 * size) // size
+                        stage[at : at + 256] = lut_f[r0 + q, s * A.K9_G + g]
+                for x in range(min(A.K9_RB, N - n0)):
+                    for e in range(min(A.K9_G, m - s * A.K9_G)):
+                        words[x] |= np.uint32(codes[n0 + x, s * A.K9_G + e]) << np.uint32(8 * e)
+                for q in range(A.K9_QB):
+                    base = q * lay["stride"] * 4 // size
+                    for g in range(A.K9_G):
+                        c = (words >> np.uint32(8 * g)) & np.uint32(255)
+                        acc[q] = acc[q] + stage[base + g * 256 + c.astype(np.int64)]
+            rq, nx = min(A.K9_QB, R - r0), min(A.K9_RB, N - n0)
+            out[r0 : r0 + rq, n0 : n0 + nx] = acc[:rq, :nx]
+    ref = A.adc_sums_dense_ref(_t(codes), lut, None, m, False)
+    np.testing.assert_array_equal(out, ref.numpy())
+
+
+def test_k7_stage_offset_is_the_swizzle_the_descriptor_reads():
+    """K7 stages its LUT as TMA's 128-byte swizzle writes a 128-byte x 128-row
+    box (16-byte chunk j of row n at chunk j ^ (n % 8) of a 1024-byte
+    aligned stage), and each k-step's wgmma descriptor starts 32 bytes
+    further into the stage; the hardware swizzles the address it computes
+    (rows 128 bytes apart, 8-row groups 1024 apart).  `k7_stage_offset`
+    equals the former, and reading a staged LUT through the latter returns
+    each query's 32 LUT columns of that k-step."""
+    n = np.arange(128)[:, None]
+    c = np.arange(128)[None, :]
+    linear = n * 128 + c
+    swizzled = linear ^ (((linear >> 7) & 7) << 4)
+    np.testing.assert_array_equal(A.k7_stage_offset(n, c), swizzled)
+    rng = np.random.default_rng(3)
+    lut = rng.integers(-127, 128, (128, 512)).astype(np.int8)  # Kd 512: 4 stages
+    for kt in range(4):
+        stage = np.zeros(128 * 128, np.int8)
+        stage[A.k7_stage_offset(n, c)] = lut[:, kt * 128 : (kt + 1) * 128]
+        for kk in range(4):
+            k = np.arange(32)[None, :]
+            addr = 32 * kk + (n // 8) * 1024 + (n % 8) * 128 + k
+            addr = addr ^ (((addr >> 7) & 7) << 4)
+            np.testing.assert_array_equal(stage[addr], lut[:, kt * 128 + 32 * kk : kt * 128 + 32 * kk + 32])
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k7_pack_keeps_the_survivors(dist):
+    """K7's kernel takes nibble-packed codes; `k7_pack` packs one code a byte
+    (cw 14 -> 7 bytes, padded to 8) and zero-pads the LUT and the cosine
+    column.  The plain version over the packed operands equals it over the
+    unpacked ones."""
+    lookup, codes, _, _, cb_sq, q_norms = _inputs(17, N=700, B=9, m=14)
+    unpacked = np.pad(codes, ((0, 0), (0, 2)))  # cw 16: one code a byte
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), dist, False, 16)
+    pc, pl, pcs = A.k7_pack(_t(unpacked), lut_q, cs_q)
+    assert pc.shape == (700, 8) and pl.shape == (9, 256)
+    np.testing.assert_array_equal(pc.numpy()[:, :7], JP.pack_codes_4bit(codes))
+    S = 768 // 8
+    a = A.adc_chunkmin(_t(unpacked), lut_q, scales, _t(q_norms), cs_q, cs_scale, 690, False, S, 8)
+    b = A.adc_chunkmin(pc, pl, scales, _t(q_norms), pcs, cs_scale, 690, True, S, 8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k7_k9_wrappers_reject_what_the_new_kernels_do_not_take():
+    """K9 takes no int8 LUT at k = 256; K7 takes cw % 4 == 0 and 16 LUT
+    columns per code group (on every device)."""
+    lookup, _, stored, _, cb_sq, q_norms = _inputs(4, N=256, B=2, m=8, k=16, packed=True)
+    with pytest.raises(ValueError):
+        A.adc_sums_dense(torch.zeros((10, 8), dtype=torch.uint8),
+                         torch.zeros((2, 8, 256), dtype=torch.int8), torch.ones(2), 8, False)
+    lut_q, scales, cs_q, cs_scale = A.chunkmin_inputs(_t(lookup), _t(cb_sq), "l2sqr", True, 4)
+    with pytest.raises(ValueError):  # cw 3
+        A.adc_chunkmin(torch.zeros((256, 3), dtype=torch.uint8), lut_q, scales, _t(q_norms), cs_q,
+                       cs_scale, 256, True, 8)
+    with pytest.raises(ValueError):  # 8 groups of packed codes against a 4-group LUT
+        A.adc_chunkmin(torch.zeros((256, 4), dtype=torch.uint8), lut_q[:, :64], scales, _t(q_norms),
+                       cs_q, cs_scale, 256, True, 8)
