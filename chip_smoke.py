@@ -95,7 +95,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                allocated; each tier's kernels-vs-plain gate on 128 queries
                and its returned distances within rtol 1e-5 of float64 exact;
                K11 against its plain version on every list (equal on filled
-               columns), K7 at stage 0 (all 10M coarse rows) and on the
+               columns) at 48 probes (qb 64, timed), 32 (qb 32) and 96 (qb
+               96: two column blocks), with the wgmma N of each (list, block);
+               codes_ivfpq_10m's stage split at 48/256; K7 at stage 0 (all 10M coarse rows) and on the
                overflow segment (equal), K8 ids at the (1000, c0) pool
                (rtol 1e-5); a 300,000-row cosine IVF-PQ index (64 lists, some
                spilling) for K11's and K7's cosine columns, K7's also on its
@@ -1339,9 +1341,11 @@ def check_k11(idx, q, n_probes, tag, timed=True):
               f"K11 {tag}: {int((a[filled] != b[filled]).sum())} survivor {what} differ from the plain version")
     codes, lut_q = args[0], args[1]
     nlist, lpad, m = bins.shape[0], idx.lpad, idx.pq.config.m
+    n_plan, _ = A.k11_plan(args[6], bins, lpad)
     out = {"max_abs_err": max(max_abs_err(got[0][filled], ref[0][filled]),
                               max_abs_err(got[1][filled], ref[1][filled])),
-           "shape": [nlist, lpad, qb, m], "filled_columns": int(filled.sum())}
+           "shape": [nlist, lpad, qb, m], "filled_columns": int(filled.sum()),
+           "blocks_by_n": {str(v): int((n_plan == v).sum()) for v in (0, 32, 64)}}
     if timed:
         out["ms"], out["plain_ms"] = in_turns(lambda: A.adc_chunkmin_binned(*args),
                                               lambda: A.adc_chunkmin_binned_ref(*args), 10, 1)
@@ -1352,10 +1356,45 @@ def check_k11(idx, q, n_probes, tag, timed=True):
         out["bound"] = bound_ms(moved, 2.0 * pairs * m * 16)
         out["extra"] = {"bound_ms_every_slot_and_column": bound_ms(moved, 2.0 * nlist * lpad * qb * m * 16)[0],
                         "valid_row_filled_column_pairs": pairs}
-    log(f"[codes] K11 {tag} (nlist {nlist}, lpad {lpad}, qb {qb}, {out['filled_columns']} filled columns): "
+    log(f"[codes] K11 {tag} (nlist {nlist}, lpad {lpad}, qb {qb}, {out['filled_columns']} filled columns, "
+        f"blocks by wgmma N {out['blocks_by_n']}): "
         "equal to its plain version on every filled column"
         + (f"; {out['ms']:.3f} ms, plain {out['plain_ms']:.1f} ms, bound {out['bound']}" if timed else ""))
     return out
+
+
+def ivfpq_stage_split(idx, q, k, n_probes, ef, reps=5):
+    """A knn_batch of IVFPQIndex in its steps, timed with CUDA events (mean
+    of `reps` passes after one warm-up): the lookup, probe, bins and K11's
+    LUT quantization; K11; the survivor gather, the overflow K7 and the
+    top-ef; the refine; the exact top-k."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    names = ("lookup_probe_bin", "k11", "gather_overflow_k7_topef", "refine", "exact_topk")
+    split = dict.fromkeys(names, 0.0)
+    qb = idx._auto_qb(q.shape[0], n_probes)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    for i in range(reps + 1):
+        ev[0].record()
+        lookup, q_norms = idx.pq.create_lookup(q)
+        probe, bins, slots = idx.probe_and_bin(q, n_probes, qb)
+        args = idx.k11_inputs(lookup, q_norms, bins, 16)
+        ev[1].record()
+        outd, outi = A.adc_chunkmin_binned(*args)
+        ev[2].record()
+        td1, ti1 = idx.select_candidates(lookup, q_norms, k, ef, probe, slots, outd, outi)
+        ev[3].record()
+        d_ex = idx.refine(q, ti1)
+        ev[4].record()
+        T.topk_smallest(torch.where(torch.isfinite(d_ex), d_ex, td1), ti1, k)
+        ev[5].record()
+        torch.cuda.synchronize()
+        if i:
+            for name, a, b in zip(names, ev, ev[1:]):
+                split[name] += a.elapsed_time(b) / reps
+    return split
 
 
 def check_k7_codes(codes, lookup, cb_sq, q_norms, n_valid, chunk, dist, tag, timed=False):
@@ -1452,6 +1491,12 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=300_000, nlist_cos=64, B=1
                            "codes_ivfpq_10m"))
     ivf["profile_n_probes_48"] = profile_call(lambda: idx.knn_batch(q, k, n_probes=CODES_GATE_PROBES, ef=256))
     k11 = check_k11(idx, q, CODES_GATE_PROBES, "codes_ivfpq_10m")
+    # K11's other N variant and a two-block qb, untimed
+    ivf["k11_variants"] = {f"n_probes_{p}": check_k11(idx, q, p, f"codes_ivfpq_10m n_probes {p}", timed=False)
+                           for p in (32, 96)}
+    check(ivf["k11_variants"]["n_probes_96"]["shape"][2] > 64, "codes_ivfpq_10m: qb 96 gave one column block")
+    ivf["stage_ms"] = ivfpq_stage_split(idx, q, k, CODES_GATE_PROBES, 256)
+    log(f"[codes] codes_ivfpq_10m stages at {CODES_GATE_PROBES}/256: {ivf['stage_ms']}")
     lookup, q_norms = idx.pq.create_lookup(q)
     if idx.ov_count:
         k_ov, ch = idx.overflow_chunk(k)
@@ -2169,7 +2214,7 @@ def main() -> None:
                   ivf_lean["launches"]["k2"], k2_bf16),
         # K11 on codes_ivfpq_10m's knn_batch at n_probes 48; checked and
         # timed there on every list (the error also over the cosine index)
-        pq_kernel("adc_chunkmin_binned", "adc_chunkmin_binned.cu", "pallas_adc.py:629",
+        pq_kernel("adc_chunkmin_binned", "adc_chunkmin_binned.cuh", "pallas_adc.py:629",
                   codes["codes_ivfpq_10m"]["launches"]["k11"],
                   {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_300k"]["k11_max_abs_err"])}),
         # K7 at stage 0 of codes_pq_10m's first knn_batch (10M coarse rows,

@@ -264,9 +264,15 @@ class IVFPQIndex:
         scan (K7), the top-ef by ADC distance, the slot -> id decode ->
         ((B, ef') ADC distances ascending, (B, ef') int32 ids, -1 where not
         finite)."""
-        B = q.shape[0]
         probe, bins, slots = self.probe_and_bin(q, n_probes, qb)
         outd, outi = A.adc_chunkmin_binned(*self.k11_inputs(lookup, q_norms, bins, chunk))
+        return self.select_candidates(lookup, q_norms, k, ef, probe, slots, outd, outi)
+
+    def select_candidates(self, lookup, q_norms, k: int, ef: int, probe, slots, outd, outi):
+        """Steps 4-6 on K11's survivors (outd, outi): the survivor row gather,
+        the overflow scan (K7), the top-ef, the slot -> id decode."""
+        B, n_probes = probe.shape
+        qb = outd.shape[1]
         SL = outd.shape[2]
         # query b's survivors of probe j: row (probe, slot) of the (nlist * qb, SL) survivors
         row = torch.where(slots >= 0, probe * qb + slots, 0).long().view(-1)
@@ -278,7 +284,7 @@ class IVFPQIndex:
         if self.ov_count > 0:
             _, _, cb_sq = self._device()
             kl = self.nlist * self.lpad
-            ov_slots = kl + torch.arange(self._codes_ov.shape[0], dtype=torch.int32, device=q.device)
+            ov_slots = kl + torch.arange(self._codes_ov.shape[0], dtype=torch.int32, device=outd.device)
             k_ov, ch = self.overflow_chunk(k)
             d_ov, s_ov = A.adc_scan_chunkmin(lookup, self._codes_ov, ov_slots, self.ov_count, cb_sq,
                                              q_norms, k_ov, self.dist, packed=True, chunk=ch)
@@ -288,6 +294,12 @@ class IVFPQIndex:
         td, ts = T.select_smallest(d_cand, slot_cand, min(ef, d_cand.shape[1]))
         ids = self._slot_id[ts.clamp(0, self._slot_id.shape[0] - 1).long()]
         return td, torch.where(torch.isfinite(td), ids, T.INVALID_ID)
+
+    def refine(self, q: torch.Tensor, ids: torch.Tensor):
+        """Step 7: exact f32 distances of the candidate ids from the row
+        source (None without one)."""
+        return refine_blocked(self._fill, self._block_rows, self.n, self.dim, self.dist, q, ids,
+                              row_gen=self._row_gen)
 
     def knn_batch(self, queries, k: int, n_probes: int = 48, ef: int = 256, qb: int | None = None,
                   chunk: int = 16):
@@ -302,8 +314,7 @@ class IVFPQIndex:
             qb = self._auto_qb(q.shape[0], n_probes)
         lookup, q_norms = self.pq.create_lookup(q)
         td1, ti1 = self.search_candidates(q, lookup, q_norms, kk, n_probes, ef, qb, chunk)
-        d_ex = refine_blocked(self._fill, self._block_rows, self.n, self.dim, self.dist, q, ti1,
-                              row_gen=self._row_gen)
+        d_ex = self.refine(q, ti1)
         # a candidate without an exact row keeps its ADC distance
         d_ex = td1 if d_ex is None else torch.where(torch.isfinite(d_ex), d_ex, td1)
         td, ti = T.topk_smallest(d_ex, ti1, kk)

@@ -6,11 +6,12 @@
   "scan", the codes tier's stage 0 and the IVF-PQ overflow segment.
   `adc_scan_chunkmin` adds the LUT quantization, the top-k over the
   survivors and the id decode.
-- K11 `adc_chunkmin_binned` (`csrc/adc_chunkmin_binned.cu`): the same
+- K11 `adc_chunkmin_binned` (`csrc/adc_chunkmin_binned.cuh`): the same
   chunk-min over the cluster-sorted posting lists of IVF-PQ, each list row
-  scored against only the queries binned to its list, on the one-hot
-  `mma.sync` pipeline of `csrc/adc_onehot.cuh`; K7 has its own `wgmma`
-  one (`k7_stage_offset` says where its LUT lands).
+  scored against only the queries binned to its list, on a `wgmma` pipeline
+  of its own whose N (32 or 64) fits each 64-column bin block
+  (`k11_plan`) and whose LUT rows are gathered through the bins
+  (`k11_stage_offset` says where they land; `k7_stage_offset` for K7's).
 - K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`; K8's
   one body for k = 16, K9's own kernels for k = 256, `k9_dense_layout`):
   ADC sums of every code row against every LUT row (`adc_scan_pallas`, the
@@ -44,7 +45,7 @@ from . import topk as T
 CHUNK = 32  # rows per K7 survivor by default
 CHUNKS = (1, 2, 4, 8, 16, 32)  # the chunk sizes K7 and K11 take
 _NT = 256  # the reference's row tile: survivors cover ceil(N / 256) * 256 rows
-_TILE_BIN = 512  # K11's list rows per CTA: lpad is a multiple
+_TILE_BIN = 512  # K11's list rows per LUT pass: lpad is a multiple
 _REF_BLOCK = 8192  # rows per block of K7's plain version (bounds the one-hot)
 _LUT_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _SMEM_MAX = 232448  # shared memory one H100 CTA may take
@@ -317,6 +318,46 @@ def adc_chunkmin_binned_ref(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens,
     return out_d, out_p
 
 
+# K11's kernel (csrc/adc_chunkmin_binned.cuh): a CTA takes one list, 2048 of
+# its rows and 64 bin columns, in LUT passes of 512 rows at N 32 and 256 at
+# N 64 (each of two consumers owns half a pass); each ring stage holds 512
+# LUT columns as four 128-column sub-stages of N rows (the block's columns'
+# LUT rows, gathered through the bins), each in the 128-byte swizzle that
+# TMA would write for an N-row box
+_K11_BLOCK, _K11_SUB, _K11_SUBS = 64, 128, 4
+_K11_SMEM = 1024 + 4 * (_K11_SUBS * _K11_BLOCK * _K11_SUB + _TILE_BIN * 16) + 64 + 64 * 20 + 16
+
+
+def k11_stage_offset(n, c, N: int):
+    """Byte offset of LUT column c (0 <= c < 512) of block column n within
+    K11's ring stage of N-row sub-stages (works on ints and integer tensors
+    / arrays): sub-stage c // 128, row n at 128 n, 16-byte chunk j of the
+    row at chunk j ^ (n % 8)."""
+    return (c // _K11_SUB) * N * _K11_SUB + n * _K11_SUB + ((((c % _K11_SUB) // 16) ^ (n % 8)) * 16) + c % 16
+
+
+def k11_plan(lens, bins, lpad: int):
+    """What K11's CTAs do with `bins` (nlist, QB) and `lens` (nlist,), as the
+    kernel decides it on the card -> (n (nlist, ceil(QB / 64)) int64: the
+    wgmma N of each (list, 64-column block), 0 where no column of the block
+    is filled (the CTA only writes +inf), 32 where the last filled column is
+    among the block's first 32, else 64; live (nlist, ceil(QB / 64), lpad /
+    128) bool: whether the consumer that owns each 128 list rows runs its
+    product (a consumer owns 256 rows at N 32, 128 at N 64, and runs only if
+    its first row is below lens[l]; the rest write +inf))."""
+    nlist, QB = bins.shape
+    nb = -(-QB // _K11_BLOCK)
+    filled = torch.nn.functional.pad(bins >= 0, (0, nb * _K11_BLOCK - QB)).reshape(nlist, nb, _K11_BLOCK)
+    col = torch.arange(1, _K11_BLOCK + 1, device=bins.device)
+    last = torch.where(filled, col, 0).amax(2)  # 1 + the last filled column, 0 if none
+    n = torch.where(last == 0, 0, torch.where(last > 32, 64, 32))
+    rows = torch.arange(0, lpad, 128, device=bins.device)
+    half = 8192 // n[:, :, None].clamp_min(32)  # a consumer's rows: 256 at N 32, 128 at N 64
+    owner = rows[None, None, :] // half * half
+    live = (n[:, :, None] > 0) & (owner < lens.reshape(nlist, 1, 1).to(owner.dtype))
+    return n, live
+
+
 def adc_chunkmin_binned(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bins, lpad: int,
                         packed: bool, chunk: int):
     """K11: the chunk-min survivors of the binned ADC over the probed posting
@@ -339,12 +380,21 @@ def adc_chunkmin_binned(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bin
     mk = Kd // 16
     if lut_q.dtype != torch.int8 or codes.dtype != torch.uint8:
         raise ValueError("the K11 kernel takes uint8 codes and an int8 LUT")
-    if cw % 4 or Kd % 64 or mk != (2 * cw if packed else cw):
+    if cw % 4 or mk != (2 * cw if packed else cw):
         raise ValueError(f"K11 needs cw % 4 == 0 and 16 LUT columns per code group; got cw={cw}, "
                          f"Kd={Kd}, packed={packed}")
-    if mk * 128 + mk * 16 + 22 * 1024 > 227 * 1024 or nlist * (lpad // _TILE_BIN) >= 2**31:
-        raise ValueError(f"K11: {mk} groups x {nlist} lists exceed the kernel's shared memory or grid")
+    if not packed:  # the kernel takes nibble-packed codes
+        codes, lut_q, cs_q = k7_pack(codes, lut_q, cs_q)
+        cw, Kd = codes.shape[1], lut_q.shape[1]
+        mk = Kd // 16
+    if _K11_SMEM + (Kd if cs_q is not None else 0) > _SMEM_MAX or nlist * lpad >= 2**31:
+        raise ValueError(f"K11: {mk} groups x {nlist} lists x {lpad} rows exceed the kernel's shared "
+                         f"memory or its int32 slots")
     codes, lut_q = codes.contiguous(), lut_q.contiguous()
+    if codes.data_ptr() % 16:  # 16-byte cp.async reads
+        codes = codes.clone()
+    if lut_q.data_ptr() % 16:
+        lut_q = lut_q.clone()
     scales, q_norms = scales.float().contiguous(), q_norms.float().contiguous()
     lens, bins = lens.to(torch.int32).contiguous(), bins.to(torch.int32).contiguous()
     cs_ptr = 0 if cs_q is None else cs_q.contiguous().data_ptr()
@@ -356,7 +406,7 @@ def adc_chunkmin_binned(codes, lut_q, scales, q_norms, cs_q, cs_scale, lens, bin
         status = lib.vecdb_adc_chunkmin_binned(
             codes.data_ptr(), lut_q.data_ptr(), scales.data_ptr(), q_norms.data_ptr(), cs_ptr,
             float(cs_scale), lens.data_ptr(), bins.data_ptr(), out_d.data_ptr(), out_p.data_ptr(),
-            nlist, lpad, QB, cw, mk, int(packed), chunk, torch.cuda.current_stream(dev).cuda_stream)
+            nlist, lpad, QB, cw, mk, 1, chunk, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "adc_chunkmin_binned")
     adc_chunkmin_binned.launches += 1
     return out_d, out_p
