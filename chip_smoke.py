@@ -7,10 +7,14 @@ the port still starts on the card).
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. device  — require CUDA; print the card's name and power limit;
   2. build   — build the CUDA kernels of `lab_1806_vec_db_tpu_torch/csrc/`;
+               read ptxas's registers and spills of K1's and K8's kernels
+               from the build's report (none found, or a spill, fails);
   3. K1      — the packed int8 scan kernel against its plain PyTorch version
                at the main path's shapes (dim 960 -> 1024, B = 1000, a ragged
-               mirror with sentinel rows), both metrics: equal element for
-               element;
+               mirror with sentinel rows), at B = 1 and 16 (one partial
+               query tile, the batch path's), both metrics, and at 1152
+               lanes (the query tile streamed, not resident): equal element
+               for element;
   4. K2      — the rerank gather kernel against its plain version (B = 1000,
                r = 40, dim 960, some -1 ids), both metrics: rtol 1e-5,
                atol 1e-6, +inf exactly where the id is -1;
@@ -45,10 +49,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                plain versions (must agree within 0.005, with every kernel
                count still 0 after the plain run); K6 against its plain
                version at B = 1000, EL = 128 and ef 180 / 360 / 600, K8 and
-               K9 ids at widths 1 / 16 / 128 (K9 equal, K8 rtol 1e-5), K8 /
-               K9 dense on one block (equal; K9 also on the scan's last
-               partial block at the cosine route's R = 1001), K8 / K9 with
-               their lookup bounds beside the byte bounds;
+               K9 ids at widths 1 / 16 / 128 (equal; K8 also at code widths
+               7 and 20, its byte-wise reads), K8 / K9 dense on one
+               block (equal; also at the cosine route's R = 1001, K9 on the
+               scan's last partial block; K8's bf16 lookup body too), K8 / K9
+               with their lookup bounds beside the byte bounds (K8 int8
+               dense also its one-hot method's operation bound,
+               `method_ops_bound_ms`);
   6. 1M      — FlatIndex at 1,000,000 x 960 (device-born): recall@10 against
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
@@ -99,7 +106,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                96: two column blocks), with the wgmma N of each (list, block);
                codes_ivfpq_10m's stage split at 48/256; K7 at stage 0 (all 10M coarse rows) and on the
                overflow segment (equal), K8 ids at the (1000, c0) pool
-               (rtol 1e-5); a 300,000-row cosine IVF-PQ index (64 lists, some
+               (equal, timed); a 300,000-row cosine IVF-PQ index (64 lists, some
                spilling) for K11's and K7's cosine columns, K7's also on its
                overflow segment; index_bytes again after the first search
                (IVF-PQ uploads its centroids and lens then);
@@ -274,12 +281,34 @@ def phase_build():
     log(f"[2/6] build: {info['seconds']:.1f} s -> {os.path.relpath(info['path'], HERE)}")
     for ln in regs:
         log(f"      ptxas: {ln}")
-    return info["seconds"]
+    return info["seconds"], info["log"]
+
+
+def ptxas_of(log: str, fragment: str) -> dict:
+    """ptxas's report (-Xptxas -v) for the kernels whose mangled names hold
+    `fragment`: the most registers a thread and spill bytes any of them
+    uses, and how many instantiations matched."""
+    import re
+
+    lines = log.splitlines()
+    regs, stores, loads, n = 0, 0, 0, 0
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and fragment in ln:
+            n += 1
+            for nxt in lines[i + 1 : i + 4]:
+                if sp := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
+                    stores, loads = max(stores, int(sp[1])), max(loads, int(sp[2]))
+                if used := re.search(r"Used (\d+) registers", nxt):
+                    regs = max(regs, int(used[1]))
+    if n == 0:  # no report read (an empty log, or a renamed kernel): no figures
+        return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None, "instantiations": 0}
+    return {"registers": regs, "spill_store_bytes": stores, "spill_load_bytes": loads, "instantiations": n}
 
 
 def phase_k1(x, queries):
     """K1 against its plain version on a ragged 67,536-row slice of a real
-    mirror whose last 500 rows are sentinels."""
+    mirror whose last 500 rows are sentinels (B 1000, 16 and 1), and on the
+    whole 200,000-row mirror."""
     import torch
     from lab_1806_vec_db_tpu_torch.models.store import VecStore
     from lab_1806_vec_db_tpu_torch.ops import scan as S
@@ -301,6 +330,35 @@ def phase_k1(x, queries):
         check(torch.equal(out, ref), f"K1 {dist}: {int((out != ref).sum())} packed values differ")
         log(f"[3/6] K1 {dist}: ({n3} rows -> {out.shape[0]} survivors) x {out.shape[1]} "
             "queries equal to the plain version element for element")
+        for nb in (1, 16):  # batches below one query tile
+            out = S.scan_chunkmin_int8_packed(q8[:nb], qs2[:nb], qc[:nb], q8b, sc, ca)
+            ref = S.scan_chunkmin_int8_packed_ref(q8[:nb], qs2[:nb], qc[:nb], *S._pad_rows(q8b, sc, ca, S._NB))
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"K1 {dist} B {nb}: {int((out != ref).sum())} packed values differ")
+        log(f"[3/6] K1 {dist}: equal at B = 1 and 16 too")
+        # the hnsw_200k scan route's shape: the whole 200,000-row mirror
+        f8, fsc, fca, _ = VecStore.from_device(x, dist).device_int8()
+        out = S.scan_chunkmin_int8_packed(q8, qs2, qc, f8, fsc, fca)
+        ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(f8, fsc, fca, S._NB))
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K1 {dist} ({f8.shape[0]} rows): {int((out != ref).sum())} packed values differ")
+        log(f"[3/6] K1 {dist}: equal on the {f8.shape[0]}-row mirror (the hnsw_200k scan route's)")
+        del f8, fsc, fca, out, ref
+    # past 1024 lanes the query tile no longer stays resident: each ring
+    # stage streams its query box beside the mirror box (6,100 rows of 1152
+    # lanes, padded to 6,144 with sentinels; B 200, a partial second tile)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xw = torch.randn((6100, 1152), generator=gen, device="cuda")
+    qw = torch.randn((200, 1152), generator=gen, device="cuda")
+    w8, wsc, wca, _ = VecStore.from_device(xw, "l2sqr").device_int8()
+    w8, wsc, wca = w8[:6100], wsc[:6100], wca[:6100]  # the store rounds its capacity up
+    q8, qs2, qc = S.quantize_queries(qw, w8.shape[1], "l2sqr")
+    out = S.scan_chunkmin_int8_packed(q8, qs2, qc, w8, wsc, wca)
+    ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(w8, wsc, wca, S._NB))
+    torch.cuda.synchronize()
+    check(w8.shape[1] > 1024, f"K1: the streamed-query check ran at D {w8.shape[1]}")
+    check(torch.equal(out, ref), f"K1 D {w8.shape[1]}: {int((out != ref).sum())} packed values differ")
+    log(f"[3/6] K1 l2sqr: equal at D {w8.shape[1]} ({w8.shape[0]} rows, B 200; the query tile streamed)")
     return worst
 
 
@@ -678,8 +736,8 @@ def check_sums_ids(codes, lookup, m, packed, N, tag):
     """K8 / K9's ids shape against its plain version at each width the
     graph route gives it: C 1 (a descent's entry), 16 (an upper level's
     links) and 128 (the fused loop's tile: E 4 x L 32), 10% of the ids -1,
-    with the route's bf16 LUT: K9 (k 256) equal (both add the groups in
-    order), K8 rtol 1e-5.  Timed and bounded at C 128."""
+    with the route's bf16 LUT: equal bit for bit (both add the groups in
+    order).  Timed and bounded at C 128."""
     import torch
     from lab_1806_vec_db_tpu_torch.ops import adc as A
 
@@ -693,62 +751,81 @@ def check_sums_ids(codes, lookup, m, packed, N, tag):
         got, ref = A.adc_sums_ids(codes, lut, ids, m, packed), A.adc_sums_ids_ref(codes, lut, ids, m, packed, False)
         torch.cuda.synchronize()
         check(torch.equal(torch.isinf(got), ids < 0), f"{tag} ids (C {C}): +inf not exactly at id -1")
-        if k == 256:
-            check(torch.equal(got, ref), f"{tag} ids (C {C}): differs from its plain version")
-        else:
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+        check(torch.equal(got, ref), f"{tag} ids (C {C}): differs from its plain version")
         err = max(err, max_abs_err(got, ref))
+    if k == 16:
+        # K8 reads a code row in 16-byte words only where cw % 16 == 0; the
+        # byte-wise path at code widths 7 (m 13 packed) and 20 (m 20 one
+        # code a byte), ids past the table's end included
+        for mu, pk in ((13, True), (20, False)):
+            cw_u = -(-mu // 2) if pk else mu
+            cu = torch.randint(0, 256 if pk else 16, (5000, cw_u), generator=gen, device="cuda").to(torch.uint8)
+            lu = torch.randn((B, mu, 16), generator=gen, device="cuda").to(torch.bfloat16)
+            iu = torch.randint(-1, 5100, (B, 128), generator=gen, device="cuda", dtype=torch.int32)
+            got, ref = A.adc_sums_ids(cu, lu, iu, mu, pk), A.adc_sums_ids_ref(cu, lu, iu, mu, pk, False)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"{tag} ids (m {mu}, code width {cw_u}): differs from its plain version")
+        log(f"[pq] {tag} ids equal to its plain version at code widths 7 and 20 too")
+        del cu, lu, iu
     ms, plain_ms = in_turns(lambda: A.adc_sums_ids(codes, lut, ids, m, packed),
                             lambda: A.adc_sums_ids_ref(codes, lut, ids, m, packed, False), 20, 3)
     cw = codes.shape[1]
     # ids, the gathered code rows, the bf16 LUT; the (B, 128) f32 output
     bound = bound_ms(B * 128 * 4 + B * 128 * cw + B * m * k * 2 + B * 128 * 4)
     lookups = lookup_bound_ms(B * 128 * m)
-    log(f"[pq] {tag} ids (B {B}, C 1 / 16 / 128, m {m}, k {k}) "
-        f"{'equal to' if k == 256 else 'within rtol 1e-5 of'} its plain version (max abs err "
-        f"{err:.3g}); at C 128 {ms:.4f} ms, plain {plain_ms:.4f} ms, byte bound {bound[0]:.4f} ms, "
+    log(f"[pq] {tag} ids (B {B}, C 1 / 16 / 128, m {m}, k {k}) equal to its plain version (max abs "
+        f"err {err:.3g}); at C 128 {ms:.4f} ms, plain {plain_ms:.4f} ms, byte bound {bound[0]:.4f} ms, "
         f"lookup bound {lookups:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
             "shape": [B, 128, m, k], "widths_checked": [1, 16, 128],
             "extra": {"lookup_bound_ms": lookups}}
 
 
-def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype, cb_sq=None):
+def check_sums_dense(codes, lookup, m, packed, tag, lut_dtype, cb_sq=None, bf16_body=False):
     """K8 / K9's dense shape against its plain version on one scan block
-    of `adc_scan_pallas` with the route's LUT rounding: int8 and K9's bf16
-    (its groups added in order) bit for bit, K8's bf16 rtol 1e-5.  With
-    `cb_sq`, K9 is also held on the scan's last, partial block with the
-    cosine route's R = B + 1 rows (the centroid-sqnorm row appended)."""
+    of `adc_scan_pallas` with the route's LUT rounding, bit for bit (int8
+    sums are exact; bf16 / f32 sums add the groups in order on both sides).
+    With `cb_sq` it is also held with the cosine route's R = B + 1 rows
+    (the centroid-sqnorm row appended: a partial last LUT-row tile), on the
+    scan's last, partial block where there is one.  With `bf16_body`, K8's
+    lookup body for a bf16 LUT (the `adc_sums` API's) is held too."""
     import torch
     from lab_1806_vec_db_tpu_torch.ops import adc as A
 
-    k = lookup.shape[2]
-    if cb_sq is not None and codes.shape[0] > 131072:
+    if cb_sq is not None:
         lut1, sc1 = A.round_lut(torch.cat([lookup, cb_sq[None]], 0), lut_dtype)
-        tail = codes[131072:]
+        tail = codes[131072:] if codes.shape[0] > 131072 else codes
         got = A.adc_sums_dense(tail, lut1, sc1, m, packed)
         check(torch.equal(got, A.adc_sums_dense_ref(tail, lut1, sc1, m, packed)),
               f"{tag} dense (R {lut1.shape[0]}, N {tail.shape[0]}): differs from its plain version")
         del got
     codes = codes[:131072]
+    if bf16_body:
+        lut_b, _ = A.round_lut(lookup, "bf16")
+        check(torch.equal(A.adc_sums_dense(codes, lut_b, None, m, packed),
+                          A.adc_sums_dense_ref(codes, lut_b, None, m, packed)),
+              f"{tag} dense: differs from its plain version (bf16 LUT)")
+        del lut_b
     lut, scales = A.round_lut(lookup, lut_dtype)
     got, ref = A.adc_sums_dense(codes, lut, scales, m, packed), A.adc_sums_dense_ref(codes, lut, scales, m, packed)
     torch.cuda.synchronize()
-    if lut.dtype == torch.int8 or k == 256:
-        check(torch.equal(got, ref), f"{tag} dense: differs from its plain version ({lut.dtype} LUT)")
-    else:
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    check(torch.equal(got, ref), f"{tag} dense: differs from its plain version ({lut.dtype} LUT)")
     ms, plain_ms = in_turns(lambda: A.adc_sums_dense(codes, lut, scales, m, packed),
                             lambda: A.adc_sums_dense_ref(codes, lut, scales, m, packed), 5, 1)
     R, k, N = lut.shape[0], lut.shape[2], codes.shape[0]
-    # the codes, the LUT (+ int8 scales); the (R, N) f32 output
+    # the function's floor: the codes, the LUT (+ int8 scales) and the
+    # (R, N) f32 output; it needs R N m adds, no tensor-core operations
     bound = bound_ms(N * codes.shape[1] + lut.numel() * lut.element_size() + 4 * R + 4 * R * N)
-    lookups = lookup_bound_ms(R * N * m)
-    log(f"[pq] {tag} dense (R {R}, N {N}, m {m}, k {k}, {lut.dtype}) agrees with its plain version "
+    extra = {"lookup_bound_ms": lookup_bound_ms(R * N * m)}
+    if lut.dtype == torch.int8 and packed:
+        # K8's int8 method, not the function: a one-hot product over 32
+        # columns a code byte (cw padded to 4), reported beside the bound
+        extra["method_ops_bound_ms"] = 2.0 * R * N * 32 * (-(-codes.shape[1] // 4) * 4) / INT8_OPS_S * 1e3
+    log(f"[pq] {tag} dense (R {R}, N {N}, m {m}, k {k}, {lut.dtype}) equal to its plain version "
         f"(max abs err {max_abs_err(got, ref):.3g}); {ms:.3f} ms, plain {plain_ms:.3f} ms, byte bound "
-        f"{bound[0]:.4f} ms, lookup bound {lookups:.3f} ms")
+        f"{bound[0]:.4f} ms, {extra}")
     return {"max_abs_err": max_abs_err(got, ref), "ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "shape": [R, N, m, k], "extra": {"lookup_bound_ms": lookups}}
+            "shape": [R, N, m, k], "extra": extra}
 
 
 def check_k7(pq, q, tag):
@@ -932,9 +1009,9 @@ def phase_pq_200k(db, q_host, gts, x_host):
                          gt60.tolist(), ("k8_dense", "k2"), B, 3, 1)
     check(d60[600]["launches"]["k7"] == 0, "flat_pq_60k: K7 ran where the dense sums belong")
     launches["k8_dense"] = d60[600]["launches"]["k8_dense"]
-    codes60, _, _ = pq60.device()
+    codes60, _, cb_sq60 = pq60.device()
     lookup60, _ = pq60.create_lookup(q)
-    meas["k8_dense"] = check_sums_dense(codes60, lookup60, PQ_M, True, "K8", "int8")
+    meas["k8_dense"] = check_sums_dense(codes60, lookup60, PQ_M, True, "K8", "int8", cb_sq60, bf16_body=True)
     out["flat_pq_60k"] = d60
     log(f"[pq] flat_pq_60k ef 600: {d60[600]}")
     del f60, pq60
@@ -1555,17 +1632,20 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=300_000, nlist_cos=64, B=1
     k7s0 = check_k7_codes(pqc._codes_c, lut_c, pqc.coarse.device()[2], qn_c, n, pqc.stage0_chunk(c0), "l2sqr",
                           "codes_pq_10m stage 0", timed=c0)
     # K8's ids shape at the pool's (1000, c0) positions against its plain
-    # version (bf16 LUT): rtol 1e-5, as check_sums_ids holds it
+    # version (bf16 LUT): equal, as check_sums_ids holds it
     lut_m, _ = pqc.pq.create_lookup(q)
     pos = pqc._inv[ids0.clamp_min(0).long()]
     lut_b = lut_m.to(torch.bfloat16)
     got = A.adc_sums_ids(pqc._codes, lut_b, pos, 320, True)
     ref = A.adc_sums_ids_ref(pqc._codes, lut_b, pos, 320, True, False)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    check(torch.equal(got, ref), f"codes_pq_10m: K8 ids at the pool (C {c0}) differs from its plain version")
     pqo["k8_ids_pool_max_abs_err"] = max_abs_err(got, ref)
-    log(f"[codes] K8 ids at the pool (B {B}, C {c0}) within rtol 1e-5 of its plain version; "
-        f"stages {split}")
+    pqo["k8_ids_pool_ms"], pqo["k8_ids_pool_plain_ms"] = in_turns(
+        lambda: A.adc_sums_ids(pqc._codes, lut_b, pos, 320, True),
+        lambda: A.adc_sums_ids_ref(pqc._codes, lut_b, pos, 320, True, False), 10, 1)
+    log(f"[codes] K8 ids at the pool (B {B}, C {c0}) equal to its plain version, "
+        f"{pqo['k8_ids_pool_ms']:.4f} ms (plain {pqo['k8_ids_pool_plain_ms']:.3f}); stages {split}")
     del pqc, lut_c, qn_c, lut_m, pos, lut_b, got, ref, ids0, td1, ti1, d_ex
     torch.cuda.empty_cache()
 
@@ -2102,7 +2182,14 @@ def main() -> None:
 
     t_start = time.perf_counter()
     card = phase_device()
-    build_s = phase_build()
+    build_s, build_log = phase_build()
+    # ptxas's figures for the kernels redesigned on wgmma / cp.async, read
+    # from this build's report; a name that matches nothing fails the run
+    ptxas = {key: ptxas_of(build_log, frag) for key, frag in (
+        ("k1", "scan_int8_packed_kernel"), ("k8_ids", "2k810ids_kernel"), ("k8_dense", "dense_onehot_kernel"))}
+    for key, rep in ptxas.items():
+        check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
+        check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
 
     from lab_1806_vec_db_tpu_torch.bench import synth
 
@@ -2152,7 +2239,8 @@ def main() -> None:
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_scan.py:542",
          "launches": main_launches[0], "max_abs_err": k1_err,
          "ms": m["k1_ms"], "plain_ms": m["k1_plain_ms"], "bound_ms": m["k1_bound"][0],
-         "bound_by": m["k1_bound"][1], "library_ms": None},
+         "bound_by": m["k1_bound"][1], "library_ms": None,
+         "ptxas": ptxas["k1"]},
         {"name": "gather_dists", "route": "cuda",
          "source": f"{PKG}/csrc/gather_dists.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_gather.py:261",
@@ -2196,10 +2284,14 @@ def main() -> None:
                   pq_1m[100]["launches"]["k7"], k7),
         # K8 ids inside the fused loop (hnsw_pq_200k graph, ef 180)
         pq_kernel("adc_sums_ids_k16", "adc_sums.cu", "pallas_adc.py:253",
-                  pq_launches["graph"]["k8_ids"], pm["k8_ids"]),
+                  pq_launches["graph"]["k8_ids"],
+                  {**pm["k8_ids"], "extra": {**pm["k8_ids"]["extra"],
+                                             "ptxas": ptxas["k8_ids"]}}),
         # K8 dense on the 60,000-row Flat+PQ table at ef 600
         pq_kernel("adc_sums_dense_k16", "adc_sums.cu", "pallas_adc.py:253",
-                  pq_launches["k8_dense"], pm["k8_dense"]),
+                  pq_launches["k8_dense"],
+                  {**pm["k8_dense"], "extra": {**pm["k8_dense"]["extra"],
+                                               "ptxas": ptxas["k8_dense"]}}),
         # K9 ids / dense on the n_bits = 8 table's graph / scan routes (ef 180)
         pq_kernel("adc_sums_ids_k256", "adc_sums.cu", "pallas_adc.py:119",
                   pq_launches["nbits8_graph"]["k9_ids"], pm["k9_ids"]),

@@ -1,8 +1,8 @@
 """Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k7] [k8] [k9] [k11]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k7] [k8] [k9] [k11]
 
-(the named kernels only; all four without a name).
+(the named kernels only; all five without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -19,11 +19,21 @@ LUTs it times, with CUDA events (three means of five launches each):
 - K9 at the 8-bit scan's shape: 1000 LUT rows (bf16, m 320, k 256) x one
   131,072-row block, and its ids shape: 1000 queries x 128 candidates of a
   200,000-row table, 10% of the ids -1;
-- K8 at its ids shape (1000 x 128, m 320, k 16, bf16, packed codes) and
+- K8 at its ids shape (1000 x 128, m 320, k 16, bf16, packed codes), at
+  codes_pq_10m's pool width (1000 x 2048 of a 10,000,000-row table) and
   dense shape (1000 x 60,000, int8 LUT);
+- K1 (the packed int8 chunk-min scan; not an ADC kernel, timed here so that
+  one script serves every redesigned kernel) at flat_1m's shape, 1000
+  queries against 1,000,000 mirror rows of 1024 int8 lanes (padded to
+  1,001,472 rows), and at the 8,765- and 69,856-row overflow segments of
+  ivf_1m and ivf_lean_4m;
 
-each K8 / K9 result against its plain version (torch.equal), and prints each
-kernel's registers from the build.
+each K1 / K8 / K9 result against its plain version (torch.equal, the plain
+version timed beside it), and prints each kernel's registers from the build.
+K1 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
+("graph ms"): at a few tens of microseconds a call's host work (argument
+checks, the launch plan, ctypes) outlasts the kernel, and back-to-back
+launches then time the host.
 """
 
 from __future__ import annotations
@@ -47,6 +57,36 @@ def _ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _graph_ms(fn, reps: int = 20):
+    """Mean device ms of `fn` replayed from a CUDA graph of `reps` calls:
+    the launches without the host's per-call work, which for a kernel of a
+    few tens of microseconds is longer than the kernel.  None where the
+    capture fails."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        return round(e0.elapsed_time(e1) / reps, 4)
+    except RuntimeError as err:
+        print("  graph capture failed:", str(err).splitlines()[0][:120], flush=True)
+        return None
+
+
 def main() -> None:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -56,12 +96,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    which = set(sys.argv[2:]) or {"k7", "k8", "k9", "k11"}
+    which = set(sys.argv[2:]) or {"k1", "k7", "k8", "k9", "k11"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
-        if "Function properties for" in ln and ("chunkmin" in ln or "adc_sums" in ln or "k9" in ln):
+        if "Function properties for" in ln and any(f in ln for f in ("chunkmin", "adc_sums", "k9", "k8",
+                                                                       "scan_int8_packed")):
             print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
                   log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -85,10 +126,13 @@ def main() -> None:
             equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         print(label, f"K7 N {N} m {m} chunk 32: ms {[round(t, 3) for t in times]} equal {equal}", flush=True)
         del codes
+    if "k1" in which:
+        _time_k1(label, g)
     if "k9" in which:
         _time_sums(label, g, 256, False, torch.bfloat16, 131_072, 200_000)
     if "k8" in which:
         _time_sums(label, g, 16, True, torch.int8, 60_000, 200_000)
+        _time_pool(label, g)
     if "k11" in which and hasattr(A, "adc_chunkmin_binned"):
         nl, lpad, qb, m = 2048, 7680, 64, 320
         codes = torch.randint(0, 256, (nl * lpad, m // 2), generator=g, device="cuda", dtype=torch.uint8)
@@ -104,6 +148,50 @@ def main() -> None:
         equal = torch.equal(got[0][f], ref[0][f]) and torch.equal(got[1][f], ref[1][f])
         print(label, f"K11 {nl} x {lpad} qb {qb} m {m} chunk 16: ms {[round(t, 3) for t in times]} "
               f"equal {equal}", flush=True)
+
+
+def _time_k1(label, g, B=1000, D=1024):
+    """K1 on random int8 rows and queries with positive channels, at
+    flat_1m's 1,000,000 rows and the 8,765- and 69,856-row overflow
+    segments of ivf_1m and ivf_lean_4m (each padded to whole 2048-row
+    chunks once, outside the timing), against its plain version."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    q8 = torch.randint(-127, 128, (B, D), generator=g, device="cuda", dtype=torch.int8)
+    qs2 = torch.rand(B, generator=g, device="cuda") * 1e-2
+    qc = torch.rand(B, generator=g, device="cuda") * 100
+    for n in (1_000_000, 8765, 69_856):
+        base = torch.randint(-127, 128, (n, D), generator=g, device="cuda", dtype=torch.int8)
+        sc = torch.rand(n, generator=g, device="cuda") * 1e-3
+        ca = torch.rand(n, generator=g, device="cuda") * 100
+        args = (q8, qs2, qc) + S._pad_rows(base, sc, ca, S._NB)
+        del base
+        times = [_ms(lambda: S.scan_chunkmin_int8_packed(*args), 10) for _ in range(3)]
+        plain = _ms(lambda: S.scan_chunkmin_int8_packed_ref(*args), 1)
+        equal = torch.equal(S.scan_chunkmin_int8_packed(*args), S.scan_chunkmin_int8_packed_ref(*args))
+        print(label, f"K1 N {n} (padded {args[3].shape[0]}) D {D} B {B}: ms {[round(t, 4) for t in times]} "
+              f"graph ms {_graph_ms(lambda: S.scan_chunkmin_int8_packed(*args))} plain {plain:.3f} "
+              f"equal {equal}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
+def _time_pool(label, g, B=1000, C=2048, m=320, n_table=10_000_000):
+    """K8's ids shape at codes_pq_10m's stage-1 pool: 1000 queries x 2048
+    candidates of a 10,000,000-row packed table, bf16 LUT."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import adc as A
+
+    codes = torch.randint(0, 256, (n_table, m // 2), generator=g, device="cuda", dtype=torch.uint8)
+    lut = torch.rand((B, m, 16), generator=g, device="cuda").to(torch.bfloat16)
+    ids = torch.randint(0, n_table, (B, C), generator=g, device="cuda", dtype=torch.int32)
+    args = (codes, lut, ids, m, True)
+    times = [_ms(lambda: A.adc_sums_ids(*args), 10) for _ in range(3)]
+    plain = _ms(lambda: A.adc_sums_ids_ref(*args, False), 1)
+    equal = torch.equal(A.adc_sums_ids(*args), A.adc_sums_ids_ref(*args, False))
+    print(label, f"K8 ids {B} x {C} (pool) m {m}: ms {[round(t, 4) for t in times]} graph ms "
+          f"{_graph_ms(lambda: A.adc_sums_ids(*args))} plain {plain:.3f} equal {equal}", flush=True)
 
 
 def _time_sums(label, g, k, packed, dense_dtype, n_dense, n_table, m=320, B=1000):
@@ -129,7 +217,8 @@ def _time_sums(label, g, k, packed, dense_dtype, n_dense, n_table, m=320, B=1000
     times = [_ms(lambda: A.adc_sums_ids(*args), 20) for _ in range(3)]
     equal = torch.equal(A.adc_sums_ids(*args), A.adc_sums_ids_ref(*args, False))
     print(label, f"K{9 if k == 256 else 8} ids {B} x 128 m {m} k {k}: "
-          f"ms {[round(t, 4) for t in times]} equal {equal}", flush=True)
+          f"ms {[round(t, 4) for t in times]} graph ms {_graph_ms(lambda: A.adc_sums_ids(*args))} "
+          f"equal {equal}", flush=True)
 
 
 if __name__ == "__main__":

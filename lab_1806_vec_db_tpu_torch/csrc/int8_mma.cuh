@@ -11,9 +11,9 @@
 //                                                  column over a 128-row
 //                                                  sub-tile
 //
-// K1 (csrc/scan_int8_packed.cu), K10 (csrc/scan_int8_binned.cu), K12
-// (csrc/scan_bf16_chunkmin.cu) and K13 / K14 (csrc/scan_int8_bf16.cu) all
-// score 128 base rows against 128 queries per step with 8 warps laid out
+// K10 (csrc/scan_int8_binned.cu), K12 (csrc/scan_bf16_chunkmin.cu) and
+// K13 / K14 (csrc/scan_int8_bf16.cu) all score 128 base rows against 128
+// queries per step with 8 warps laid out
 // 2 (rows) x 4 (queries); warp (wm, wn) holds rows wm*64 + mt*16 + {g, g+8}
 // and queries wn*32 + nt*8 + 2t + {0, 1} of the tile in acc[mt][nt][2h + j]
 // (g = lane / 4, t = lane % 4, h selects the +8 row).  One copy of the

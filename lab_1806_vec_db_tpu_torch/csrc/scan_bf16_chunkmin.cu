@@ -19,7 +19,7 @@
 //
 // What bounds it on the H100: the bf16 products.  At N = 1M, B = 1000,
 // D = 960 that is 1.92e12 operations (1.94 ms at the card's dense bf16
-// rate) against 1.9 GB of rows (0.58 ms).  Design: K1's tile and two-stage
+// rate) against 1.9 GB of rows (0.58 ms).  Design: int8_mma.cuh's tile and two-stage
 // cp.async pipeline (csrc/int8_mma.cuh): one CTA owns 1024 rows (the
 // reference's grid step) and 128 queries, walks them in 128-row sub-tiles of
 // mma.sync m16n8k16 bf16 -> f32 products (a 64-byte stage is 32 bf16

@@ -30,7 +30,7 @@
 //
 // What bounds them on the H100: the int8 products, 1.92e12 operations at
 // N = 1M, B = 1000, D = 960 (0.97 ms); K13 also writes its 2.0 GB matrix
-// (0.60 ms of bytes).  Design: K1's pipeline (csrc/int8_mma.cuh), one CTA
+// (0.60 ms of bytes).  Design: the mma.sync pipeline of csrc/int8_mma.cuh, one CTA
 // per 1024 rows x 128 queries in 128-row sub-tiles.  K13 pairs the rows of
 // neighbouring lanes with one shuffle, so each lane stores two adjacent bf16
 // of one query row (4-byte stores, 16 contiguous bytes per 4 lanes).  K14

@@ -29,7 +29,7 @@
 // queries (2 * 128 int8 operations per mirror byte, under the card's
 // ~590 int8 ops per HBM byte), and the (R/4, 128) int32 output adds 128
 // bytes per mirror row of 1024: at R = 1.5M rows the floor is ~0.5 ms.
-// Design: one CTA per (list, 512-row tile) with K1's mma.sync m16n8k32
+// Design: one CTA per (list, 512-row tile) with the mma.sync m16n8k32
 // pipeline (csrc/int8_mma.cuh).  The tile's four 128-row sub-tiles are
 // exactly its four levels, so the group-min is an elementwise running min in
 // registers across sub-tiles (each thread keeps its rows' survivors from the

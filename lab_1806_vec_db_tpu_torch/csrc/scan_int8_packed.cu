@@ -17,180 +17,319 @@
 // survivor per strided 128-row group, its level in the low 7 bits.  The
 // (N, B) distance matrix never reaches device memory.
 //
-// What bounds it on the H100: the int8 products.  At N = 1M, B = 1000,
-// D = 1024 that is 2.0e12 int8 operations against only ~1 GB of mirror
-// reads, far above the card's ops-per-byte balance point, so the kernel is
-// built around tensor-core `mma.sync` s8 x s8 -> s32 (m16n8k32) tiles.  Each
-// CTA owns one 2048-row chunk and 128 queries, walks the chunk in 128-row
-// sub-tiles with a two-stage cp.async pipeline (64-byte k slices in padded,
-// bank-conflict-free shared memory), and folds every sub-tile's distances
-// into per-thread running minima in registers.  The chunk loop inside the
-// CTA takes the place of the TPU's sequential grid, so no survivor state
-// leaves the CTA until the final 16 x 128 write.  The 8 query tiles of one
-// chunk are adjacent in launch order, so a chunk is read from HBM about once
-// and served to the others from L2.  wgmma/TMA are later work.
+// What bounds it on the H100: the int8 products, 2 N B D operations (1.9e12
+// at N = 1M, B = 1000, D = 960: 0.97 ms at the card's int8 peak) against
+// ~1 GB of mirror, and behind them the L2 reads that feed the tensor cores.
+// The design:
+//
+// - A CTA is one tile of 128 queries (the wgmma N) and a run of work items
+//   (`ops/scan.py:k1_plan`): an item is one 2048-row chunk, or a 1/2, 1/4 or
+//   1/8 part of one where the chunks alone would leave SMs idle (the IVF
+//   overflow segments, small batches); items are dealt round-robin to the
+//   CTAs of a query tile, so the query tiles of one item run together and
+//   share its rows in L2.
+// - The query tile stays in shared memory for the CTA's whole run (128 x D
+//   bytes, loaded once by TMA in 128-byte boxes with the 128-byte swizzle)
+//   where D <= 1024, so the mirror crosses L2 once per query tile and the
+//   queries not at all; past 1024 lanes each ring stage carries its query
+//   box beside its row box.
+// - Warpgroup 0 produces, warpgroups 1 and 2 consume; they take the 64-row
+//   tiles in turns.  One thread of warp p streams consumer p's tiles, as
+//   64-row x 128-byte boxes of the mirror, by TMA into that consumer's own
+//   ring of stages under full / empty mbarriers (one ring shared by both
+//   would have a consumer wait on a slot's phase before the other's earlier
+//   phase had landed).  Each consumer issues `wgmma.mma_async` m64n128k32 s32.s8.s8 with A (mirror rows)
+//   and B (queries) both read from shared memory through descriptors, both
+//   K-major as they lie in device memory.  While one consumer runs its
+//   epilogue the other's products are in flight.
+// - wgmma's accumulator layout is the survivor layout: in a 64-row tile
+//   (16-row aligned), warp w holds rows 16 w + g and 16 w + g + 8 of query
+//   columns 8 nt + 2 t + j, i.e. level tile_row0 / 16 + w, slots g and
+//   g + 8.  The epilogue folds each distance straight into a running
+//   minimum in the same register position; at an item's end the two
+//   consumers' 4 warps meet in shared memory (int32 atomicMin) and the
+//   item's 16 x 128 survivors leave the CTA in coalesced stores (a global
+//   atomicMin where an item is part of a chunk: the wrapper fills the
+//   output with INT32_MAX first).
 //
 // The epilogue uses __fadd_rn/__fmul_rn/__fsub_rn in the reference's order
 // so nvcc cannot contract it into an FMA: the result matches the plain
 // PyTorch version (scan_chunkmin_int8_packed_ref) bit for bit.  float(dot)
-// is exact because |dot| <= 1024 * 127^2 < 2^24.
+// is exact because |dot| <= 1024 * 127^2 < 2^24 (the mirror's 1024 lanes).
 //
 // Requirements, checked by the Python wrapper: N % 2048 == 0 (the wrapper
-// pads with +BIG sentinels), D % 64 == 0, contiguous tensors, N/2048 <= 65535.
+// pads with +BIG sentinels), D % 128 == 0, 16-byte aligned contiguous
+// tensors; the plan's CTAs per query tile <= 65535.
+//
+// It includes K7's header (csrc/adc_scan_chunkmin.cuh) for its mbarrier,
+// TMA, descriptor and wgmma fence helpers only; K7's kernel is unchanged.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"
+#include "adc_scan_chunkmin.cuh"
 
 namespace {
 
-using namespace vecdb::i8;
+using k7::mbar_arrive;
+using k7::mbar_expect_tx;
+using k7::mbar_init;
+using k7::mbar_wait;
+using k7::smem_u32;
 
 constexpr int CHUNK_ROWS = 2048;  // NB = CB of the reference (_tiles_for)
-constexpr int SLOTS = 16;         // SB = CB / 128 survivors per chunk
-constexpr int SUBTILES = CHUNK_ROWS / BM;
+constexpr int SLOTS = 16;         // survivors per chunk
+constexpr int BN = 128;           // queries per CTA (the wgmma N)
+constexpr int BM = 64;            // mirror rows per tile (the wgmma M)
+constexpr int BK = 128;           // bytes of depth per box (one 128-byte swizzle row)
+constexpr int A_BOX = BM * BK;    // 8 KB
+constexpr int Q_BOX = BN * BK;    // 16 KB
+constexpr int RESIDENT_KT = 8;    // boxes of the resident query tile: D <= 1024
+constexpr int THREADS = 384;      // warpgroup 0 produces, 1 and 2 consume
+constexpr int SMEM_MAX = 232448;
 
-__global__ void __launch_bounds__(THREADS)
-scan_int8_packed_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs2,
-                        const float* __restrict__ qc, const int8_t* __restrict__ base,
+struct Layout {
+  int resident, stage, ring;
+  size_t qres, red, chan, bars, bytes;
+};
+
+// shared memory, after a 1024-byte alignment pad: the resident query tile,
+// the ring, the 16 x 128 int32 reduction, the 2 x 128 query channels, the
+// full / empty / query mbarriers
+__host__ __device__ inline Layout layout(int KT) {
+  Layout L;
+  L.resident = KT <= RESIDENT_KT;
+  L.stage = A_BOX + (L.resident ? 0 : Q_BOX);
+  L.qres = L.resident ? static_cast<size_t>(KT) * Q_BOX : 0;
+  const size_t fixed = 1024 + L.qres + SLOTS * BN * 4 + 2 * BN * 4 + 8;
+  L.ring = static_cast<int>((SMEM_MAX - fixed) / (L.stage + 16));
+  if (L.ring > 16) L.ring = 16;
+  L.red = L.qres + static_cast<size_t>(L.ring) * L.stage;
+  L.chan = L.red + SLOTS * BN * 4;
+  L.bars = L.chan + 2 * BN * 4;
+  L.bytes = 1024 + L.bars + (2 * L.ring + 1) * 8;
+  return L;
+}
+
+__device__ __forceinline__ float epilogue(int dot, float ca, float qc, float sc, float qs) {
+  return __fsub_rn(__fadd_rn(ca, qc), __fmul_rn(__int2float_rn(dot), __fmul_rn(sc, qs)));
+}
+
+__device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads only
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// d (+)= A (64 x 32, shared memory) x B (32 x 128, shared memory):
+// accumulate == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+scan_int8_packed_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap q_map,
+                        const float* __restrict__ qs2, const float* __restrict__ qc,
                         const float* __restrict__ scale, const float* __restrict__ cache,
-                        int32_t* __restrict__ out, int B, int D) {
-  __shared__ __align__(16) int8_t smA[2][BM * LDS];
-  __shared__ __align__(16) int8_t smB[2][BN * LDS];
+                        int32_t* __restrict__ out, int B, int KT, int parts, int items, int atomic) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1024-aligned
+  const Layout L = layout(KT);
+  uint8_t* qres = base;
+  uint8_t* ring = base + L.qres;
+  int32_t* red = reinterpret_cast<int32_t*>(base + L.red);
+  float* qs_s = reinterpret_cast<float*>(base + L.chan);
+  float* qc_s = qs_s + BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);  // two rings: consumer c's slots c * rc ...
+  uint64_t* empty = full + L.ring;
+  uint64_t* qbar = empty + L.ring;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int warp_m = warp & 1, warp_n = warp >> 1;
   const int n0 = blockIdx.x * BN;
-  const size_t row0 = static_cast<size_t>(blockIdx.y) * CHUNK_ROWS;
-  const int KT = D / BK;
-  const int steps = SUBTILES * KT;
+  const int part_rows = CHUNK_ROWS / parts;
+  const int tiles = part_rows / BM;  // tiles per item (even: 4-32)
 
-  // this thread's 8 query columns: n = n0 + warp_n*32 + nt*8 + t*2 + j
-  float q_s[4][2], q_c[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + warp_n * 32 + nt * 8 + t * 2 + j;
-      q_s[nt][j] = n < B ? qs2[n] : 0.f;
-      q_c[nt][j] = n < B ? qc[n] : 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < L.ring; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < BN; i += THREADS) {
+    qs_s[i] = n0 + i < B ? qs2[n0 + i] : 0.f;
+    qc_s[i] = n0 + i < B ? qc[n0 + i] : 0.f;
+  }
+  for (int i = tid; i < SLOTS * BN; i += THREADS) red[i] = 0x7fffffff;
+  __syncthreads();
 
-  // running packed minima: [slot g / slot g+8][nt][j]
-  int32_t mins[2][4][2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) mins[h][nt][0] = mins[h][nt][1] = 0x7fffffff;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-  auto load_stage = [&](int stage, int step) {
-    const int sub = step / KT, kt = step - (step / KT) * KT;
-    const int8_t* a_src = base + (row0 + static_cast<size_t>(sub) * BM) * D + kt * BK;
-    const int8_t* b_src = q8 + kt * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 128 rows x 64 bytes = 512 16-byte pieces per operand
-      const int id = tid + i * THREADS;
-      const int r = id >> 2, c = (id & 3) * 16;
-      cp_async16(&smA[stage][r * LDS + c], a_src + static_cast<size_t>(r) * D + c, 16);
-      const bool ok = n0 + r < B;  // rows past B are zero-filled
-      cp_async16(&smB[stage][r * LDS + c], ok ? b_src + static_cast<size_t>(n0 + r) * D + c : q8,
-                 ok ? 16 : 0);
+  const int rc = L.ring / 2;  // stages a consumer's own ring holds
+  if (tid < 128) {  // producer warpgroup: lane 0 of warp p feeds consumer p
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0 && L.resident) {
+      mbar_expect_tx(qbar, KT * Q_BOX);
+      for (int kt = 0; kt < KT; ++kt) k7::tma_load(qres + kt * Q_BOX, &q_map, kt * BK, n0, qbar);
     }
-  };
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      load_stage((s + 1) & 1, s + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* A = smA[s & 1];
-    const int8_t* Bq = smB[s & 1];
-    mma_step(A, Bq, acc, warp_m, warp_n, g, t);
-    __syncthreads();  // stage s&1 is refilled by the next iteration's prefetch
-
-    if (s % KT == KT - 1) {
-      // epilogue of sub-tile `sub`: rows sub*128 + warp_m*64 + mt*16 + {g, g+8}
-      // of the chunk, i.e. level sub*8 + warp_m*4 + mt, slots g and g+8
-      const int sub = s / KT;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int level = sub * 8 + warp_m * 4 + mt;
-        const size_t r_lo = row0 + sub * BM + warp_m * 64 + mt * 16 + g;
-        const float sc[2] = {scale[r_lo], scale[r_lo + 8]};
-        const float ca[2] = {cache[r_lo], cache[r_lo + 8]};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const float d = epilogue(acc[mt][nt][2 * h + j], ca[h], q_c[nt][j], sc[h], q_s[nt][j]);
-              const int32_t m = (__float_as_int(d) & ~127) | level;
-              mins[h][nt][j] = min(mins[h][nt][j], m);
-              acc[mt][nt][2 * h + j] = 0;
-            }
+    if ((tid & 31) == 0 && tid < 64) {
+      const int p = tid >> 5;
+      int it = 0, T = 0;
+      for (int item = blockIdx.y; item < items; item += gridDim.y) {
+        const int row0 = (item / parts) * CHUNK_ROWS + (item % parts) * part_rows;
+        for (int tile = 0; tile < tiles; ++tile, ++T) {
+          if ((T & 1) != p) continue;
+          for (int kt = 0; kt < KT; ++kt, ++it) {
+            const int slot = p * rc + it % rc;
+            if (it >= rc) mbar_wait(&empty[slot], ((it / rc) - 1) & 1);
+            uint8_t* st = ring + slot * L.stage;
+            mbar_expect_tx(&full[slot], L.stage);
+            k7::tma_load(st, &a_map, kt * BK, row0 + tile * BM, &full[slot]);
+            if (!L.resident) k7::tma_load(st + A_BOX, &q_map, kt * BK, n0, &full[slot]);
+          }
+        }
       }
     }
+    return;
   }
 
-  // combine the two row-warps that hold the same (slot, query) minima, then
-  // write the chunk's 16 x 128 survivors with coalesced stores
-  int32_t* red = reinterpret_cast<int32_t*>(&smA[0][0]);  // SLOTS x BN int32
-  if (warp_m == 1) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int ct = tid - 128;
+  const int wg = ct >> 7, warp = (ct >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (L.resident) mbar_wait(qbar, 0);
+
+  int acc[64];
+  int32_t mins[64];
+  int T = 0;   // the CTA's tile count: tile T is consumer T % 2's
+  int it = 0;  // this consumer's box count: box it is in slot wg * rc + it % rc
+  for (int item = blockIdx.y; item < items; item += gridDim.y) {
+    const int chunk = item / parts;
+    const int prow0 = (item % parts) * part_rows;  // the item's first row within its chunk
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < 64; ++i) mins[i] = 0x7fffffff;
+    for (int tile = 0; tile < tiles; ++tile, ++T) {
+      if ((T & 1) != wg) continue;
+      const int crow = prow0 + tile * BM + 16 * warp + g;  // this lane's first row within the chunk
+      const size_t x = static_cast<size_t>(chunk) * CHUNK_ROWS + crow;
+      const float sc[2] = {__ldg(scale + x), __ldg(scale + x + 8)};
+      const float ca[2] = {__ldg(cache + x), __ldg(cache + x + 8)};
+      k7::wgmma_fence();
+      k7::fence_acc(acc);
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int slot = wg * rc + it % rc;
+        mbar_wait(&full[slot], static_cast<unsigned>((it / rc) & 1));
+        const uint8_t* st = ring + slot * L.stage;
+        const uint8_t* qb = L.resident ? qres + kt * Q_BOX : st + A_BOX;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc, k7::desc_sw128(st + 32 * kk), k7::desc_sw128(qb + 32 * kk), kt | kk);
+        k7::wgmma_commit();
+        if (kt > 0) {  // the previous box's products have completed: free its stage
+          k7::wgmma_wait<1>();
+          mbar_arrive(&empty[prev]);
+        }
+        prev = slot;
+      }
+      k7::wgmma_wait<0>();
+      k7::fence_acc(acc);
+      mbar_arrive(&empty[prev]);
+
+      const int level = crow >> 4;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          red[(g + 8 * h) * BN + warp_n * 32 + nt * 8 + t * 2 + j] = mins[h][nt][j];
-  }
-  __syncthreads();
-  if (warp_m == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int i = (g + 8 * h) * BN + warp_n * 32 + nt * 8 + t * 2 + j;
-          red[i] = min(red[i], mins[h][nt][j]);
+          const int col = nt * 8 + t * 2 + j;
+          const float qs = qs_s[col], qcv = qc_s[col];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = nt * 4 + 2 * h + j;
+            const float d = epilogue(acc[i], ca[h], qcv, sc[h], qs);
+            mins[i] = min(mins[i], (__float_as_int(d) & ~127) | level);
+          }
         }
-  }
-  __syncthreads();
-  for (int i = tid; i < SLOTS * BN; i += THREADS) {
-    const int slot = i / BN, n = n0 + i % BN;
-    if (n < B) out[(static_cast<size_t>(blockIdx.y) * SLOTS + slot) * B + n] = red[i];
+    }
+
+    // the item's survivors: fold the 8 warps' minima in shared memory, then
+    // store them (slot-major, query-minor) and reset the buffer
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          atomicMin(&red[(g + 8 * h) * BN + nt * 8 + t * 2 + j], mins[nt * 4 + 2 * h + j]);
+    consumers_sync();
+    for (int i = ct; i < SLOTS * BN; i += 256) {
+      const int q = n0 + (i & (BN - 1));
+      if (q < B) {
+        int32_t* o = out + (static_cast<size_t>(chunk) * SLOTS + i / BN) * B + q;
+        if (atomic)
+          atomicMin(o, red[i]);
+        else
+          *o = red[i];
+      }
+      red[i] = 0x7fffffff;
+    }
+    consumers_sync();
   }
 }
 
 }  // namespace
 
+// grid: (ceil(B / 128) query tiles, ctas CTAs each); `parts` items per
+// chunk, `items` = N / 2048 * parts; `atomic` when parts > 1 (out then
+// holds INT32_MAX on entry)
 extern "C" int vecdb_scan_int8_packed(const void* q8, const void* qs2, const void* qc,
                                       const void* base, const void* scale, const void* cache,
-                                      void* out, int B, int N, int D, void* stream) {
+                                      void* out, int B, int N, int D, int parts, int ctas,
+                                      void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  dim3 grid((B + BN - 1) / BN, N / CHUNK_ROWS);
-  scan_int8_packed_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const float*>(qs2),
-      static_cast<const float*>(qc), static_cast<const int8_t*>(base),
-      static_cast<const float*>(scale), static_cast<const float*>(cache),
-      static_cast<int32_t*>(out), B, D);
+  if (D % BK || N % CHUNK_ROWS || (parts != 1 && parts != 2 && parts != 4 && parts != 8) || ctas <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const k7::EncodeTiled encode = k7::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap a_map, q_map;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N)};
+  const cuuint64_t q_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint32_t a_box[2] = {BK, BM}, q_box[2] = {BK, BN}, elem[2] = {1, 1};
+  if (encode(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), a_dims, strides, a_box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q8), q_dims, strides, q_box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int KT = D / BK;
+  const Layout L = layout(KT);
+  if (L.ring < 4) return static_cast<int>(cudaErrorInvalidValue);  // two stages a consumer
+  const cudaError_t err = cudaFuncSetAttribute(scan_int8_packed_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = N / CHUNK_ROWS * parts;
+  dim3 grid((B + BN - 1) / BN, ctas);
+  scan_int8_packed_kernel<<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+      a_map, q_map, static_cast<const float*>(qs2), static_cast<const float*>(qc),
+      static_cast<const float*>(scale), static_cast<const float*>(cache), static_cast<int32_t*>(out), B, KT,
+      parts, items, parts > 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,6 +37,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # facts about the build of this process: seconds spent compiling (0 when
 # the library was already built), the library path, nvcc's -Xptxas -v output
+# (read back from the build's log file when the library was already built)
 build_info: dict = {}
 
 
@@ -66,7 +67,7 @@ def _digest(srcs: list[str]) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.vecdb_scan_int8_packed.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    lib.vecdb_scan_int8_packed.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.vecdb_scan_int8_packed.restype = I
     lib.vecdb_scan_int8_binned.argtypes = [P] * 8 + [I, I, I, P]
     lib.vecdb_scan_int8_binned.restype = I
@@ -90,7 +91,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_adc_chunkmin_binned.restype = I
     lib.vecdb_adc_sums_dense.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.vecdb_adc_sums_dense.restype = I
-    lib.vecdb_adc_sums_ids.argtypes = [P] * 4 + [I] * 6 + [L, I, I, P]
+    lib.vecdb_adc_sums_ids.argtypes = [P] * 4 + [I] * 6 + [L] + [I] * 4 + [P]
     lib.vecdb_adc_sums_ids.restype = I
     lib.vecdb_error_string.argtypes = [I]
     lib.vecdb_error_string.restype = ctypes.c_char_p
@@ -136,10 +137,19 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA sources under {CSRC}")
         os.makedirs(BUILD_DIR, exist_ok=True)
         out = os.path.join(BUILD_DIR, f"libvecdb_{_digest(sources())}.so")
+        log_path = out[: -len(".so")] + ".log"  # nvcc's report, kept for a later process
         t0 = time.perf_counter()
-        log = ""
         if not os.path.exists(out):
             log = _compile_and_link(srcs, out)
+            tmp = f"{log_path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                f.write(log)
+            os.replace(tmp, log_path)
+        elif os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        else:
+            log = ""
         build_info.update(seconds=time.perf_counter() - t0, path=out, log=log)
         lib = ctypes.CDLL(out)
         _declare(lib)

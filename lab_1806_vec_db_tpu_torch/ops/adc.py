@@ -13,7 +13,9 @@
   (`k11_plan`) and whose LUT rows are gathered through the bins
   (`k11_stage_offset` says where they land; `k7_stage_offset` for K7's).
 - K8 / K9 `adc_sums_dense` and `adc_sums_ids` (`csrc/adc_sums.cu`; K8's
-  one body for k = 16, K9's own kernels for k = 256, `k9_dense_layout`):
+  kernels for k = 16: its dense int8 shape on K7's one-hot `wgmma`
+  pipeline (`k8_dense_operands`), its ids shape a warp per query
+  (`k8_ids_plan`); K9's own kernels for k = 256, `k9_dense_layout`):
   ADC sums of every code row against every LUT row (`adc_scan_pallas`, the
   scan of small sets and of n_bits = 8 tables) and of per-query candidate
   ids (`adc_dists_for_ids`, the HNSW+PQ node distance; it replaces the
@@ -453,6 +455,49 @@ def k9_dense_layout(lut_dtype: torch.dtype) -> dict:
             "smem_bytes": stages * (K9_QB * stride * 4 + K9_RB * 4)}
 
 
+# K8's ids kernel (csrc/adc_sums.cu, namespace k8): 8 warps a CTA, a warp on
+# one query, one candidate a lane per pass
+_K8_WARPS = 8
+
+
+def k8_ids_plan(C: int, m: int, lut_itemsize: int, shared: bool = False) -> dict:
+    """How K8's ids kernel covers (B, C) -> {"wq", "qc", "passes",
+    "row_bytes", "smem_bytes"}: wq = min(8, ceil(C / 32)) warps (a power
+    of two) share a query, a CTA holds qc = 8 / wq queries (fewer where
+    their LUT rows, m * 16 entries each, would overflow shared memory; one
+    row when `shared`).  Warp w of CTA x serves query x * qc + w // wq; its
+    lane l takes candidates p * 32 wq + (w % wq) * 32 + l in `passes`
+    passes p."""
+    wq = 1
+    while wq < _K8_WARPS and 32 * wq < C:
+        wq *= 2
+    row_bytes = m * 16 * lut_itemsize
+    qc = _K8_WARPS // wq
+    if not shared:
+        qc = min(qc, _SMEM_MAX // row_bytes)
+    if qc < 1 or row_bytes > _SMEM_MAX:
+        raise ValueError(f"K8 ids: a LUT row of m = {m} groups ({row_bytes} bytes) exceeds shared memory")
+    return {"wq": wq, "qc": qc, "passes": -(-C // (32 * wq)), "row_bytes": row_bytes,
+            "smem_bytes": row_bytes * (1 if shared else qc)}
+
+
+def k8_dense_operands(codes, lut):
+    """K8's one-hot dense kernel takes K7's operands: packed codes (N, cw)
+    and an int8 LUT (R, m, 16) -> (codes (N, cw') zero-padded to cw' % 4
+    == 0, LUT (R, 32 cw') int8, column g * 16 + v for group g, code v, zero
+    for the groups past m).  Sent to the kernel with m' = 2 cw'; a padded
+    group reads a zero column, so every int32 sum stays as it was."""
+    R, m, _ = lut.shape
+    cw = codes.shape[1]
+    cw4 = -(-cw // 4) * 4
+    if cw4 != cw:
+        codes = torch.nn.functional.pad(codes, (0, cw4 - cw))
+    lut2 = lut.reshape(R, m * 16)
+    if 32 * cw4 != m * 16:
+        lut2 = torch.nn.functional.pad(lut2, (0, 32 * cw4 - m * 16))
+    return codes.contiguous(), lut2.contiguous()
+
+
 def _sums_args(codes, lut, m: int, packed: bool):
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise TypeError("codes must be (n, cw) uint8")
@@ -494,6 +539,13 @@ def adc_sums_dense(codes, lut, scales, m: int, packed: bool):
         return adc_sums_dense_ref(codes, lut, scales, m, packed)
     N, R = codes.shape[0], lut.shape[0]
     codes, lut = codes.contiguous(), lut.contiguous()
+    if lut.dtype == torch.int8 and packed:  # the one-hot wgmma kernel (K7's operands)
+        codes, lut = k8_dense_operands(codes, lut)
+        m = 2 * codes.shape[1]
+        if codes.data_ptr() % 4:  # 4-byte code words
+            codes = codes.clone()
+        if lut.data_ptr() % 16:  # the TMA reads the LUT from a 16-byte aligned base
+            lut = lut.clone()
     sc = 0 if scales is None else scales.float().contiguous()
     out = torch.empty((R, N), dtype=torch.float32, device=dev)
     lib = _build.library()
@@ -538,13 +590,18 @@ def adc_sums_ids(codes, lut, ids, m: int, packed: bool, shared: bool = False):
     if dev.type == "cpu":
         return adc_sums_ids_ref(codes, lut, ids, m, packed, shared)
     codes, lut, ids = codes.contiguous(), lut.contiguous(), ids.contiguous()
+    plan = {"wq": 0, "qc": 0}
+    if k == 16:
+        plan = k8_ids_plan(C, m, lut.element_size(), shared)
+        if lut.data_ptr() % 16:  # 16-byte cp.async copies of the LUT rows
+            lut = lut.clone()
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.vecdb_adc_sums_ids(
             codes.data_ptr(), lut.data_ptr(), ids.data_ptr(), out.data_ptr(), B, C, m, k,
             codes.shape[1], int(packed), codes.shape[0], int(shared), _LUT_TYPES[lut.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            plan["wq"], plan["qc"], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "adc_sums_ids")
     adc_sums_ids.launches[k] += 1
     return out

@@ -8,7 +8,8 @@ device memory.  The caller takes an exact top-r over the (B, N/128)
 survivors, decodes their ids, and reranks them exactly (K2, `ops/gather.py`).
 
 On a CUDA tensor the scan is the hand-written kernel
-`csrc/scan_int8_packed.cu`; on a CPU tensor it is the plain PyTorch version
+`csrc/scan_int8_packed.cu` (`wgmma` + TMA; `k1_plan` sizes its launch,
+`k1_stage_offset` / `k1_acc_coords` give its tile layouts); on a CPU tensor it is the plain PyTorch version
 `scan_chunkmin_int8_packed_ref`, which computes the same int32 values bit for
 bit.  There is no fallback from one to the other.
 
@@ -32,8 +33,12 @@ _BIG = 3.0e38  # finite losing sentinel of invalid mirror rows
 _CHUNK = 128  # rows per survivor group
 _NB = 2048  # rows per chunk (the reference's NB = CB, `_tiles_for`)
 _SB = _NB // _CHUNK  # survivors per chunk (16)
-_BK = 64  # the CUDA kernel's int8 depth step: D must be a multiple
+_BK = 128  # the CUDA kernel's int8 depth step (one TMA box): D must be a multiple
 _REF_BLOCK = 65536  # rows per block of the plain version (bounds transients)
+_K1_BN, _K1_BM = 128, 64  # the kernel's queries per CTA (wgmma N) and rows per tile (M)
+_K1_PARTS = (1, 2, 4, 8)  # the parts a chunk may be split into
+_K1_ITEM_ROWS = 64  # an item's fixed cost (its survivors' fold and stores) in rows scanned
+_INT32_MAX = 2**31 - 1
 
 
 def query_channels(q_scale: torch.Tensor, q_cache: torch.Tensor, dist: str):
@@ -85,6 +90,54 @@ def scan_chunkmin_int8_packed_ref(q8, qs2, qc, base_i8, base_scale, base_cache):
     return out
 
 
+def k1_plan(n_pad: int, B: int, sms: int = 132) -> dict:
+    """How K1's kernel (csrc/scan_int8_packed.cu) covers a (n_pad, B) scan
+    on a card of `sms` SMs -> {"qtiles", "parts", "ctas", "items"}.
+
+    The grid is (qtiles = ceil(B / 128), ctas).  Each 2048-row chunk is
+    split into `parts` items of 2048 / parts rows (1, 2, 4 or 8); CTA
+    (x, y) scans query tile x against items y, y + ctas, y + 2 ctas, ...
+    (item i: chunk i // parts, part i % parts).  ctas fills at most one
+    wave (sms // qtiles CTAs a query tile), and `parts` is the split that
+    gives the busiest CTA the least work, an item costing its rows plus
+    _K1_ITEM_ROWS (the smallest split on ties): 1 at flat_1m, more on the
+    few chunks of an IVF overflow segment.  Where parts > 1 the kernel folds
+    partial survivors into the output with atomicMin."""
+    qtiles = -(-B // _K1_BN)
+    chunks = n_pad // _NB
+    per_tile = max(1, sms // qtiles)
+    best = None
+    for parts in _K1_PARTS:
+        items = chunks * parts
+        ctas = min(items, per_tile)
+        rows = -(-items // ctas) * (_NB // parts + _K1_ITEM_ROWS)
+        if best is None or rows < best[0]:
+            best = (rows, parts, ctas)
+    _, parts, ctas = best
+    return {"qtiles": qtiles, "parts": parts, "ctas": ctas, "items": chunks * parts}
+
+
+def k1_stage_offset(r, c):
+    """Byte offset of byte c (0 <= c < 128) of row r within a K1 box as TMA's
+    128-byte swizzle writes it (rows 128 bytes apart, 16-byte chunk j of
+    row r at chunk j ^ (r % 8)); the same for a 64-row mirror box and the
+    128-row query box (works on ints and integer tensors / arrays)."""
+    return r * _BK + ((((c % _BK) // 16) ^ (r % 8)) * 16) + c % 16
+
+
+def k1_acc_coords(warp, lane, i):
+    """(row, query column) within a 64 x 128 tile of accumulator register i
+    (0 <= i < 64) of `lane` in `warp` (0-3) of a consumer warpgroup, the
+    m64n128 wgmma layout: row 16 warp + lane // 4 + 8 ((i // 2) % 2),
+    column 8 (i // 4) + 2 (lane % 4) + i % 2.  In a 16-row aligned tile that
+    row is level row // 16 and slot row % 16 (works on ints and arrays)."""
+    return 16 * warp + lane // 4 + 8 * ((i // 2) % 2), 8 * (i // 4) + 2 * (lane % 4) + i % 2
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def scan_chunkmin_int8_packed(q8, qs2, qc, base_i8, base_scale, base_cache):
     """Packed-survivor int8 scan -> (N_pad/128, B) int32.
 
@@ -122,19 +175,26 @@ def scan_chunkmin_int8_packed(q8, qs2, qc, base_i8, base_scale, base_cache):
         q8 = torch.nn.functional.pad(q8, (0, pad))
         base_i8 = torch.nn.functional.pad(base_i8, (0, pad))
     n_pad, dpad = base_i8.shape
-    if n_pad // _NB > 65535:
-        raise ValueError(f"mirror of {n_pad} rows exceeds the kernel's grid limit")
+    if n_pad >= 2**31:
+        raise ValueError(f"mirror of {n_pad} rows exceeds the kernel's int32 row coordinates")
     q8 = q8.contiguous()
+    if q8.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
+        q8 = q8.clone()
+    if base_i8.data_ptr() % 16:
+        base_i8 = base_i8.clone()
     qs2, qc = qs2.float().contiguous(), qc.float().contiguous()
     base_scale, base_cache = base_scale.float().contiguous(), base_cache.float().contiguous()
-    out = torch.empty((n_pad // _CHUNK, B), dtype=torch.int32, device=dev)
+    plan = k1_plan(n_pad, B, _sm_count(dev))
+    shape = (n_pad // _CHUNK, B)
+    out = (torch.full(shape, _INT32_MAX, dtype=torch.int32, device=dev) if plan["parts"] > 1
+           else torch.empty(shape, dtype=torch.int32, device=dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vecdb_scan_int8_packed(
             q8.data_ptr(), qs2.data_ptr(), qc.data_ptr(), base_i8.data_ptr(),
             base_scale.data_ptr(), base_cache.data_ptr(), out.data_ptr(),
-            B, n_pad, dpad, stream,
+            B, n_pad, dpad, plan["parts"], plan["ctas"], stream,
         )
     _build.check(status, "scan_int8_packed")
     scan_chunkmin_int8_packed.launches += 1

@@ -298,3 +298,68 @@ def test_k7_k9_wrappers_reject_what_the_new_kernels_do_not_take():
     with pytest.raises(ValueError):  # 8 groups of packed codes against a 4-group LUT
         A.adc_chunkmin(torch.zeros((256, 4), dtype=torch.uint8), lut_q[:, :64], scales, _t(q_norms),
                        cs_q, cs_scale, 256, True, 8)
+
+
+@pytest.mark.parametrize("B", [1, 13, 1000])
+@pytest.mark.parametrize("C", [1, 16, 128, 2048])
+def test_k8_ids_plan_covers_every_pair_once(C, B):
+    """K8's ids plan (`k8_ids_plan`: queries per CTA, warps per query,
+    passes, so candidates per lane) gives every (b, c) exactly one (CTA,
+    warp, lane, pass) at the graph route's widths (1, 16, 128) and
+    codes_pq_10m's pool (2048), with bf16 and f32 LUT rows of m = 320 in
+    shared memory; the cosine route's shared row fits at any width."""
+    for itemsize in (2, 4):
+        plan = A.k8_ids_plan(C, 320, itemsize)
+        assert plan["smem_bytes"] <= A._SMEM_MAX and plan["wq"] * plan["qc"] <= A._K8_WARPS
+        wq, qc = plan["wq"], plan["qc"]
+        count = np.zeros((B, C), np.int64)
+        for cta in range(-(-B // qc)):
+            for w in range(A._K8_WARPS):
+                b = cta * qc + w // wq
+                if w // wq >= qc or b >= B:
+                    continue
+                for p in range(plan["passes"]):
+                    c = p * 32 * wq + (w % wq) * 32 + np.arange(32)
+                    np.add.at(count[b], c[c < C], 1)
+        assert (count == 1).all()
+        assert A.k8_ids_plan(C, 320, itemsize, shared=True)["smem_bytes"] == 320 * 16 * itemsize
+
+
+def test_k8_ids_code_words_unpack_the_groups():
+    """K8's ids kernel reads a code row 16 bytes at a time as four
+    little-endian words and takes group e of the 16 bytes as nibble e % 8 of
+    word e // 8 (packed) or byte e % 4 of word e // 4 (one code a byte):
+    the groups `unpack_codes` gives."""
+    _, codes, stored, _, _, _ = _inputs(9, N=50, B=1, m=64, packed=True)
+    for packed, rows in ((True, stored), (False, codes)):
+        gpc = 32 if packed else 16
+        for k in range(0, rows.shape[1], 16):
+            words = np.ascontiguousarray(rows[:, k : k + 16]).view("<u4")  # (N, 4)
+            e = np.arange(gpc)
+            if packed:
+                got = (words[:, e >> 3] >> (4 * (e & 7))) & 15
+            else:
+                got = (words[:, e >> 2] >> (8 * (e & 3))) & 15
+            g0 = (k // 16) * gpc
+            np.testing.assert_array_equal(got, codes[:, g0 : g0 + gpc])
+
+
+@pytest.mark.parametrize("m", [8, 13, 19, 320])
+def test_k8_dense_operands_keep_the_sums(m):
+    """K8's one-hot dense kernel takes K7's operands (`k8_dense_operands`):
+    the code width zero-padded to a multiple of 4 and the int8 LUT as
+    (R, 32 cw') columns, zero past group m.  The plain version over those
+    (m' = 2 cw' groups) equals it over the original operands, and so does a
+    one-hot product in K7's column order."""
+    lookup, _, stored, _, _, _ = _inputs(12, N=300, B=5, m=m, packed=True)
+    lut, scales = A.round_lut(_t(lookup), "int8")
+    codes = _t(stored)
+    pc, pl = A.k8_dense_operands(codes, lut)
+    cw4 = -(-stored.shape[1] // 4) * 4
+    assert pc.shape == (300, cw4) and pl.shape == (5, 32 * cw4) and pl.dtype == torch.int8
+    expect = A.adc_sums_dense_ref(codes, lut, scales, m, True)
+    got = A.adc_sums_dense_ref(pc, pl.reshape(5, 2 * cw4, 16), scales, 2 * cw4, True)
+    assert torch.equal(got, expect)
+    c = A.unpack_codes(pc, 2 * cw4, True)  # the one-hot rows K7's A registers encode
+    onehot = torch.nn.functional.one_hot(c, 16).reshape(300, 32 * cw4).long()
+    assert torch.equal((pl.long() @ onehot.T).float() * scales[:, None], expect)

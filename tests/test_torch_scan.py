@@ -158,3 +158,132 @@ def test_decode_perm_matches_reference():
     expect = np.asarray(JT.decode_perm(jnp.asarray(cand), jnp.asarray(perm), jnp.int32(40)))
     got = T.decode_perm(torch.from_numpy(cand), torch.from_numpy(perm), 40).numpy()
     np.testing.assert_array_equal(got, expect)
+
+
+def _k1_coverage(n_pad, B, sms=132):
+    """Survivor contributions of K1's launch as the kernel walks it: CTA
+    (x, y) scans query tile x against items y, y + ctas, ...; item i covers
+    levels (i % parts) * 128 / parts ... of chunk i // parts -> (chunks, 128
+    levels, B) counts, and the plan."""
+    plan = S.k1_plan(n_pad, B, sms)
+    chunks = n_pad // S._NB
+    lv = 128 // plan["parts"]
+    count = np.zeros((chunks, 128, B), np.uint8)
+    for x in range(plan["qtiles"]):
+        q0, q1 = x * S._K1_BN, min(B, (x + 1) * S._K1_BN)
+        for y in range(plan["ctas"]):
+            for item in range(y, plan["items"], plan["ctas"]):
+                c, p = divmod(item, plan["parts"])
+                count[c, p * lv : (p + 1) * lv, q0:q1] += 1
+    return count, plan
+
+
+@pytest.mark.parametrize("B", [1, 16, 129, 1000])
+@pytest.mark.parametrize("n", [2048, 8765, 1_000_000])
+def test_k1_plan_covers_every_survivor_once(n, B):
+    """K1's tile plan (`k1_plan`, which sizes the kernel's launch) gives
+    every (chunk, slot, query) survivor each of its chunk's 128 levels
+    exactly once (the 16 slots of a level lie in one 64-row tile of an
+    item), in one wave of CTAs; items that split a chunk fold into it with
+    atomicMin, so the plan's parts say whether the output starts filled."""
+    n_pad = -(-n // S._NB) * S._NB
+    count, plan = _k1_coverage(n_pad, B)
+    assert (count == 1).all()
+    assert plan["qtiles"] * plan["ctas"] <= 132 or plan["ctas"] == 1
+    assert plan["items"] == n_pad // S._NB * plan["parts"] and plan["ctas"] <= plan["items"]
+    assert (S._NB // plan["parts"]) % (2 * S._K1_BM) == 0  # whole tiles, an even count per item
+
+
+def _k1_emulate(q8, qs2, qc, b8, sc, ca, plan):
+    """K1's kernel, step by step in numpy: each 64-row tile's 128-byte boxes
+    land in shared memory as TMA's 128-byte swizzle writes them
+    (`k1_stage_offset`), the query tile likewise; each k-step's wgmma reads
+    them through its descriptors (rows 128 bytes apart, 8-row groups 1024
+    apart, the address swizzled by the hardware); accumulator register i
+    of lane l in warp w is (row, query) `k1_acc_coords(w, l, i)`; the
+    epilogue rounds every operation in f32 and folds into mins[i]; an item's
+    8 warps (2 consumers x 4) meet in a minimum."""
+    B, D = q8.shape
+    N = b8.shape[0]
+    KT = D // 128
+    out = np.full((N // 128, B), 2**31 - 1, np.int64)
+    r = np.arange(128)[:, None]
+    c = np.arange(128)[None, :]
+    k = np.arange(32)[None, :]
+
+    def stage(mat, rows):  # a box as TMA writes it: rows x 128 bytes, swizzled
+        buf = np.zeros(rows * 128, np.int8)
+        buf[S.k1_stage_offset(r[:rows], c)] = mat
+        return buf
+
+    def read(buf, rows, kk):  # what the descriptor reads for k-step kk
+        addr = 32 * kk + (r[:rows] // 8) * 1024 + (r[:rows] % 8) * 128 + k
+        return buf[addr ^ (((addr >> 7) & 7) << 4)]
+
+    warp, lane, i = np.meshgrid(np.arange(4), np.arange(32), np.arange(64), indexing="ij")
+    row, col = S.k1_acc_coords(warp, lane, i)
+    part_rows = S._NB // plan["parts"]
+    for x in range(plan["qtiles"]):
+        qt = np.zeros((128, D), np.int8)
+        qt[: min(128, B - 128 * x)] = q8[128 * x : 128 * x + 128]
+        qbufs = [stage(qt[:, kt * 128 : kt * 128 + 128], 128) for kt in range(KT)]
+        cols = 128 * x + col
+        live = cols < B
+        cl = np.minimum(cols, B - 1)
+        for item in range(plan["items"]):
+            chunk, part = divmod(item, plan["parts"])
+            mins = np.full((2, 4, 32, 64), 2**31 - 1, np.int64)
+            for tile in range(part_rows // 64):
+                x0 = chunk * S._NB + part * part_rows + tile * 64
+                acc = np.zeros((64, 128), np.int64)
+                for kt in range(KT):
+                    abuf = stage(b8[x0 : x0 + 64, kt * 128 : kt * 128 + 128], 64)
+                    for kk in range(4):
+                        acc += read(abuf, 64, kk).astype(np.int64) @ read(qbufs[kt], 128, kk).astype(np.int64).T
+                xr = x0 + row
+                ca_q = (ca[xr] + qc[cl]).astype(np.float32)
+                sq = (sc[xr] * qs2[cl]).astype(np.float32)
+                d = (ca_q - (acc[row, col].astype(np.float32) * sq).astype(np.float32)).astype(np.float32)
+                level = (part * part_rows + tile * 64) // 16 + warp
+                packed = (d.view(np.int32).astype(np.int64) & ~127) | level
+                mins[tile % 2] = np.minimum(mins[tile % 2], packed)
+            m = mins.min(axis=0)  # the two consumers, then the 4 warps per (slot, query)
+            slot = row % 16
+            for w in range(4):
+                sel = live[w]
+                idx = (chunk * 16 + slot[w][sel], cols[w][sel])
+                np.minimum.at(out, idx, m[w][sel])
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k1_tiles_emulated(dist):
+    """An emulation of K1's swizzled TMA tiles, its wgmma descriptors and its
+    accumulator-to-(level, slot) map, run on the plan's items (chunks split
+    in parts here), gives `scan_chunkmin_int8_packed_ref`'s output bit for
+    bit, including a partial second query tile."""
+    N, dim, B = 4096, 256, 130
+    base, qs = _make(N, dim, B, seed=11)
+    b8, sc, cache = _t(*_channels(base, dist))
+    q8, qs2, qc = S.quantize_queries(torch.from_numpy(qs), dim, dist)
+    plan = S.k1_plan(N, B)
+    assert plan["parts"] > 1 and plan["qtiles"] == 2
+    got = _k1_emulate(q8.numpy(), qs2.numpy(), qc.numpy(), b8.numpy(), sc.numpy(), cache.numpy(), plan)
+    np.testing.assert_array_equal(got, S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, b8, sc, cache).numpy())
+
+
+def test_k1_stage_offset_is_the_swizzle_the_descriptor_reads():
+    """`k1_stage_offset` is TMA's 128-byte swizzle of a 128-byte-row box
+    (16-byte chunk j of row r at chunk j ^ (r % 8)), and reading a box
+    through the descriptor addresses returns each row's 32 bytes of every
+    k-step."""
+    r = np.arange(64)[:, None]
+    c = np.arange(128)[None, :]
+    linear = r * 128 + c
+    np.testing.assert_array_equal(S.k1_stage_offset(r, c), linear ^ (((linear >> 7) & 7) << 4))
+    box = np.random.default_rng(4).integers(-127, 128, (64, 128)).astype(np.int8)
+    buf = np.zeros(64 * 128, np.int8)
+    buf[S.k1_stage_offset(r, c)] = box
+    for kk in range(4):
+        addr = 32 * kk + (r // 8) * 1024 + (r % 8) * 128 + np.arange(32)[None, :]
+        np.testing.assert_array_equal(buf[addr ^ (((addr >> 7) & 7) << 4)], box[:, 32 * kk : 32 * kk + 32])
