@@ -906,6 +906,54 @@ def phase_pq_1m(store, flat, q, gt):
     return out, k7
 
 
+def check_k45_graph(index, pq, q_host, ef, launches, nth=8):
+    """K4 and K5 at the shape the PQ graph route gives them: the arguments
+    of the `nth` launch of each in one batch at `ef` (captured by swapping
+    the wrappers, as `plain_kernels` does), each kernel against its plain
+    version on them (equal), timed in turns; bound from their shapes (the
+    formulas of `phase_hnsw`); score = launches a batch x (ms - bound)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+
+    kept, seen = {}, {"beam_pre": 0, "beam_post": 0}
+    orig = {name: getattr(BF, name) for name in seen}
+
+    def capture(name):
+        def fn(*args):
+            seen[name] += 1
+            if seen[name] == nth:
+                kept[name] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            return orig[name](*args)
+        fn.launches = 0  # the wrapper counts its launches in the module's binding of its name
+        return fn
+
+    try:
+        BF.beam_pre, BF.beam_post = capture("beam_pre"), capture("beam_post")
+        index.knn_pq_batch(q_host, 10, ef, pq, route="graph")
+    finally:
+        BF.beam_pre, BF.beam_post = orig["beam_pre"], orig["beam_post"]
+    out = {}
+    for key, name, ref in (("k4", "beam_pre", BF.beam_pre_ref), ("k5", "beam_post", BF.beam_post_ref)):
+        args = kept[name]
+        got, want = orig[name](*args), ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{key.upper()} at PQ graph ef {ef}: differs")
+        B, W = args[0].shape
+        if key == "k4":  # beam_i, ring, nbrs, selq's E lanes in; comp, ring', cnt out
+            R, EL, E = args[1].shape[1], args[3].shape[1], args[4]
+            nbytes = B * 4 * ((W + R + EL + E) + (W + R + 128))
+        else:  # beam d / i / e and the scored tile's d / i in; d / i / e, sel out
+            nbytes = B * 4 * (5 * W + 3 * W + 128)
+        ms, plain_ms = in_turns(lambda: orig[name](*args), lambda: ref(*args), 20, 5)
+        bound = bound_ms(nbytes)
+        out[key] = {"W": W, "ms": ms, "plain_ms": plain_ms, "bound": bound, "launches": launches[key],
+                    "score_ms": launches[key] * (ms - bound[0])}
+    log(f"[pq] K4 / K5 at hnsw_pq_200k graph ef {ef} (W {out['k4']['W']}): equal to their plain versions; "
+        + ", ".join(f"{key.upper()} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, bound {v['bound'][0]:.5f}, "
+                    f"{v['launches']} launches, score {v['score_ms']:.2f} ms" for key, v in out.items()))
+    return out
+
+
 def phase_pq_200k(db, q_host, gts, x_host):
     """vecdb_pq_cos_200k (Flat+PQ through VecDB on the cosine table),
     hnsw_pq_200k (the l2sqr HNSW table with a PQ table built through VecDB:
@@ -967,6 +1015,7 @@ def phase_pq_200k(db, q_host, gts, x_host):
         log(f"[pq] hnsw_pq_200k {name}: " + ", ".join(
             f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in h[name].items()))
     h["device_bytes"] = pq.device_bytes()
+    meas["k45_graph"] = {ef: check_k45_graph(index, pq, q_host, ef, h["graph"][ef]["launches"]) for ef in (180, 600)}
     codes, _, _ = pq.device()
     lookup, _ = pq.create_lookup(q)
     meas["k8_ids"] = check_sums_ids(codes, lookup, PQ_M, True, len(pq), "K8")
@@ -1105,6 +1154,37 @@ def check_k10(idx, q, tag, timed=True):
     return out
 
 
+def check_k10_ragged(B=300, nlist=8, lpad=1024):
+    """K10 against its plain version at mirror widths that are not a
+    multiple of 128 bytes (96: one box read past the tensor map's width as
+    zeros; 1040: nine boxes, the gathered query boxes streamed beside the
+    mirror's), on random int8 rows with 10% sentinel pad rows, bins with
+    empty slots and one list no query probes: equal element for element."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    err = 0.0
+    for dim in (96, 1040):
+        rows = nlist * lpad
+        q8 = torch.randint(-127, 128, (B, dim), generator=g, device="cuda", dtype=torch.int8)
+        qs2, qc = torch.rand(B, generator=g, device="cuda") * 1e-2, torch.rand(B, generator=g, device="cuda") * 100
+        base = torch.randint(-127, 128, (rows + 700, dim), generator=g, device="cuda", dtype=torch.int8)
+        pad = torch.rand(rows + 700, generator=g, device="cuda") < 0.1
+        sc = torch.where(pad, 0.0, torch.rand(rows + 700, generator=g, device="cuda") * 1e-3)
+        ca = torch.where(pad, 3.0e38, torch.rand(rows + 700, generator=g, device="cuda") * 100)
+        bins = torch.randint(0, B, (nlist, SB.QB), generator=g, device="cuda", dtype=torch.int32)
+        bins[torch.rand((nlist, SB.QB), generator=g, device="cuda") < 0.3] = -1
+        bins[1] = -1
+        args = (q8, qs2, qc, bins, base, sc, ca, lpad)
+        got, ref = SB.scan_chunkmin_int8_binned(*args), SB.scan_chunkmin_int8_binned_ref(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K10 width {dim}: {int((got != ref).sum())} packed values differ from the plain version")
+        err = max(err, max_abs_err(got, ref))
+    log(f"[ivf] K10 at widths 96 and 1040 ({nlist} x {lpad} rows, {B} queries): equal to its plain version")
+    return err
+
+
 def check_k1_path(q, q8b, sc, ca, dist, tag):
     """K1 against its plain version on a mirror that the path scans (the
     IVF overflow segment, the lean store's mirror), the same queries: equal
@@ -1195,6 +1275,7 @@ def phase_ivf_1m(store, q, gt, nlist=256):
                               IVFConfig(k=16, k_means_max_iter=10), seed=0)
     check_k10(cos, q, "cosine, 65,536 rows", timed=False)
     out["k10_cosine_equal"] = True
+    out["k10_ragged_err"] = check_k10_ragged()
     log(f"[ivf] ivf_1m: build {out['build_s']:.1f} s, lpad {lpad}, overflow {out['overflow_rows']} rows, "
         f"index_bytes {out['index_bytes']}, small batch {small}, gate {out['gate_recall_kernels']:.4f} / "
         f"{out['gate_recall_plain']:.4f}")
@@ -1264,7 +1345,7 @@ def phase_lean(card, n_lean=4_000_000, nlist_lean=1024, n_scan=1_000_000, nlist_
     lean.update(ivf_gate(idx, q, gt, "ivf_lean_4m"))
     # K10 reading the ingest-sorted store in place (its mirror runs on past
     # nlist * lpad with the overflow and capacity rows), K1 on that overflow
-    lean["k10_err"] = check_k10(idx, q, "ivf_lean_4m (ingest-sorted store)", timed=False)["max_abs_err"]
+    lean["k10"] = check_k10(idx, q, "ivf_lean_4m (ingest-sorted store)")
     lean["k1_overflow_err"] = check_overflow_k1(idx, q, "ivf_lean_4m")
     lean["profile_n_probes_16"] = profile_call(lambda: idx.knn_batch(q, 10, IVF_GATE_PROBES))
     # bf16 K2 against its plain version on this path's candidates, every
@@ -1924,6 +2005,10 @@ def phase_resident_cosine(x, queries):
     b8, bsc = T.quantize_rows_int8(x)
     base_bf = x.to(torch.bfloat16)
     k12 = check_k12(queries, base_bf, cache, x.shape[0], "cosine", "cosine 200,000")
+    # a small base for B <= 64 (one query tile, its streamed half all past
+    # B), with rows past n_valid
+    small = check_k12(queries[:50], base_bf[:70_000], cache[:70_000], 69_500, "cosine", "cosine 70,000 x 50 queries")
+    k12["max_abs_err"] = max(k12["max_abs_err"], small["max_abs_err"])
     k1314 = check_int8_resident(queries, b8, bsc, cache, x.shape[0], "cosine", "cosine 200,000")
     return {"k12": k12, **k1314}
 
@@ -2186,7 +2271,8 @@ def main() -> None:
     # ptxas's figures for the kernels redesigned on wgmma / cp.async, read
     # from this build's report; a name that matches nothing fails the run
     ptxas = {key: ptxas_of(build_log, frag) for key, frag in (
-        ("k1", "scan_int8_packed_kernel"), ("k8_ids", "2k810ids_kernel"), ("k8_dense", "dense_onehot_kernel"))}
+        ("k1", "scan_int8_packed_kernel"), ("k8_ids", "2k810ids_kernel"), ("k8_dense", "dense_onehot_kernel"),
+        ("k10", "scan_int8_binned_kernel"), ("k12", "scan_bf16_chunkmin_kernel"))}
     for key, rep in ptxas.items():
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
         check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
@@ -2230,7 +2316,9 @@ def main() -> None:
     # plain version, the IVF path's own inputs included
     k1_err = max(k1_err, ivf_1m["k1_overflow_err"], ivf_lean["k1_overflow_err"], lean_scan["flat_k1_err"])
     k2_err = max(k2_err, ivf_1m["k2_binned_rerank_err"])
-    k10 = {**k10, "max_abs_err": max(k10["max_abs_err"], ivf_lean["k10_err"])}
+    k10 = {**k10, "max_abs_err": max(k10["max_abs_err"], ivf_lean["k10"]["max_abs_err"], ivf_1m["k10_ragged_err"]),
+           "extra": {"ivf_lean_4m": {key: ivf_lean["k10"][key] for key in ("ms", "plain_ms", "bound", "rows")},
+                     "ptxas": ptxas["k10"]}}
     k2_bf16 = {**k2_bf16, "max_abs_err": max(k2_bf16["max_abs_err"], lean_scan["flat_k2_bf16_err"])}
     k3b, k4b, k5b = bound_ms(hm["k3_bytes"]), bound_ms(hm["k4_bytes"]), bound_ms(hm["k5_bytes"])
     kernels = [
@@ -2323,7 +2411,8 @@ def main() -> None:
                                      ("scan_chunkmin_int8_t", "scan_int8_bf16.cu", "pallas_scan.py:286", "k14")):
         kernels.append(pq_kernel(name, src, replaces, resident["launches"][key],
                                  {**rm[key], "max_abs_err": max(rm[key]["max_abs_err"],
-                                                                resident_cos[key]["max_abs_err"])}))
+                                                                resident_cos[key]["max_abs_err"]),
+                                  "extra": {"ptxas": ptxas[key]} if key in ptxas else {}}))
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k7] [k8] [k9] [k11]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k7] [k8] [k9] [k10] [k11] [k12]
 
-(the named kernels only; all five without a name).
+(the named kernels only; all seven without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -28,7 +28,19 @@ LUTs it times, with CUDA events (three means of five launches each):
   1,001,472 rows), and at the 8,765- and 69,856-row overflow segments of
   ivf_1m and ivf_lean_4m;
 
-each K1 / K8 / K9 result against its plain version (torch.equal, the plain
+- K10 (the binned int8 group-min; timed here for the same reason) at
+  ivf_1m's shape, 256 lists x 4,608 rows of 1024 int8 lanes x 128-query bins
+  of 1000 queries, and at ivf_lean_4m's, 1024 lists x 5,120 rows, random
+  bins (empty slots and one list no query probes), equal to its plain
+  version; and untimed at the ragged widths 96 and 1040 (the second streams
+  its gathered query boxes);
+- K12 (the bf16 chunk-min) on Gist-spectrum rows (`synth.make_device`, the
+  smoke's seeds): 1000 queries x 1,000,000 rows x 960 lanes (l2sqr), timed
+  and held against the plain version (survivors outside rtol 1e-5 / atol
+  1e-6, ids that differ); untimed at cosine on 200,000 rows, at B 50, at
+  width 1344 (both query halves streamed) and at width 40;
+
+each K1 / K8 / K9 / K10 result against its plain version (torch.equal, the plain
 version timed beside it), and prints each kernel's registers from the build.
 K1 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
 ("graph ms"): at a few tens of microseconds a call's host work (argument
@@ -96,13 +108,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    which = set(sys.argv[2:]) or {"k1", "k7", "k8", "k9", "k11"}
+    which = set(sys.argv[2:]) or {"k1", "k7", "k8", "k9", "k10", "k11", "k12"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
         if "Function properties for" in ln and any(f in ln for f in ("chunkmin", "adc_sums", "k9", "k8",
-                                                                       "scan_int8_packed")):
+                                                                       "scan_int8_packed", "binned")):
             print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
                   log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -128,6 +140,10 @@ def main() -> None:
         del codes
     if "k1" in which:
         _time_k1(label, g)
+    if "k10" in which:
+        _time_k10(label, g)
+    if "k12" in which:
+        _time_k12(label)
     if "k9" in which:
         _time_sums(label, g, 256, False, torch.bfloat16, 131_072, 200_000)
     if "k8" in which:
@@ -174,6 +190,84 @@ def _time_k1(label, g, B=1000, D=1024):
               f"graph ms {_graph_ms(lambda: S.scan_chunkmin_int8_packed(*args))} plain {plain:.3f} "
               f"equal {equal}", flush=True)
         del args
+        torch.cuda.empty_cache()
+
+
+def _time_k10(label, g, B=1000):
+    """K10 on random int8 rows and queries (10% pad rows with the losing
+    sentinel), bins filling 30-100 of a list's 128 slots with random
+    queries (list 0 probed by none), against its plain version: timed at
+    ivf_1m's and ivf_lean_4m's shapes, untimed at widths 96 and 1040."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
+
+    for nlist, lpad, D, timed in ((256, 4608, 1024, True), (1024, 5120, 1024, True), (8, 1024, 96, False),
+                                  (8, 1024, 1040, False)):
+        rows = nlist * lpad
+        q8 = torch.randint(-127, 128, (B, D), generator=g, device="cuda", dtype=torch.int8)
+        qs2 = torch.rand(B, generator=g, device="cuda") * 1e-2
+        qc = torch.rand(B, generator=g, device="cuda") * 100
+        base = torch.randint(-127, 128, (rows, D), generator=g, device="cuda", dtype=torch.int8)
+        pad = torch.rand(rows, generator=g, device="cuda") < 0.1
+        sc = torch.where(pad, 0.0, torch.rand(rows, generator=g, device="cuda") * 1e-3)
+        ca = torch.where(pad, 3.0e38, torch.rand(rows, generator=g, device="cuda") * 100)
+        bins = torch.randint(0, B, (nlist, SB.QB), generator=g, device="cuda", dtype=torch.int32)
+        filled = torch.randint(30, SB.QB + 1, (nlist, 1), generator=g, device="cuda")
+        filled[0] = 0
+        bins = torch.where(torch.arange(SB.QB, device="cuda")[None] < filled, bins, -1).int()
+        args = (q8, qs2, qc, bins, base, sc, ca, lpad)
+        equal = torch.equal(SB.scan_chunkmin_int8_binned(*args), SB.scan_chunkmin_int8_binned_ref(*args))
+        times, plain = "untimed", ""
+        if timed:
+            times = [round(_ms(lambda: SB.scan_chunkmin_int8_binned(*args), 10), 4) for _ in range(3)]
+            plain = f" plain {_ms(lambda: SB.scan_chunkmin_int8_binned_ref(*args), 1):.3f}"
+        print(label, f"K10 {nlist} x {lpad} D {D} B {B}: ms {times}{plain} equal {equal}", flush=True)
+        del base, args
+        torch.cuda.empty_cache()
+
+
+def _k12_errors(got, ref):
+    """(survivors outside rtol 1e-5 / atol 1e-6 of the plain version's,
+    largest relative error, ids that differ); +inf survivors must match."""
+    import torch
+
+    fin = torch.isfinite(ref[0])
+    if not (torch.equal(fin, torch.isfinite(got[0])) and torch.equal(got[0][~fin], ref[0][~fin])):
+        return "inf differs", None, None
+    err = (got[0] - ref[0]).abs()[fin]
+    over = int((err > 1e-6 + 1e-5 * ref[0].abs()[fin]).sum())
+    return over, float((err / ref[0].abs()[fin].clamp_min(1e-30)).max()), int((got[1] != ref[1]).sum())
+
+
+def _time_k12(label, B=1000):
+    """K12 on the smoke's Gist-spectrum rows (uniform rows at widths 1344
+    and 40) against its plain version: timed at flat_1m's l2sqr shape,
+    checked there and at cosine 200,000, B 50 and widths 1344 and 40."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import synth
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+
+    cases = ((1_000_000, 960, B, 4, 5, "l2sqr", True), (200_000, 960, B, 2, 3, "cosine", False),
+             (100_000, 960, 50, 6, 7, "l2sqr", False), (20_000, 1344, 300, 8, 9, "cosine", False),
+             (20_000, 40, 300, 10, 11, "l2sqr", False))
+    for n, dim, b, sx, sq, dist, timed in cases:
+        if dim == 960:
+            x, q = synth.make_device(n, dim, sx, "cuda"), synth.make_device(b, dim, sq, "cuda")
+        else:  # the Gist spectrum has 960 lanes: uniform rows elsewhere
+            g = torch.Generator(device="cuda").manual_seed(sx)
+            x, q = torch.rand((n, dim), generator=g, device="cuda"), torch.rand((b, dim), generator=g, device="cuda")
+        base, cache = x.to(torch.bfloat16), D.dist_cache(x, dist)
+        del x
+        qb, qc = q.to(torch.bfloat16), D.dist_cache(q, dist)
+        args = (qb, qc, base, cache, n, dist)
+        ref = SR.scan_chunkmin_ref(qb, qc, *SR._pad_rows(SR._NB, base, cache), n, dist)
+        plain = f" plain {_ms(lambda: SR.scan_chunkmin_ref(qb, qc, *SR._pad_rows(SR._NB, base, cache), n, dist), 1):.2f}" if timed else ""
+        over, max_rel, ids = _k12_errors(SR.scan_chunkmin(*args), ref)
+        times = [round(_ms(lambda: SR.scan_chunkmin(*args), 5), 3) for _ in range(3)] if timed else "untimed"
+        print(label, f"K12 {dist} {n} x {dim} B {b}: ms {times}{plain} outside tol {over} max rel {max_rel} "
+              f"ids differ {ids}", flush=True)
+        del base, cache, ref, args
         torch.cuda.empty_cache()
 
 

@@ -74,7 +74,7 @@
 
 #pragma once
 
-#include "adc_scan_chunkmin.cuh"  // K7's mbarrier and wgmma helpers
+#include "scan_wgmma.cuh"  // the cp.async arrival and proxy fence; through it K7's mbarrier and wgmma helpers
 
 namespace k11 {
 
@@ -87,6 +87,8 @@ using k7::smem_u32;
 using k7::wgmma_commit;
 using k7::wgmma_fence;
 using k7::wgmma_wait;
+using scan::cp_async_arrive;
+using scan::fence_proxy_async;
 
 constexpr int BLOCK = 64;                    // bin columns per CTA (the widest N)
 constexpr int SUB = 128;                     // LUT columns per sub-stage: 8 groups, one code word
@@ -115,17 +117,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
-}
-
-// arrives on `bar` once this thread's earlier cp.asyncs have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// cp.async writes through the generic proxy, wgmma reads through the async one
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the code word w with 4t subtracted from each of its 8 nibbles, mod 16

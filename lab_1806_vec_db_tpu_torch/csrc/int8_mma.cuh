@@ -1,8 +1,8 @@
-// Device code shared by the tensor-core scan kernels, for Hopper (sm_90a):
+// Device code of the mma.sync int8 scan kernels K13 / K14
+// (csrc/scan_int8_bf16.cu), for Hopper (sm_90a):
 //
 //   cp_async16 / cp_async_commit / cp_async_wait   the two-stage cp.async ring
 //   mma_s8                                         one m16n8k32 s8 x s8 -> s32 mma
-//   mma_bf16                                       one m16n8k16 bf16 x bf16 -> f32 mma
 //   mma_step                                       one BK-deep step of a
 //                                                  128 x 128 s8 product from
 //                                                  shared memory
@@ -11,16 +11,11 @@
 //                                                  column over a 128-row
 //                                                  sub-tile
 //
-// K10 (csrc/scan_int8_binned.cu), K12 (csrc/scan_bf16_chunkmin.cu) and
-// K13 / K14 (csrc/scan_int8_bf16.cu) all score 128 base rows against 128
-// queries per step with 8 warps laid out
-// 2 (rows) x 4 (queries); warp (wm, wn) holds rows wm*64 + mt*16 + {g, g+8}
-// and queries wn*32 + nt*8 + 2t + {0, 1} of the tile in acc[mt][nt][2h + j]
-// (g = lane / 4, t = lane % 4, h selects the +8 row).  One copy of the
-// pipeline keeps the int8 kernels' int32 dots identical.  The bf16 mma's
-// A / B fragments sit at the same byte offsets as the s8 mma's (4t and
-// 16 + 4t bytes into each 32-byte k slice), so one BK = 64-byte stage holds
-// 64 int8 or 32 bf16 lanes of a row and the loads are shared.
+// The kernels score 128 base rows against 128 queries per step with 8 warps
+// laid out 2 (rows) x 4 (queries); warp (wm, wn) holds rows wm*64 + mt*16 +
+// {g, g+8} and queries wn*32 + nt*8 + 2t + {0, 1} of the tile in
+// acc[mt][nt][2h + j] (g = lane / 4, t = lane % 4, h selects the +8 row).
+// K1, K10 and K12 have their own wgmma pipelines (csrc/scan_wgmma.cuh).
 
 #pragma once
 
@@ -54,14 +49,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], cons
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
@@ -140,18 +127,6 @@ __device__ __forceinline__ bool chunk_min_128(float (&best)[4][2], int (&brow)[4
       keep_min(best[nt][j], brow[nt][j], red_d[c], red_i[c]);
     }
   return true;
-}
-
-// The unified distance epilogue (cache + qc) - float(dot) * (scale * qs2),
-// in the two roundings the plain versions use:
-//   epilogue      K1: every operation rounded on its own (no FMA contraction);
-//   epilogue_fms  K10: the multiply-subtract fused and rounded once, as XLA
-//                 computes the reference's Pallas body.
-__device__ __forceinline__ float epilogue(int dot, float ca, float qc, float sc, float qs) {
-  return __fsub_rn(__fadd_rn(ca, qc), __fmul_rn(__int2float_rn(dot), __fmul_rn(sc, qs)));
-}
-__device__ __forceinline__ float epilogue_fms(int dot, float ca, float qc, float sc, float qs) {
-  return __fmaf_rn(-__int2float_rn(dot), __fmul_rn(sc, qs), __fadd_rn(ca, qc));
 }
 
 }  // namespace i8

@@ -61,14 +61,15 @@
 // pads with +BIG sentinels), D % 128 == 0, 16-byte aligned contiguous
 // tensors; the plan's CTAs per query tile <= 65535.
 //
-// It includes K7's header (csrc/adc_scan_chunkmin.cuh) for its mbarrier,
-// TMA, descriptor and wgmma fence helpers only; K7's kernel is unchanged.
+// It includes csrc/scan_wgmma.cuh (the wgmma shape, shared with K10) and
+// through it K7's header for the mbarrier, TMA, descriptor and wgmma fence
+// helpers only; K7's kernel is unchanged.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "adc_scan_chunkmin.cuh"
+#include "scan_wgmma.cuh"
 
 namespace {
 
@@ -118,28 +119,6 @@ __device__ __forceinline__ float epilogue(int dot, float ca, float qc, float sc,
 
 __device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads only
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// d (+)= A (64 x 32, shared memory) x B (32 x 128, shared memory):
-// accumulate == 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -238,7 +217,7 @@ scan_int8_packed_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_
         const uint8_t* qb = L.resident ? qres + kt * Q_BOX : st + A_BOX;
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss(acc, k7::desc_sw128(st + 32 * kk), k7::desc_sw128(qb + 32 * kk), kt | kk);
+          scan::wgmma_s8(acc, k7::desc_sw128(st + 32 * kk), k7::desc_sw128(qb + 32 * kk), kt | kk);
         k7::wgmma_commit();
         if (kt > 0) {  // the previous box's products have completed: free its stage
           k7::wgmma_wait<1>();

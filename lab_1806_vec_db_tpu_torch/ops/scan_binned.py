@@ -7,9 +7,11 @@ survivors, one per strided group of 4 rows {s, s+128, s+256, s+384}, packed
 as (bits(d) & ~3) | level with level = row-in-tile // 128.
 
 On a CUDA tensor the scan is the hand-written kernel
-`csrc/scan_int8_binned.cu`; on a CPU tensor it is the plain PyTorch version
-`scan_chunkmin_int8_binned_ref`, which computes the same int32 values bit for
-bit.  There is no fallback from one to the other.
+`csrc/scan_int8_binned.cu` (`wgmma` + TMA; `k10_plan` sizes its launch,
+`k10_tiles` gives the tile -> consumer -> survivor map, and its gathered
+query tile lies as `scan.k1_stage_offset` says); on a CPU tensor it is the
+plain PyTorch version `scan_chunkmin_int8_binned_ref`, which computes the
+same int32 values bit for bit.  There is no fallback from one to the other.
 
 The distance is K1's one formula (see `ops/scan.py`):
     d = (cache_x + qc_q) - float(dot) * (scale_x * qs2_q)
@@ -24,12 +26,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .scan import _sm_count
 
 _TILE = 512  # mirror rows per grid step (_NB_BIN): list lengths pad to it
 _SPT = 128  # survivors per tile
 _GS = _TILE // _SPT  # rows per survivor group (4): the 2 packed low bits
 QB = 128  # queries per list bin
-_BK = 64  # the CUDA kernel's int8 depth step: D must be a multiple
+_K10_BM = 64  # mirror rows per wgmma tile: eight a 512-row tile
 _REF_ROWS = 65536  # mirror rows per block of the plain version (bounds transients)
 
 
@@ -83,6 +86,32 @@ def scan_chunkmin_int8_binned_ref(q8, qs2, qc, bins, base_i8, base_scale, base_c
     return out
 
 
+def k10_plan(nlist: int, lpad: int, sms: int = 132) -> dict:
+    """How K10's kernel (csrc/scan_int8_binned.cu) covers nlist lists of
+    lpad rows on a card of `sms` SMs -> {"tiles", "tiles_per_list", "ctas"}.
+
+    The nlist * lpad / 512 tiles (tile G: list G // tiles_per_list, mirror
+    rows G * 512 ...) are cut into `ctas` contiguous runs, CTA y taking
+    tiles [y * tiles // ctas, (y + 1) * tiles // ctas): one wave, every CTA
+    within a tile of the same work, so a list is split across CTAs where
+    whole lists would leave SMs idle (256 lists of 9 tiles are 1.9 waves on
+    132 SMs).  A CTA gathers a list's query tile once per run, again only
+    where its run crosses into the next list."""
+    tiles_per_list = lpad // _TILE
+    tiles = nlist * tiles_per_list
+    return {"tiles": tiles, "tiles_per_list": tiles_per_list, "ctas": max(1, min(tiles, sms))}
+
+
+def k10_tiles(p: int, lev: int):
+    """The 64-row wgmma tile of a 512-row tile that consumer p (0, 1) scans
+    at level lev (0-3) -> (first row within the 512-row tile, first survivor
+    slot): tile j = 2 lev + p covers rows 64 j ... and, as level j // 2,
+    slots 64 (j % 2) ...; so a consumer folds its four levels into the same
+    64 survivors and no survivor needs a second consumer."""
+    j = 2 * lev + p
+    return j * _K10_BM, (j % 2) * _K10_BM
+
+
 def scan_chunkmin_int8_binned(q8, qs2, qc, bins, base_i8, base_scale, base_cache, lpad: int):
     """Segmented packed group-min -> (nlist * lpad / 4, 128) int32.
 
@@ -128,23 +157,24 @@ def scan_chunkmin_int8_binned(q8, qs2, qc, bins, base_i8, base_scale, base_cache
     if dev.type != "cuda":
         raise RuntimeError(f"no K10 kernel for device {dev}")
     rows = nlist * lpad
-    base_i8 = base_i8[:rows]
-    if q8.shape[1] % _BK:
-        # zero columns are dot-transparent (the store pads to 128 already)
-        pad = _BK - q8.shape[1] % _BK
-        q8 = torch.nn.functional.pad(q8, (0, pad))
-        base_i8 = torch.nn.functional.pad(base_i8, (0, pad))
+    dim = q8.shape[1]
+    if dim % 16:
+        raise ValueError(f"the K10 kernel reads mirror rows by TMA, whose row stride is a multiple of 16 "
+                         f"bytes; got {dim} (the store pads rows to 128)")
     q8, bins = q8.contiguous(), bins.contiguous()
+    if q8.data_ptr() % 16 or base_i8.data_ptr() % 16:
+        raise ValueError("q8 and base_i8 must be 16-byte aligned (TMA and cp.async read 16-byte chunks)")
     qs2, qc = qs2.float().contiguous(), qc.float().contiguous()
     sc = base_scale[:rows].float().contiguous()
     ca = base_cache[:rows].float().contiguous()
     out = torch.empty((rows // _GS, QB), dtype=torch.int32, device=dev)
+    plan = k10_plan(nlist, lpad, _sm_count(dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vecdb_scan_int8_binned(
             q8.data_ptr(), qs2.data_ptr(), qc.data_ptr(), bins.data_ptr(), base_i8.data_ptr(),
-            sc.data_ptr(), ca.data_ptr(), out.data_ptr(), nlist, lpad, base_i8.shape[1], stream,
+            sc.data_ptr(), ca.data_ptr(), out.data_ptr(), nlist, lpad, dim, plan["ctas"], stream,
         )
     _build.check(status, "scan_int8_binned")
     scan_chunkmin_int8_binned.launches += 1

@@ -15,9 +15,10 @@ Rows >= n_valid score +inf.  Each candidate function takes an exact top-r
 of its kernel's output, to be reranked exactly (K2, `ops/gather.py`).
 
 On a CUDA tensor each scan is its hand-written kernel
-(`csrc/scan_bf16_chunkmin.cu`, `csrc/scan_int8_bf16.cu`); on a CPU tensor it
-is the plain PyTorch version `*_ref`.  There is no fallback from one to the
-other.
+(`csrc/scan_bf16_chunkmin.cu`: `wgmma` + TMA, `k12_plan` sizes its launch,
+`k12_acc_coords` gives its accumulator map; `csrc/scan_int8_bf16.cu`); on a
+CPU tensor it is the plain PyTorch version `*_ref`.  There is no fallback
+from one to the other.
 
 Channels are RAW, as the reference's kernel bodies take them: the base's
 int8 scale s_x and cache |x|^2 (l2sqr) or |x| (cosine), never the unified
@@ -46,12 +47,14 @@ import torch
 
 from . import _build
 from . import distance as D
+from .scan import _sm_count
 from .topk import INVALID_ID, quantize_rows_int8, smallest_positions, topk_smallest
 
 _NB = 1024  # K12 / K13 row padding (the reference's grid step)
 _NB_T = 2048  # K14 row padding
 _CHUNK = 128  # rows per survivor
-_BK = 64  # the CUDA kernels' depth step in bytes: a row's bytes must be a multiple
+_BK = 64  # K13 / K14's depth step in bytes: a row's bytes must be a multiple
+_K12_QT = 128  # K12's queries per CTA: 64 (the wgmma M) per consumer; a 128-row chunk is its N
 _REF_ROWS = 65536  # rows per block of the plain versions (bounds their transients)
 
 
@@ -134,43 +137,77 @@ def scan_chunkmin_ref(queries_scan, q_cache, base_scan, base_cache, n_valid: int
     return outd, outi
 
 
+def k12_plan(n_pad: int, B: int, sms: int = 132) -> dict:
+    """How K12's kernel (csrc/scan_bf16_chunkmin.cu) covers a (B, n_pad)
+    scan on a card of `sms` SMs -> {"qtiles", "ctas", "chunks"}.
+
+    The grid is (qtiles = ceil(B / 128), ctas); CTA (x, y) scans query tile
+    x (its consumer p the queries 128 x + 64 p ... + 63) against the 128-row
+    chunks y, y + ctas, y + 2 ctas, ...  ctas fills at most one wave (sms //
+    qtiles CTAs a query tile)."""
+    qtiles = -(-B // _K12_QT)
+    chunks = n_pad // _CHUNK
+    return {"qtiles": qtiles, "ctas": max(1, min(chunks, sms // qtiles)), "chunks": chunks}
+
+
+def k12_acc_coords(warp, lane, i):
+    """(query within the consumer's 64, row within the 128-row chunk) of
+    accumulator register i (0 <= i < 64) of `lane` in `warp` (0-3) of a K12
+    consumer, the m64n128 wgmma layout with the queries as A and the rows
+    as B: query 16 warp + lane // 4 + 8 ((i // 2) % 2), row 8 (i // 4) + 2
+    (lane % 4) + i % 2.  A lane thus holds 32 rows of each of its two
+    queries, and the 4 lanes of a quad (lane // 4 equal) hold all 128
+    (works on ints and arrays)."""
+    return 16 * warp + lane // 4 + 8 * ((i // 2) % 2), 8 * (i // 4) + 2 * (lane % 4) + i % 2
+
+
 def scan_chunkmin(queries_scan, q_cache, base_scan, base_cache, n_valid: int, dist: str):
     """Fused scan: the min distance of each (query, 128-row chunk) and its
     lowest argmin -> ((B, N_pad/128) f32, (B, N_pad/128) int32 global ids).
 
     queries_scan (B, dim) in the base's dtype; q_cache (B,) f32 (|q|^2 or
     |q|); base_scan (N, dim) bf16 (the store's `device_traversal()` copy);
-    base_cache (N,) f32.  N is zero-padded to a multiple of 1024; rows >=
-    n_valid are +inf.  CPU tensors run the plain version (any float base);
-    CUDA tensors launch the kernel, which takes bf16 only, and count the
-    launch in `scan_chunkmin.launches`."""
+    base_cache (N,) f32.  N_pad is N rounded up to a multiple of 1024, the
+    rows past N zero rows (the kernel reads them as TMA's zero fill, so the
+    base is never copied); rows >= n_valid are +inf.  CPU tensors run the
+    plain version (any float base); CUDA tensors launch the kernel, which
+    takes bf16 only, and count the launch in `scan_chunkmin.launches`."""
     dev = _check(dist, queries_scan, base_scan, q_cache, base_cache)
     if queries_scan.dtype != base_scan.dtype:
         raise TypeError(f"queries {queries_scan.dtype} and base {base_scan.dtype} must share a dtype")
     B = queries_scan.shape[0]
-    if q_cache.shape != (B,) or base_cache.shape != (base_scan.shape[0],):
+    n = base_scan.shape[0]
+    if q_cache.shape != (B,) or base_cache.shape != (n,):
         raise ValueError("q_cache must be (B,) and base_cache (N,)")
-    base_scan, base_cache = _pad_rows(_NB, base_scan, base_cache)
     if dev.type == "cpu":
-        return scan_chunkmin_ref(queries_scan, q_cache, base_scan, base_cache, n_valid, dist)
+        return scan_chunkmin_ref(queries_scan, q_cache, *_pad_rows(_NB, base_scan, base_cache), n_valid, dist)
     if base_scan.dtype != torch.bfloat16:
         raise TypeError(f"the K12 kernel takes bf16 rows, got {base_scan.dtype}")
     if not base_scan.is_contiguous():
         raise ValueError("base_scan must be contiguous (the kernel reads it row-major in place)")
-    n_pad = base_scan.shape[0]
-    if n_pad // _NB > 65535:
-        raise ValueError(f"a base of {n_pad} rows exceeds the kernel's grid limit")
-    q, base_scan = _pad_cols(_BK // 2, queries_scan.contiguous(), base_scan)
+    n_pad = -(-n // _NB) * _NB
+    if n_pad >= 2**31:
+        raise ValueError(f"a base of {n} rows exceeds the kernel's int32 row ids")
+    # TMA's row stride is a multiple of 16 bytes: zero columns add nothing to a dot
+    q, base_scan = _pad_cols(8, queries_scan.contiguous(), base_scan)
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if base_scan.data_ptr() % 16:
+        raise ValueError("base_scan must be 16-byte aligned (TMA reads it in place)")
     qc, ca = q_cache.float().contiguous(), base_cache.float().contiguous()
     S = n_pad // _CHUNK
     outd = torch.empty((B, S), dtype=torch.float32, device=dev)
     outi = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if n_pad == 0 or B == 0:
+        return outd, outi
+    plan = k12_plan(n_pad, B, _sm_count(dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vecdb_scan_bf16_chunkmin(
             q.data_ptr(), qc.data_ptr(), base_scan.data_ptr(), ca.data_ptr(), outd.data_ptr(),
-            outi.data_ptr(), B, n_pad, base_scan.shape[1] * 2, int(n_valid), int(dist == "cosine"), stream,
+            outi.data_ptr(), B, n, n_pad, base_scan.shape[1], int(n_valid), int(dist == "cosine"),
+            plan["ctas"], stream,
         )
     _build.check(status, "scan_bf16_chunkmin")
     scan_chunkmin.launches += 1

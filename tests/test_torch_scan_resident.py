@@ -26,6 +26,7 @@ import torch
 from lab_1806_vec_db_tpu.ops import distance as JD
 from lab_1806_vec_db_tpu.ops import pallas_scan as PS
 from lab_1806_vec_db_tpu.ops import topk as JT
+from lab_1806_vec_db_tpu_torch.ops import distance as D
 from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
 from lab_1806_vec_db_tpu_torch.ops import topk as T
 
@@ -235,3 +236,120 @@ def test_cpu_runs_launch_no_kernel():
                               "l2sqr")
     assert counts == [SR.scan_chunkmin.launches, SR.scan_dist_int8.launches, SR.scan_chunkmin_int8_t.launches] \
         == [0, 0, 0]
+
+
+@pytest.mark.parametrize("n_pad,b", [(1024, 1), (3072, 130), (1_000_448, 1000), (4096, 40_000)])
+def test_k12_plan_covers_every_chunk_once(n_pad, b):
+    """K12's plan (`k12_plan`, which sizes the kernel's launch) gives every
+    (128-query tile, 128-row chunk) to exactly one CTA, as the kernel walks
+    it (CTA (x, y): chunks y, y + ctas, ...), in one wave where the query
+    tiles leave room for one."""
+    plan = SR.k12_plan(n_pad, b, 132)
+    chunks = n_pad // 128
+    assert plan["qtiles"] == -(-b // 128) and plan["chunks"] == chunks
+    assert plan["qtiles"] * plan["ctas"] <= 132 or plan["ctas"] == 1
+    count = np.zeros((plan["qtiles"], chunks), np.int64)
+    for y in range(plan["ctas"]):
+        count[:, y::plan["ctas"]] += 1
+    assert (count == 1).all()
+
+
+def _k12_chunk_emulate(d, row0):
+    """K12's chunk-min as its consumer runs it, for one chunk: accumulator
+    register i of lane l in warp w holds (query, chunk row)
+    `k12_acc_coords(w, l, i)`; each lane folds its 32 rows of each of its
+    two queries in ascending order into a (d, row) minimum (the smaller d,
+    then the lower row), then the quad's lanes l ^ 1 and l ^ 2 in turn;
+    lane 4 g of each warp holds queries 16 w + g and 16 w + g + 8.
+    d: (64, 128) f32 with +inf where row >= n_valid -> ((64,) d, (64,) row)."""
+    warp, lane = np.meshgrid(np.arange(4), np.arange(32), indexing="ij")
+    best = np.full((4, 32, 2), np.inf, np.float32)
+    brow = np.full((4, 32, 2), 2**31 - 1, np.int64)
+
+    def keep_min(bd, br, d2, r2):
+        take = (d2 < bd) | ((d2 == bd) & (r2 < br))
+        return np.where(take, d2, bd), np.where(take, r2, br)
+
+    for nt in range(16):
+        for j in range(2):
+            for h in range(2):
+                q, r = SR.k12_acc_coords(warp, lane, nt * 4 + 2 * h + j)
+                best[..., h], brow[..., h] = keep_min(best[..., h], brow[..., h], d[q, r], row0 + r)
+    for off in (1, 2):
+        best, brow = keep_min(best, brow, best[:, lane[0] ^ off], brow[:, lane[0] ^ off])
+    out_d, out_i = np.empty(64, np.float32), np.empty(64, np.int64)
+    for w in range(4):
+        for g in range(8):
+            for h in range(2):
+                out_d[16 * w + g + 8 * h], out_i[16 * w + g + 8 * h] = best[w, 4 * g, h], brow[w, 4 * g, h]
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("n_valid", [128 * 5 + 128, 128 * 5 + 70, 128 * 5])
+def test_k12_chunk_min_emulated(n_valid):
+    """The emulated lane / quad reduction equals `_chunk_min` (the plain
+    version's): the lowest row wins ties, including equal rows on both sides
+    of the 64-row middle of a chunk (rows 63 / 64 and 0 / 127, lanes of
+    different quads), rows of one lane (8 / 9) and of one quad's lanes
+    (1 / 2); rows at or past n_valid are +inf, and a chunk wholly past it
+    gives (+inf, its first row)."""
+    rng = np.random.default_rng(7)
+    row0 = 128 * 5
+    d = rng.standard_normal((64, 128)).astype(np.float32)
+    for q, pair in enumerate([(63, 64), (64, 63), (0, 127), (127, 0), (8, 9), (2, 1), (66, 120)] * 9):
+        if q < 64:
+            d[q, list(pair)] = -10.0 - q
+    d[3, 100] = -100.0  # a masked row may not win when n_valid cuts it
+    rows = row0 + np.arange(128)
+    dm = np.where(rows[None, :] < n_valid, d, np.inf).astype(np.float32)
+    got_d, got_i = _k12_chunk_emulate(dm, row0)
+    want_d, want_i = SR._chunk_min(torch.from_numpy(dm))
+    np.testing.assert_array_equal(got_d, want_d[:, 0].numpy())
+    np.testing.assert_array_equal(got_i, row0 + want_i[:, 0].numpy())
+    if n_valid <= row0:
+        assert np.isinf(got_d).all() and (got_i == row0).all()
+    else:
+        assert got_i[0] == row0 + 63 and got_i[1] == row0 + 63 and got_i[2] == row0
+        assert got_i[4] == row0 + 8 and got_i[5] == row0 + 1
+
+
+def _k12_dots(q, x, boxes):
+    """K12's summation order with exact partials: each partial sums the
+    products of `boxes` 64-lane boxes exactly, plus the compensation carried
+    in it, rounded once to f32 (the tensor cores' own truncation is not
+    emulated); the running sum s' = s + p in f32, and the partial keeps
+    p - (s' - s)."""
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    lanes = 64 * boxes
+    s = np.zeros((q.shape[0], x.shape[0]), np.float32)
+    e = np.zeros_like(s)
+    for k0 in range(0, q.shape[1], lanes):
+        p = (q64[:, k0 : k0 + lanes] @ x64[:, k0 : k0 + lanes].T + e).astype(np.float32)
+        s2 = s + p
+        e = p - (s2 - s)
+        s = s2
+    return s
+
+
+@pytest.mark.parametrize("boxes", [1, 2, 3])
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_k12_compensated_partials_within_rtol(dist, boxes):
+    """At D 960 on Gist-spectrum rows, K12's compensated partials of 1, 2 or
+    3 boxes (the kernel's CBOX is 3) keep every dot within 2^-23 of float64 (an f32
+    ulp at the top of its binade) and
+    every chunk survivor within rtol 1e-5 / atol 1e-6 of the plain
+    version's (float64 sums rounded once)."""
+    from lab_1806_vec_db_tpu_torch.bench import synth
+
+    x = synth.make_device(2048, 960, 4, "cpu").to(torch.bfloat16)
+    q = synth.make_device(64, 960, 5, "cpu").to(torch.bfloat16)
+    xf, qf = x.float().numpy(), q.float().numpy()
+    dots = _k12_dots(qf, xf, boxes)
+    exact = qf.astype(np.float64) @ xf.astype(np.float64).T
+    assert (np.abs(dots - exact) <= 2.0**-23 * np.abs(exact)).all()  # 1 ulp at the top of a binade
+    qc, ca = D.dist_cache(q.float(), dist), D.dist_cache(x.float(), dist)
+    dt, qct, cat = torch.from_numpy(dots), qc[:, None], ca[None, :]
+    d = (qct + cat) - 2.0 * dt if dist == "l2sqr" else 1.0 - dt / (qct * cat).clamp_min(1e-10)
+    got = SR._chunk_min(d)[0]
+    ref = SR.scan_chunkmin_ref(q, qc, x, ca, 2048, dist)[0]
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
