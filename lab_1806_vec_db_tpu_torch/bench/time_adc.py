@@ -1,8 +1,8 @@
 """Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k7] [k8] [k9] [k10] [k11] [k12]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k4] [k5] [k7] [k8] [k9] [k10] [k11] [k12]
 
-(the named kernels only; all seven without a name).
+(the named kernels only; all nine without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -39,10 +39,13 @@ LUTs it times, with CUDA events (three means of five launches each):
   and held against the plain version (survivors outside rtol 1e-5 / atol
   1e-6, ids that differ); untimed at cosine on 200,000 rows, at B 50, at
   width 1344 (both query halves streamed) and at width 40;
+- K4 and K5 (the fused lock-step beam body; timed here for the same reason)
+  at the HNSW+PQ graph route's shapes: B 1000, E 4, EL 128, R 256, W 256
+  (ef 180) and W 1024 (ef 600), on states shaped like a loop iteration's;
 
-each K1 / K8 / K9 / K10 result against its plain version (torch.equal, the plain
-version timed beside it), and prints each kernel's registers from the build.
-K1 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
+each K1 / K4 / K5 / K8 / K9 / K10 result against its plain version (torch.equal,
+the plain version timed beside it), and prints each kernel's registers from the
+build.  K1, K4, K5 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
 ("graph ms"): at a few tens of microseconds a call's host work (argument
 checks, the launch plan, ctypes) outlasts the kernel, and back-to-back
 launches then time the host.
@@ -69,34 +72,30 @@ def _ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def _graph_ms(fn, reps: int = 20):
-    """Mean device ms of `fn` replayed from a CUDA graph of `reps` calls:
-    the launches without the host's per-call work, which for a kernel of a
-    few tens of microseconds is longer than the kernel.  None where the
-    capture fails."""
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of `fn` replayed from a CUDA graph of `reps` calls
+    (after one call on a side stream): the launches without the host's
+    per-call work, which for a kernel of a few tens of microseconds is
+    longer than the kernel.  Also chip_smoke.py's K4 / K5 timer."""
     import torch
 
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
             fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        return round(e0.elapsed_time(e1) / reps, 4)
-    except RuntimeError as err:
-        print("  graph capture failed:", str(err).splitlines()[0][:120], flush=True)
-        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def main() -> None:
@@ -108,13 +107,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    which = set(sys.argv[2:]) or {"k1", "k7", "k8", "k9", "k10", "k11", "k12"}
+    which = set(sys.argv[2:]) or {"k1", "k4", "k5", "k7", "k8", "k9", "k10", "k11", "k12"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
         if "Function properties for" in ln and any(f in ln for f in ("chunkmin", "adc_sums", "k9", "k8",
-                                                                       "scan_int8_packed", "binned")):
+                                                                       "scan_int8_packed", "binned", "beam_p")):
             print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
                   log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -140,6 +139,8 @@ def main() -> None:
         del codes
     if "k1" in which:
         _time_k1(label, g)
+    if which & {"k4", "k5"}:
+        _time_k45(label, which)
     if "k10" in which:
         _time_k10(label, g)
     if "k12" in which:
@@ -187,10 +188,36 @@ def _time_k1(label, g, B=1000, D=1024):
         plain = _ms(lambda: S.scan_chunkmin_int8_packed_ref(*args), 1)
         equal = torch.equal(S.scan_chunkmin_int8_packed(*args), S.scan_chunkmin_int8_packed_ref(*args))
         print(label, f"K1 N {n} (padded {args[3].shape[0]}) D {D} B {B}: ms {[round(t, 4) for t in times]} "
-              f"graph ms {_graph_ms(lambda: S.scan_chunkmin_int8_packed(*args))} plain {plain:.3f} "
+              f"graph ms {graph_ms(lambda: S.scan_chunkmin_int8_packed(*args)):.4f} plain {plain:.3f} "
               f"equal {equal}", flush=True)
         del args
         torch.cuda.empty_cache()
+
+
+def _time_k45(label, which, B=1000, E=4, EL=128, R=256, N=200_000):
+    """K4 / K5 at the HNSW+PQ graph route's shapes (ef 180 -> W 256, ef
+    600 -> W 1024) on `beam_states.loop_state`, back to back and replayed
+    from a CUDA graph, against their plain versions."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import beam_states
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+
+    rng = np.random.default_rng(0)
+    for ef, W in ((180, 256), (600, 1024)):
+        state = beam_states.loop_state(rng, B, W, R, EL, E, ef, N)
+        beam_d, beam_i, beam_e, ring, selq, nbrs, nd, nids = (torch.from_numpy(a).cuda() for a in state)
+        calls = {"k4": (lambda: BF.beam_pre(beam_i, ring, selq, nbrs, E),
+                        lambda: BF.beam_pre_ref(beam_i, ring, selq, nbrs, E)),
+                 "k5": (lambda: BF.beam_post(beam_d, beam_i, beam_e, nd, nids, ef, E),
+                        lambda: BF.beam_post_ref(beam_d, beam_i, beam_e, nd, nids, ef, E))}
+        for key in sorted(which & calls.keys()):
+            kern, plain = calls[key]
+            equal = all(torch.equal(a, b) for a, b in zip(kern(), plain()))
+            times = [round(_ms(kern, 20), 4) for _ in range(3)]
+            print(label, f"{key.upper()} ef {ef} W {W} B {B} EL {EL} R {R} E {E}: ms {times} graph ms "
+                  f"{[round(graph_ms(kern, 50), 4) for _ in range(3)]} plain {_ms(plain, 5):.4f} equal {equal}",
+                  flush=True)
 
 
 def _time_k10(label, g, B=1000):
@@ -285,7 +312,7 @@ def _time_pool(label, g, B=1000, C=2048, m=320, n_table=10_000_000):
     plain = _ms(lambda: A.adc_sums_ids_ref(*args, False), 1)
     equal = torch.equal(A.adc_sums_ids(*args), A.adc_sums_ids_ref(*args, False))
     print(label, f"K8 ids {B} x {C} (pool) m {m}: ms {[round(t, 4) for t in times]} graph ms "
-          f"{_graph_ms(lambda: A.adc_sums_ids(*args))} plain {plain:.3f} equal {equal}", flush=True)
+          f"{graph_ms(lambda: A.adc_sums_ids(*args)):.4f} plain {plain:.3f} equal {equal}", flush=True)
 
 
 def _time_sums(label, g, k, packed, dense_dtype, n_dense, n_table, m=320, B=1000):
@@ -311,7 +338,7 @@ def _time_sums(label, g, k, packed, dense_dtype, n_dense, n_table, m=320, B=1000
     times = [_ms(lambda: A.adc_sums_ids(*args), 20) for _ in range(3)]
     equal = torch.equal(A.adc_sums_ids(*args), A.adc_sums_ids_ref(*args, False))
     print(label, f"K{9 if k == 256 else 8} ids {B} x 128 m {m} k {k}: "
-          f"ms {[round(t, 4) for t in times]} graph ms {_graph_ms(lambda: A.adc_sums_ids(*args))} "
+          f"ms {[round(t, 4) for t in times]} graph ms {graph_ms(lambda: A.adc_sums_ids(*args)):.4f} "
           f"equal {equal}", flush=True)
 
 

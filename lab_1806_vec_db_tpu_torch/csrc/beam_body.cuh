@@ -1,15 +1,18 @@
 // Device code shared by the graph-search kernels, for Hopper (sm_90a):
 //
 //   row_dist / query_norm   the exact per-row distance (K2, K3; f32 or bf16 rows)
-//   dedup_compact           K4's body: tile dedup + novel-first compaction
-//   bitonic_sort            K5's merge: sort of the 2W (d, rank<<1|e) keys
-//   remask_select           K5's epilogue: ef re-mask + expansion select
+//   block_rank              block-wide ballot prefix count (K3, K4)
+//   dedup_compact           K3's tile dedup + novel-first compaction
+//   bitonic_sort            K3's merge: sort of the 2W (d, rank<<1|e) keys; K6's sort
+//   remask_select           K3's epilogue: ef re-mask + expansion select
 //
-// One copy of each, so K3 (csrc/traverse.cu) is K4 + K5 plus a row gather
-// and gives the same bits as K2 (csrc/gather_dists.cu) and the semantics of
-// K4 / K5 (csrc/beam_pre.cu, csrc/beam_post.cu).  The semantics are those of
+// K3 (csrc/traverse.cu) is one CTA's whole loop on these and gives the same
+// bits as K2 (csrc/gather_dists.cu).  K4 and K5 (csrc/beam_pre.cu,
+// csrc/beam_post.cu) have bodies of their own, a hash-set dedup and a merge
+// by rank, with the same semantics: those of
 // lab_1806_vec_db_tpu/ops/pallas_beam.py (_dedup_compact, _ring_shift,
-// _merge_select); the plain PyTorch versions are in ops/beam_fused.py.
+// _merge_select), whose plain PyTorch versions are in ops/beam_fused.py and
+// against which all three kernels are tested.
 //
 // Block-level functions expect every thread of the block to call them
 // (they contain __syncthreads) and blockDim.x a multiple of 32.
@@ -114,7 +117,7 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_tot, int& total) 
   return off + r;
 }
 
-// K4's body.  Thread t < EL holds tile lane t (needs blockDim.x >= EL).  A
+// K3's dedup.  Thread t < EL holds tile lane t (needs blockDim.x >= EL).  A
 // lane is fresh when its id is >= 0, not in beam_i[0, W) or ring[0, R), and
 // in no earlier lane.  Fresh ids are compacted to comp[0, count) in lane
 // order, -1 fills comp[count, comp_w) (comp_w >= EL).  Returns count on every
@@ -167,7 +170,7 @@ __device__ __forceinline__ void bitonic_sort(float* kd, int* kre, int* kid, int 
   }
 }
 
-// K5's epilogue on the sorted keys' first W lanes: lanes >= ef, non-finite
+// K3's epilogue on the sorted keys' first W lanes: lanes >= ef, non-finite
 // d and id < 0 become (inf, -1, e 0); the E lowest-lane unexpanded entries
 // are marked expanded and written to sel[0, E), -1 after.  Leaves kre[j] = e.
 __device__ __forceinline__ void remask_select(float* kd, int* kre, int* kid, int W, int ef, int E,

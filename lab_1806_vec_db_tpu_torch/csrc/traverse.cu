@@ -10,10 +10,10 @@
 //   init    the scored entry merged into an empty beam; select E
 //   repeat  until no id is selected or max_iters iterations:
 //     1. tile lane e*L + j = links0[sel[e], j] (-1 where sel[e] < 0)
-//     2. dedup + compaction against the beam and the ring (K4's body)
+//     2. dedup + compaction against the beam and the ring (K4's semantics)
 //     3. ring' = [sel[0..E), ring[0..R-E)] with the ids expanded now
 //     4. exact distances of the novel rows (K2's row_dist: the same bits)
-//     5. merge, re-mask, select the next E (K5's body)
+//     5. merge, re-mask, select the next E (K5's semantics, by a full sort)
 //   out     the first ef lanes of the beam: exact f32 distances, ascending
 //
 // That is the reference's iteration order (pallas_traverse.py:171-224) and

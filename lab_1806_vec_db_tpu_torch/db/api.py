@@ -12,7 +12,8 @@ during execution, so concurrent Python threads overlap the same way.
 Port of lab_1806_vec_db_tpu/db/api.py.  `VecDB(dir, device="cuda")` serves
 float32 Flat and HNSW tables, with or without a PQ table, and uint8 Flat
 tables (exact integer distances) on the given device, and raises
-RuntimeError when that device is unavailable.
+RuntimeError when that device is unavailable.  `VecDB(dir, seed=s)` makes
+its tables' HNSW builds and PQ training reproducible (see `VecDB`).
 """
 
 from __future__ import annotations
@@ -56,8 +57,14 @@ class VecDB:
     - Unique: only one manager per database directory (flock-enforced).
     """
 
-    def __init__(self, dir: str, device="cuda") -> None:
-        self._inner = VecDBManager(dir, device=device)
+    def __init__(self, dir: str, device="cuda", seed: int | None = None) -> None:
+        """Extension over the reference stub: `device` places the tables;
+        `seed`, when given, seeds every table this VecDB creates or opens,
+        so an HNSW build draws the same levels (and builds the same graph)
+        and PQ training the same codebooks each time.  None, the default,
+        draws HNSW levels from fresh entropy as the reference does (PQ
+        training then uses seed 0)."""
+        self._inner = VecDBManager(dir, device=device, seed=seed)
 
     @_runtime_wrap
     def create_table_if_not_exists(

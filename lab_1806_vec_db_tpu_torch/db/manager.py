@@ -118,9 +118,10 @@ def _acquire_lock(lock_path: str):
 
 
 class VecDBManager:
-    def __init__(self, dir: str, device="cuda"):
+    def __init__(self, dir: str, device="cuda", seed: int | None = None):
         # fail before touching the directory when the device is unavailable
         self.device = resolve(device)
+        self.seed = seed
         self.dir = os.path.abspath(dir)
         os.makedirs(self.dir, exist_ok=True)
         self._lock_file = _acquire_lock(os.path.join(self.dir, "db.lock"))
@@ -151,7 +152,7 @@ class VecDBManager:
                     raise KeyError(f"Table {key} not found")
                 if key not in self._tables:
                     path = os.path.join(self.dir, self._brief.tables[key])
-                    table = MetadataVecTable.load(path, device=self.device)
+                    table = MetadataVecTable.load(path, device=self.device, seed=self.seed)
                     self._tables[key] = ThreadSavingManager(
                         table, path, TABLE_SAVE_INTERVAL, False
                     )
@@ -190,7 +191,7 @@ class VecDBManager:
                     return False
                 filename = brief.insert(key)
                 path = os.path.join(self.dir, filename)
-                table = MetadataVecTable(dim, dist, data_type=data_type, device=self.device)
+                table = MetadataVecTable(dim, dist, self.seed, data_type=data_type, device=self.device)
                 mgr = ThreadSavingManager(table, path, TABLE_SAVE_INTERVAL, True)
                 self._tables[key] = mgr
                 return True

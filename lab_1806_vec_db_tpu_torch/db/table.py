@@ -190,11 +190,11 @@ class MetadataVecTable:
         serde.save_arrays(path, arrays, meta)
 
     @classmethod
-    def load(cls, path, device="cuda") -> "MetadataVecTable":
+    def load(cls, path, device="cuda", seed: int | None = None) -> "MetadataVecTable":
         arrays, meta = serde.load_arrays(path)
         self = cls.__new__(cls)
         self.inner = DynamicIndex.from_state(arrays, meta, device=device)
         self.metadata = [dict(m) for m in meta.get("metadata", [])]
         self.pq = PQTable.from_state(arrays, meta, device=device) if "pq" in meta else None
-        self._seed = None
+        self._seed = seed
         return self

@@ -10,8 +10,8 @@ One iteration of the batched level-0 beam search is K4 -> K2 -> K5:
 - K5 `beam_post`: merge of the scored tile into the sorted beam, the ef
   re-mask, and the selection of the next E ids to expand.
 
-Semantics, shared by the kernels (`csrc/beam_pre.cu`, `csrc/beam_post.cu`,
-both on `csrc/beam_body.cuh`) and their plain versions here:
+Semantics, shared by the kernels (`csrc/beam_pre.cu`, `csrc/beam_post.cu`)
+and their plain versions here:
 
 - The visited ring is a SHIFT REGISTER: every iteration shifts it by E lanes
   and writes the ids selected for expansion in front, -1 holes included
@@ -19,10 +19,10 @@ both on `csrc/beam_body.cuh`) and their plain versions here:
   classic `ops/beam.py` loop; a ring miss only re-scores a node).
 - Merge order is the key (d, rank << 1 | e): beam lane j has rank j, tile
   lane j rank W + j, so ties break toward the beam, then toward the lower
-  lane.  Every key is distinct, so any correct sort gives one order: the
+  lane.  Every key is distinct, so any correct merge gives one order: the
   reference's bitonic network (`ops/pallas_merge.py:53-95`) on a sorted
-  beam, the kernel's bitonic sort, and the plain version's stable sort of
-  [beam, tile].
+  beam, the kernel's placement of each key by its rank on both sides, and
+  the plain version's stable sort of [beam, tile].
 - After the merge, lanes >= ef, non-finite distances and ids < 0 become
   (inf, -1, 0); the E lowest-lane unexpanded entries are marked expanded
   and written to sel[0..E), -1 after.
@@ -147,10 +147,19 @@ beam_pre.launches = 0
 def beam_post(beam_d, beam_i, beam_e, nd, nids, ef: int, E: int):
     """Merge the scored tile into the beam, re-mask, select the next E (K5).
 
-    beam_d/beam_i/beam_e (B, W) f32/int32/int32, ascending beam (inf/-1/0
+    beam_d/beam_i/beam_e (B, W) f32/int32/int32, the beam (inf/-1/0
     padded; W a power of two <= 4096); nd/nids (B, W) f32/int32 scored tile
-    (inf/-1 on stale lanes).  Returns (d', i', e' (B, W), sel (B, 128)).
-    CUDA tensors launch the kernel and count it in `beam_post.launches`."""
+    (inf/-1 on stale lanes; live lanes anywhere in [0, W)).  Returns (d',
+    i', e' (B, W), sel (B, 128)).  CUDA tensors launch the kernel and count
+    it in `beam_post.launches`.
+
+    Precondition, as for the TPU kernel: each beam row is ascending in d
+    (NaN last, as `torch.sort` orders it), so that its keys (d, lane) are
+    ascending.  The loop's beams are: K5's output is ascending whenever its
+    tile holds no -inf and no finite d with id -1, and the loop gives every
+    -1 lane +inf.  The kernel reads only lanes < min(ef, W) of the beam and
+    places each key by rank instead of sorting, so it equals this plain
+    version only on such beams."""
     i32, f32 = torch.int32, torch.float32
     dev = _check(dict(beam_d=beam_d, beam_i=beam_i, beam_e=beam_e, nd=nd, nids=nids),
                  dict(beam_d=f32, beam_i=i32, beam_e=i32, nd=f32, nids=i32))

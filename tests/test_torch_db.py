@@ -181,6 +181,42 @@ def test_two_stage_batch_search_through_vecdb(tmp_path):
     assert rec >= 0.99
 
 
+def _seeded_hnsw(path, seed, rows, reopen):
+    """Build an HNSW index on a table of `VecDB(path, seed=seed)` (created,
+    or with `reopen` closed and opened again first); returns its levels and
+    level-0 links and the PQ codebooks."""
+    db = VecDB(str(path), device="cpu", seed=seed)
+    try:
+        db.create_table_if_not_exists("t", rows.shape[1], "l2sqr")
+        db.batch_add("t", rows, [{"i": str(i)} for i in range(len(rows))])
+        if reopen:
+            db.close()
+            db = VecDB(str(path), device="cpu", seed=seed)
+        db.build_hnsw_index("t")
+        db.build_pq_table("t", 0.5, 4, 8)
+        tbl = db._inner._table_mgr("t").obj
+        index = tbl.inner.inner
+        return index.levels[: len(rows)].copy(), index.links0[: len(rows)].copy(), tbl.pq.codebooks.copy()
+    finally:
+        db.close()
+
+
+@pytest.mark.parametrize("reopen", [False, True])
+def test_seeded_vecdb_builds_the_same_graph(reopen, tmp_path):
+    """`VecDB(dir, seed=s)` seeds the tables it creates and opens: two
+    builds of one table give the same levels, links and PQ codebooks (the
+    graph-route ids of two runs then compare); without a seed the levels
+    come from fresh entropy, as in the reference."""
+    rows = np.random.default_rng(5).standard_normal((600, 16), dtype=np.float32)
+    a = _seeded_hnsw(tmp_path / "a", 11, rows, reopen)
+    b = _seeded_hnsw(tmp_path / "b", 11, rows, reopen)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert a[0].max() > 0  # upper levels were drawn
+    unseeded = [_seeded_hnsw(tmp_path / f"u{i}", None, rows, reopen)[0] for i in range(3)]
+    assert any(not np.array_equal(u, unseeded[0]) for u in unseeded[1:])
+
+
 _ISOLATION = """
 import sys
 import numpy as np
