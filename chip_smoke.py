@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   1. device  — require CUDA; print the card's name and power limit;
   2. build   — build the CUDA kernels of `lab_1806_vec_db_tpu_torch/csrc/`;
                read ptxas's registers and spills of the K1, K3-K5, K8, K10
-               and K12 kernels from the build's report (none found, or a
+               and K12-K14 kernels from the build's report (none found, or a
                spill outside K3, fails);
   3. K1      — the packed int8 scan kernel against its plain PyTorch version
                at the main path's shapes (dim 960 -> 1024, B = 1000, a ragged
@@ -22,7 +22,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                then the cosine columns of K12-K14 on the same 200,000 rows
                against their plain versions (K13 / K14 equal element for
                element, K12 within rtol 1e-5 / atol 1e-6 with ids equal
-               except between rows within that of each other);
+               except between rows within that of each other); K13 / K14
+               also, untimed and on both metrics, on a ragged base (70,000
+               rows, n_valid 69,500, B 50), at widths 96 and 1040 (the
+               second streams its query boxes) and on channels across
+               f32's range (`time_adc.int8_edge_case`), all equal;
   5. VecDB   — the user's entry points on two 200,000 x 960 Gist-spectrum
                tables (l2sqr, cosine) of a VecDB seeded with DB_SEED (so
                the HNSW graph, the PQ table and every route's ids repeat
@@ -60,7 +64,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                arguments of one of their launches in the graph route at ef
                180 and 600 (equal), timed back to back beside their plain
                versions and replayed from a CUDA graph; K6 against its plain
-               version at B = 1000, EL = 128 and ef 180 / 360 / 600, K8 and
+               version at B = 1000, EL = 128 and ef 180 / 360 / 600, and on
+               the arguments of one of its launches in the classic loop at
+               ef 180 and 600 (equal), timed back to back and replayed from
+               a CUDA graph, K8 and
                K9 ids at widths 1 / 16 / 128 (equal; K8 also at code widths
                7 and 20, its byte-wise reads), K8 / K9 dense on one
                block (equal; also at the cosine route's R = 1001, K9 on the
@@ -77,7 +84,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                K14 on int8 rows with raw channels) each feeding r = 40
                candidates to K2, recall@10 and QPS, the launch counts from 0
                around the three; each kernel against its plain version,
-               timed in turns, with its bound;
+               timed in turns, with its bound (K13 / K14 also replayed from
+               a CUDA graph);
      pq      — flat_pq_1m: PQTable.train from the store's device tensor,
                FlatIndex.knn_pq_batch at ef 100 / 200 (K7 + K2), and K7
                against its plain version on all 1,000,000 rows, bit for bit;
@@ -135,10 +143,12 @@ The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
 the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
 traversal_stats run, `ms` back to back as every kernel's, `graph_ms`
-replayed from a CUDA graph beside it; K6-K9: the first call of the PQ route that takes each;
+replayed from a CUDA graph beside it; K6-K9: the first call of the PQ route that takes each,
+K6's `graph_ms` replayed on its captured classic-loop arguments;
 K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
 codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
-first search; K12-K14: the resident phase's three entry points),
+first search; K12-K14: the resident phase's three entry points, K13 / K14
+with `graph_ms` too),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
 computes the same function (K6: a stable torch.sort and a gather; else null).
@@ -695,26 +705,6 @@ def run_route(name, search, gt, need, B, rounds, per_round):
             "launches": launches}
 
 
-def _rand_merge_state(rng, B, ef, EL, N):
-    """K6 inputs shaped like a classic-loop iteration's: a sorted (B, ef)
-    beam with an inf / -1 tail and expansion flags, an unsorted (B, EL)
-    scored tile with stale (inf, -1) lanes and exact ties with the beam."""
-    import numpy as np
-
-    beam_d = np.sort(rng.random((B, ef)).astype(np.float32), axis=1)
-    beam_i = rng.integers(0, N, (B, ef)).astype(np.int32)
-    fill = rng.integers(ef // 2, ef + 1, B)
-    tail = np.arange(ef)[None, :] >= fill[:, None]
-    beam_d[tail], beam_i[tail] = np.inf, -1
-    beam_e = (rng.random((B, ef)) < 0.5) & ~tail
-    nids = rng.integers(-1, N, (B, EL)).astype(np.int32)
-    nd = rng.random((B, EL)).astype(np.float32)
-    nd[:, 5] = beam_d[:, 3]  # exact ties with the beam
-    nd[:, 9] = nd[:, 7]      # and within the tile
-    nd[nids < 0] = np.inf
-    return beam_d, beam_i, beam_e, nd, nids
-
-
 def check_k6(B, ef, EL, N):
     """K6 against its plain version at one of the classic loop's shapes
     (ef 180 / 360 sort 512 keys with 204 / 24 padding keys, ef 600 sorts
@@ -722,9 +712,10 @@ def check_k6(B, ef, EL, N):
     stable torch.sort of the (B, ef + EL) concatenation + the id gather)."""
     import numpy as np
     import torch
+    from lab_1806_vec_db_tpu_torch.bench import beam_states as BS
     from lab_1806_vec_db_tpu_torch.ops import merge as M
 
-    st = [torch.from_numpy(a).cuda() for a in _rand_merge_state(np.random.default_rng(6), B, ef, EL, N)]
+    st = [torch.from_numpy(a).cuda() for a in BS.merge_state(np.random.default_rng(6), B, ef, EL, N)]
     got, ref = M.merge_sorted(*st), M.merge_sorted_ref(*st)
     torch.cuda.synchronize()
     for name, a, b in zip(("d", "i", "e"), got, ref):
@@ -744,6 +735,36 @@ def check_k6(B, ef, EL, N):
         f"plain {plain_ms:.4f} ms, sort+gather {lib_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound, "library_ms": lib_ms,
             "shape": [B, ef, EL]}
+
+
+def check_k6_graph(index, pq, q_host, ef, launches, nth=8):
+    """K6 at the shape the classic loop gives it (the PQ graph route with
+    fused=False): the arguments of its `nth` launch in one batch at `ef`
+    (`captured_args`), equal to its plain version on them; timed back to
+    back beside it in turns and replayed from a CUDA graph (before and after
+    those); bound as `check_k6`'s; score = launches a batch x (graph ms -
+    bound)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+
+    args = captured_args(M, ("merge_sorted",), nth,
+                         lambda: index.knn_pq_batch(q_host, 10, ef, pq, route="graph", fused=False))["merge_sorted"]
+    got, want = M.merge_sorted(*args), M.merge_sorted_ref(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), f"K6 at the classic loop's ef {ef}: differs")
+    (B, W), EL = args[0].shape, args[3].shape[1]
+    kern = lambda: M.merge_sorted(*args)
+    g0 = TA.graph_ms(kern, 50)
+    ms, plain_ms = in_turns(kern, lambda: M.merge_sorted_ref(*args), 20, 5)
+    graph = (g0 + TA.graph_ms(kern, 50)) / 2
+    bound = bound_ms(B * (9 * W + 8 * EL) + B * 9 * W)
+    out = {"W": W, "EL": EL, "ms": ms, "graph_ms": graph, "plain_ms": plain_ms, "bound": bound,
+           "launches": launches, "score_ms": launches * (graph - bound[0])}
+    log(f"[pq] K6 at hnsw_pq_200k classic graph ef {ef} (beam {W}, tile {EL}): equal to its plain version; "
+        f"{ms:.4f} ms (graph replay {graph:.4f}), plain {plain_ms:.4f}, bound {bound[0]:.5f}, {launches} "
+        f"launches, score {out['score_ms']:.2f} ms")
+    return out
 
 
 def lookup_bound_ms(lookups: float) -> float:
@@ -924,20 +945,15 @@ def phase_pq_1m(store, flat, q, gt):
     return out, k7
 
 
-def check_k45_graph(index, pq, q_host, ef, launches, nth=8):
-    """K4 and K5 at the shape the PQ graph route gives them: the arguments
-    of the `nth` launch of each in one batch at `ef` (captured by swapping
-    the wrappers, as `plain_kernels` does), each kernel against its plain
-    version on them (equal); timed back to back beside the plain version in
-    turns (`ms`, `plain_ms`) and replayed from a CUDA graph (`graph_ms`,
-    before and after those); bound from their shapes (the formulas of
-    `phase_hnsw`); score = launches a batch x (graph ms - bound)."""
+def captured_args(module, names, nth, run):
+    """The arguments (cloned) of the `nth` call of each of `module`'s
+    functions `names` while `run()` runs, each swapped for a wrapper that
+    keeps them (as `plain_kernels` swaps them), then restored -> {name:
+    args}."""
     import torch
-    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
-    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
 
-    kept, seen = {}, {"beam_pre": 0, "beam_post": 0}
-    orig = {name: getattr(BF, name) for name in seen}
+    kept, seen = {}, dict.fromkeys(names, 0)
+    orig = {name: getattr(module, name) for name in names}
 
     def capture(name):
         def fn(*args):
@@ -949,10 +965,29 @@ def check_k45_graph(index, pq, q_host, ef, launches, nth=8):
         return fn
 
     try:
-        BF.beam_pre, BF.beam_post = capture("beam_pre"), capture("beam_post")
-        index.knn_pq_batch(q_host, 10, ef, pq, route="graph")
+        for name in names:
+            setattr(module, name, capture(name))
+        run()
     finally:
-        BF.beam_pre, BF.beam_post = orig["beam_pre"], orig["beam_post"]
+        for name in names:
+            setattr(module, name, orig[name])
+    return kept
+
+
+def check_k45_graph(index, pq, q_host, ef, launches, nth=8):
+    """K4 and K5 at the shape the PQ graph route gives them: the arguments
+    of the `nth` launch of each in one batch at `ef` (`captured_args`),
+    each kernel against its plain version on them (equal); timed back to
+    back beside the plain version in turns (`ms`, `plain_ms`) and replayed
+    from a CUDA graph (`graph_ms`, before and after those); bound from their
+    shapes (the formulas of `phase_hnsw`); score = launches a batch x (graph
+    ms - bound)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+
+    orig = {"beam_pre": BF.beam_pre, "beam_post": BF.beam_post}
+    kept = captured_args(BF, tuple(orig), nth, lambda: index.knn_pq_batch(q_host, 10, ef, pq, route="graph"))
     out = {}
     for key, name, ref in (("k4", "beam_pre", BF.beam_pre_ref), ("k5", "beam_post", BF.beam_post_ref)):
         args = kept[name]
@@ -1053,6 +1088,8 @@ def phase_pq_200k(db, q_host, gts, x_host):
     meas["k8_ids"] = check_sums_ids(codes, lookup, PQ_M, True, len(pq), "K8")
     # K6 at every ef the classic loop ran (EL = E 4 x L 32)
     meas["k6"] = {ef: check_k6(B, ef, 128, len(index)) for ef in (180, 360, 600)}
+    meas["k6_graph"] = {ef: check_k6_graph(index, pq, q_host, ef, h["graph_classic"][ef]["launches"]["k6"])
+                        for ef in (180, 600)}
     out["hnsw_pq_200k"] = h
 
     # n_bits = 8 on the same store: K9's dense (scan) and ids (graph) shapes
@@ -1941,9 +1978,13 @@ def check_k12(q, base_bf, cache, n_valid, dist, tag, timed=False):
 
 def check_int8_resident(q, b8, bsc, cache, n_valid, dist, tag, timed=False):
     """K13 and K14 against their plain versions on the same raw int8
-    operands: equal element for element (K14's ids too).  K14 takes the
-    queries padded to 1024 as its entry point pads them."""
+    operands (the kernels read the base in place, the plain versions take
+    it zero-padded to N_pad): equal element for element (K14's ids too).
+    K14 takes the queries padded to a multiple of 128 as its entry point
+    pads them.  Timed: in turns with the plain version (back to back) and
+    replayed from a CUDA graph before and after those."""
     import torch
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
     from lab_1806_vec_db_tpu_torch.ops import distance as D
     from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
     from lab_1806_vec_db_tpu_torch.ops import topk as T
@@ -1967,7 +2008,9 @@ def check_int8_resident(q, b8, bsc, cache, n_valid, dist, tag, timed=False):
              "shape": [qq.shape[0], b8.shape[0], b8.shape[1]]}
         del got, want
         if timed:
+            g0 = TA.graph_ms(lambda: fn(*args), 5)
             o["ms"], o["plain_ms"] = in_turns(lambda: fn(*args), lambda: ref(*pargs), 5, 1)
+            o["graph_ms"] = (g0 + TA.graph_ms(lambda: fn(*args), 5)) / 2  # before and after the turns
             Bq, n, dim = qq.shape[0], n_valid, b8.shape[1]
             n_pad = -(-b8.shape[0] // mult) * mult
             # int8 rows with scale and cache, int8 queries with theirs; K13's
@@ -1977,7 +2020,8 @@ def check_int8_resident(q, b8, bsc, cache, n_valid, dist, tag, timed=False):
         out[name] = o
         log(f"[resident] {name.upper()} {tag} ({b8.shape[0]} rows x {qq.shape[0]} queries): equal to its plain "
             "version element for element"
-            + (f"; {o['ms']:.3f} ms, plain {o['plain_ms']:.2f} ms, bound {o['bound']}" if timed else ""))
+            + (f"; {o['ms']:.3f} ms (graph replay {o['graph_ms']:.3f}), plain {o['plain_ms']:.2f} ms, "
+               f"bound {o['bound']}" if timed else ""))
     return out
 
 
@@ -2032,9 +2076,13 @@ def phase_resident(store, q, gt):
 
 def phase_resident_cosine(x, queries):
     """The cosine columns of K12-K14 on the 200,000 x 960 rows of phases
-    3-4: each kernel against its plain version."""
+    3-4, each kernel against its plain version; K13 / K14 also on a ragged
+    base, at widths 96 and 1040 and on channels across f32's range, both
+    metrics."""
     import torch
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
     from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
     from lab_1806_vec_db_tpu_torch.ops import topk as T
 
     cache = D.dist_cache(x, "cosine")
@@ -2046,6 +2094,32 @@ def phase_resident_cosine(x, queries):
     small = check_k12(queries[:50], base_bf[:70_000], cache[:70_000], 69_500, "cosine", "cosine 70,000 x 50 queries")
     k12["max_abs_err"] = max(k12["max_abs_err"], small["max_abs_err"])
     k1314 = check_int8_resident(queries, b8, bsc, cache, x.shape[0], "cosine", "cosine 200,000")
+    # K13 / K14 untimed on both metrics: a ragged base (70,000 rows, n_valid
+    # 69,500, B 50: one partial query tile) and widths 96 and 1040 (the
+    # second streams its query boxes beside the rows), uniform rows there
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes = [("ragged 70,000 x 50 queries", x[:70_000], queries[:50], 69_500)]
+    for dim in (96, 1040):
+        shapes.append((f"width {dim}", torch.rand((20_000, dim), generator=gen, device="cuda"),
+                       torch.rand((300, dim), generator=gen, device="cuda"), 20_000))
+    for tag, rows, qq, n_valid in shapes:
+        r8, rsc = T.quantize_rows_int8(rows)
+        for dist in ("l2sqr", "cosine"):
+            more = check_int8_resident(qq, r8, rsc, D.dist_cache(rows, dist), n_valid, dist, f"{dist} {tag}")
+            for key in k1314:
+                k1314[key]["max_abs_err"] = max(k1314[key]["max_abs_err"], more[key]["max_abs_err"])
+    # and on channels spread over f32's range (bf16 subnormals, overflow to
+    # +-inf, zero scales), where the kernels' bf16x2 steps meet edge cases
+    for dist in ("l2sqr", "cosine"):
+        for key, fn, ref, mult in (("k13", SR.scan_dist_int8, SR.scan_dist_int8_ref, SR._NB),
+                                   ("k14", SR.scan_chunkmin_int8_t, SR.scan_chunkmin_int8_t_ref, SR._NB_T)):
+            args = TA.int8_edge_case(20_000, 96, 300, 13, key == "k14")
+            got, want = fn(*args, 19_990, dist), ref(*args[:3], *SR._pad_rows(mult, *args[3:]), 19_990, dist)
+            torch.cuda.synchronize()
+            got, want = (got, want) if key == "k14" else ((got,), (want,))
+            check(all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{key.upper()} {dist} edge channels: differs from the plain version")
+    log("[resident] K13 / K14 on channels across f32's range (20,000 x 96, B 300): equal to their plain versions")
     return {"k12": k12, **k1314}
 
 
@@ -2309,6 +2383,7 @@ def main() -> None:
     ptxas = {key: ptxas_of(build_log, frag) for key, frag in (
         ("k1", "scan_int8_packed_kernel"), ("k8_ids", "2k810ids_kernel"), ("k8_dense", "dense_onehot_kernel"),
         ("k10", "scan_int8_binned_kernel"), ("k12", "scan_bf16_chunkmin_kernel"),
+        ("k13", "scan_int8_bf16_kernelILb0E"), ("k14", "scan_int8_bf16_kernelILb1E"),
         ("k3", "traverse_kernel"), ("k4", "beam_pre_kernel"), ("k5", "beam_post_kernel"))}
     for key, rep in ptxas.items():  # K3's figures are recorded, not gated
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
@@ -2402,10 +2477,15 @@ def main() -> None:
     k6 = pm["k6"][180]
     kernels += [
         # K6 on the classic loop (hnsw_pq_200k graph, fused=False, ef 180);
-        # the error is the largest over ef 180 / 360 / 600
+        # the error is the largest over ef 180 / 360 / 600; graph_ms
+        # replays its captured ef 180 arguments (`classic_graph`: ef 180 / 600)
         pq_kernel("merge_sorted", "merge_sorted.cu", "pallas_merge.py:128",
                   pq_launches["graph_classic"]["k6"],
-                  {**k6, "max_abs_err": max(v["max_abs_err"] for v in pm["k6"].values())},
+                  {**k6, "max_abs_err": max(v["max_abs_err"] for v in pm["k6"].values()),
+                   "extra": {"graph_ms": pm["k6_graph"][180]["graph_ms"],
+                             "classic_graph": {ef: {f: v[f] for f in ("ms", "graph_ms", "bound", "launches",
+                                                                      "score_ms")}
+                                               for ef, v in pm["k6_graph"].items()}}},
                   k6["library_ms"]),
         # K7 on flat_pq_1m's first search (ef 100); measured there at 1M rows
         pq_kernel("adc_chunkmin", "adc_scan_chunkmin.cuh", "pallas_adc.py:415",
@@ -2452,7 +2532,8 @@ def main() -> None:
         kernels.append(pq_kernel(name, src, replaces, resident["launches"][key],
                                  {**rm[key], "max_abs_err": max(rm[key]["max_abs_err"],
                                                                 resident_cos[key]["max_abs_err"]),
-                                  "extra": {"ptxas": ptxas[key]} if key in ptxas else {}}))
+                                  "extra": {"ptxas": ptxas[key], **({"graph_ms": rm[key]["graph_ms"]}
+                                                                   if "graph_ms" in rm[key] else {})}}))
     log(f"total {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

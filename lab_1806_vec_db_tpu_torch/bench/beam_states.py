@@ -1,12 +1,13 @@
-"""Inputs for K4 / K5 (`ops/beam_fused.py:beam_pre` / `beam_post`), as numpy
-arrays drawn from a `np.random.Generator`: the states that
-tests/test_torch_beam.py holds on the CPU, chip_smoke.py on the card and
-bench/time_adc.py times.
+"""Inputs for K4 / K5 (`ops/beam_fused.py:beam_pre` / `beam_post`) and K6
+(`ops/merge.py:merge_sorted`), as numpy arrays drawn from a
+`np.random.Generator`: the states that tests/test_torch_beam.py holds on the
+CPU, chip_smoke.py on the card and bench/time_adc.py times.
 
-Each function returns (beam_d, beam_i, beam_e, ring, selq, nbrs, nd, nids):
-the beam (B, W) f32 / int32 / int32 ascending in d, the visited ring (B, R),
-the selection (B, 128) with E ids in front, the neighbor tile (B, EL) and
-the scored tile (B, W) f32 / int32.
+Each K4 / K5 function returns (beam_d, beam_i, beam_e, ring, selq, nbrs, nd,
+nids): the beam (B, W) f32 / int32 / int32 ascending in d, the visited ring
+(B, R), the selection (B, 128) with E ids in front, the neighbor tile (B,
+EL) and the scored tile (B, W) f32 / int32.  `merge_state` returns K6's
+(beam_d, beam_i, beam_e, nd, nids).
 """
 
 from __future__ import annotations
@@ -102,3 +103,22 @@ def edge_state(rng, B, W, R, EL, E, ef, N=5000):
     nids = rng.integers(0, N, (B, W)).astype(np.int32)
     nids[(dead & (rng.random((B, W)) < 0.5)) | (~dead & (rng.random((B, W)) < 0.05))] = -1
     return beam_d, beam_i, beam_e, ring, selq, nbrs, nd, nids
+
+
+def merge_state(rng, B, ef, EL, N):
+    """K6 inputs shaped like a classic-loop iteration's: a sorted (B, ef)
+    beam with an inf / -1 tail and expansion flags (bool), an unsorted (B,
+    EL) scored tile with stale (inf, -1) lanes and exact ties with the
+    beam."""
+    beam_d = np.sort(rng.random((B, ef)).astype(np.float32), axis=1)
+    beam_i = rng.integers(0, N, (B, ef)).astype(np.int32)
+    fill = rng.integers(ef // 2, ef + 1, B)
+    tail = np.arange(ef)[None, :] >= fill[:, None]
+    beam_d[tail], beam_i[tail] = np.inf, -1
+    beam_e = (rng.random((B, ef)) < 0.5) & ~tail
+    nids = rng.integers(-1, N, (B, EL)).astype(np.int32)
+    nd = rng.random((B, EL)).astype(np.float32)
+    nd[:, 5] = beam_d[:, 3]  # exact ties with the beam
+    nd[:, 9] = nd[:, 7]      # and within the tile
+    nd[nids < 0] = np.inf
+    return beam_d, beam_i, beam_e, nd, nids

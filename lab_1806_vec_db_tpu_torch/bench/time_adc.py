@@ -1,8 +1,8 @@
 """Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k4] [k5] [k7] [k8] [k9] [k10] [k11] [k12]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k4] [k5] [k6] [k7] [k8] [k9] [k10] [k11] [k12] [k13] [k14]
 
-(the named kernels only; all nine without a name).
+(the named kernels only; all twelve without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -39,13 +39,23 @@ LUTs it times, with CUDA events (three means of five launches each):
   and held against the plain version (survivors outside rtol 1e-5 / atol
   1e-6, ids that differ); untimed at cosine on 200,000 rows, at B 50, at
   width 1344 (both query halves streamed) and at width 40;
+- K13 and K14 (the int8 bf16-epilogue scans) on the Gist-spectrum rows of
+  K12's timing, quantized to int8 with their raw channels, at resident_1m's
+  shapes: 1,000,000 rows x 960 lanes (l2sqr) x 1000 queries (K13) or the
+  1024 its entry point pads them to (K14), timed and held against the
+  plain version (torch.equal, K14's ids too); untimed at cosine on 200,000
+  rows, on a ragged 70,000-row base with n_valid 69,500 and B 50, at
+  widths 96 and 1040 (the second streams its query boxes), both metrics,
+  and with channels spread over f32's range (`int8_edge_case`);
 - K4 and K5 (the fused lock-step beam body; timed here for the same reason)
   at the HNSW+PQ graph route's shapes: B 1000, E 4, EL 128, R 256, W 256
   (ef 180) and W 1024 (ef 600), on states shaped like a loop iteration's;
+- K6 (the classic loop's merge) at its ef 180 and 600 shapes: B 1000, EL
+  128, on `beam_states.merge_state`;
 
-each K1 / K4 / K5 / K8 / K9 / K10 result against its plain version (torch.equal,
+each K1 / K4 / K5 / K6 / K8 / K9 / K10 result against its plain version (torch.equal,
 the plain version timed beside it), and prints each kernel's registers from the
-build.  K1, K4, K5 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
+build.  K1, K4-K6, K13, K14 and the K8 / K9 ids shapes are also timed replayed from a CUDA graph
 ("graph ms"): at a few tens of microseconds a call's host work (argument
 checks, the launch plan, ctypes) outlasts the kernel, and back-to-back
 launches then time the host.
@@ -107,13 +117,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    which = set(sys.argv[2:]) or {"k1", "k4", "k5", "k7", "k8", "k9", "k10", "k11", "k12"}
+    which = set(sys.argv[2:]) or {"k1", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k11", "k12", "k13", "k14"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
         if "Function properties for" in ln and any(f in ln for f in ("chunkmin", "adc_sums", "k9", "k8",
-                                                                       "scan_int8_packed", "binned", "beam_p")):
+                                                                       "scan_int8_packed", "binned", "beam_p",
+                                                                       "scan_int8_bf16", "merge_sorted")):
             print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
                   log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -145,6 +156,10 @@ def main() -> None:
         _time_k10(label, g)
     if "k12" in which:
         _time_k12(label)
+    if which & {"k13", "k14"}:
+        _time_k1314(label, which)
+    if "k6" in which:
+        _time_k6(label)
     if "k9" in which:
         _time_sums(label, g, 256, False, torch.bfloat16, 131_072, 200_000)
     if "k8" in which:
@@ -296,6 +311,119 @@ def _time_k12(label, B=1000):
               f"ids differ {ids}", flush=True)
         del base, cache, ref, args
         torch.cuda.empty_cache()
+
+
+def int8_case(x, q, dist, k14):
+    """K13 / K14's operands from f32 rows x and queries q: int8 rows and
+    queries with their raw channels (`quantize_rows_int8`'s scales, the
+    cache |v|^2 or |v|), the queries padded to a multiple of 128 for K14 as
+    its entry point pads them.  Returns (the kernel's arguments without
+    n_valid and dist, the plain version's, its rows padded to N_pad)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    if k14:
+        q = torch.cat([q, q.new_zeros((-q.shape[0] % 128, q.shape[1]))])
+    b8, bsc = T.quantize_rows_int8(x)
+    q8, qsc = T.quantize_rows_int8(q)
+    args = (q8, qsc, D.dist_cache(q, dist), b8, bsc, D.dist_cache(x, dist))
+    return args, args[:3] + SR._pad_rows(SR._NB_T if k14 else SR._NB, *args[3:])
+
+
+def int8_edge_case(n, dim, B, seed, k14):
+    """K13 / K14's arguments (as `int8_case`) on uniform int8 rows and
+    queries with channels spread over f32's range: scales 10^U(-25, 19) (so
+    products reach bf16's largest values and its subnormals), caches
+    10^U(-40, 18) (f32 subnormals included), a tenth of each zero; no
+    combination yields a NaN.  B is padded to a multiple of 128 for K14."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = -(-B // 128) * 128 if k14 else B
+
+    def chan(m, lo, hi):
+        v = 10.0 ** (torch.rand(m, generator=g, device="cuda", dtype=torch.float64) * (hi - lo) + lo)
+        return torch.where(torch.rand(m, generator=g, device="cuda") < 0.1, 0.0, v).float()
+
+    q8 = torch.randint(-127, 128, (B, dim), generator=g, device="cuda", dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (n, dim), generator=g, device="cuda", dtype=torch.int8)
+    return (q8, chan(B, -25, 19), chan(B, -40, 18), b8, chan(n, -25, 19), chan(n, -40, 18))
+
+
+def _time_k1314(label, which, B=1000):
+    """K13 / K14 on the smoke's Gist-spectrum rows (uniform rows at widths
+    96 and 1040) against their plain versions: timed at resident_1m's shape
+    (back to back and replayed from a CUDA graph), checked there and at
+    cosine 200,000, a ragged 70,000-row base (n_valid 69,500, B 50) and
+    widths 96 and 1040 on both metrics."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import synth
+    from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
+
+    cases = [(1_000_000, 960, B, 4, 5, "l2sqr", None, True), (200_000, 960, B, 2, 3, "cosine", None, False)]
+    cases += [(n, dim, b, sx, sx + 1, dist, nv, False) for dist in ("l2sqr", "cosine")
+              for n, dim, b, sx, nv in ((70_000, 960, 50, 6, 69_500), (20_000, 96, 300, 8, None),
+                                        (20_000, 1040, 300, 10, None))]
+    for n, dim, b, sx, sq, dist, nv, timed in cases:
+        if dim == 960:
+            x, q = synth.make_device(n, dim, sx, "cuda"), synth.make_device(b, dim, sq, "cuda")
+        else:  # the Gist spectrum has 960 lanes: uniform rows elsewhere
+            g = torch.Generator(device="cuda").manual_seed(sx)
+            x, q = torch.rand((n, dim), generator=g, device="cuda"), torch.rand((b, dim), generator=g, device="cuda")
+        nv = n if nv is None else nv
+        for key, fn, ref in (("k13", SR.scan_dist_int8, SR.scan_dist_int8_ref),
+                             ("k14", SR.scan_chunkmin_int8_t, SR.scan_chunkmin_int8_t_ref)):
+            if key not in which:
+                continue
+            args, pargs = int8_case(x, q, dist, key == "k14")
+            got, want = fn(*args, nv, dist), ref(*pargs, nv, dist)
+            got, want = (got, want) if key == "k14" else ((got,), (want,))
+            equal = all(a.shape == w.shape and torch.equal(a, w) for a, w in zip(got, want))
+            del got, want
+            times = "untimed"
+            if timed:
+                times = (f"{[round(_ms(lambda: fn(*args, nv, dist), 5), 3) for _ in range(3)]} graph ms "
+                         f"{[round(graph_ms(lambda: fn(*args, nv, dist), 5), 3) for _ in range(2)]} "
+                         f"plain {_ms(lambda: ref(*pargs, nv, dist), 1):.2f}")
+            print(label, f"{key.upper()} {dist} {n} x {dim} B {args[0].shape[0]} n_valid {nv}: ms {times} "
+                  f"equal {equal}", flush=True)
+            del args, pargs
+            torch.cuda.empty_cache()
+        del x, q
+        torch.cuda.empty_cache()
+    for dist in ("l2sqr", "cosine"):  # channels across f32's range, untimed
+        for key, fn, ref in (("k13", SR.scan_dist_int8, SR.scan_dist_int8_ref),
+                             ("k14", SR.scan_chunkmin_int8_t, SR.scan_chunkmin_int8_t_ref)):
+            if key not in which:
+                continue
+            args = int8_edge_case(20_000, 96, 300, 13, key == "k14")
+            pargs = args[:3] + SR._pad_rows(SR._NB_T if key == "k14" else SR._NB, *args[3:])
+            got, want = fn(*args, 19_990, dist), ref(*pargs, 19_990, dist)
+            got, want = (got, want) if key == "k14" else ((got,), (want,))
+            equal = all(a.shape == w.shape and torch.equal(a, w) for a, w in zip(got, want))
+            print(label, f"{key.upper()} {dist} edge channels 20000 x 96 B {args[0].shape[0]} n_valid 19990: "
+                  f"equal {equal}", flush=True)
+
+
+def _time_k6(label, B=1000, EL=128, N=200_000):
+    """K6 at the classic loop's ef 180 and 600 shapes on
+    `beam_states.merge_state`, back to back and replayed from a CUDA graph,
+    against its plain version."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import beam_states
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(6)
+    for ef in (180, 600):
+        st = [torch.from_numpy(a).cuda() for a in beam_states.merge_state(rng, B, ef, EL, N)]
+        kern, plain = (lambda: M.merge_sorted(*st)), (lambda: M.merge_sorted_ref(*st))
+        equal = all(torch.equal(a, b) for a, b in zip(kern(), plain()))
+        print(label, f"K6 ef {ef} B {B} EL {EL}: ms {[round(_ms(kern, 20), 4) for _ in range(3)]} graph ms "
+              f"{[round(graph_ms(kern, 50), 4) for _ in range(3)]} plain {_ms(plain, 5):.4f} equal {equal}",
+              flush=True)
 
 
 def _time_pool(label, g, B=1000, C=2048, m=320, n_table=10_000_000):

@@ -1,7 +1,8 @@
 // Helpers shared by the wgmma + TMA scans for Hopper (sm_90a): K1
-// (scan_int8_packed.cu), K10 (scan_int8_binned.cu) and K12
-// (scan_bf16_chunkmin.cu); K11 (adc_chunkmin_binned.cuh) takes its cp.async
-// arrival and proxy fence from here.
+// (scan_int8_packed.cu), K10 (scan_int8_binned.cu), K12
+// (scan_bf16_chunkmin.cu) and K13 / K14 (scan_int8_bf16.cu); K11
+// (adc_chunkmin_binned.cuh) takes its cp.async arrival and proxy fence from
+// here.
 //
 // K7's header (adc_scan_chunkmin.cuh) gives the mbarrier, TMA, descriptor
 // and wgmma fence helpers; this one adds the m64n128 wgmma shapes with both

@@ -73,7 +73,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_scan_int8_binned.restype = I
     lib.vecdb_scan_bf16_chunkmin.argtypes = [P] * 6 + [I] * 7 + [P]
     lib.vecdb_scan_bf16_chunkmin.restype = I
-    lib.vecdb_scan_int8_bf16.argtypes = [P] * 8 + [I] * 5 + [P]
+    lib.vecdb_scan_int8_bf16.argtypes = [P] * 8 + [I] * 7 + [P]
     lib.vecdb_scan_int8_bf16.restype = I
     lib.vecdb_gather_dists.argtypes = [P, P, P, P, I, I, I, L, I, P]
     lib.vecdb_gather_dists.restype = I

@@ -16,8 +16,9 @@ of its kernel's output, to be reranked exactly (K2, `ops/gather.py`).
 
 On a CUDA tensor each scan is its hand-written kernel
 (`csrc/scan_bf16_chunkmin.cu`: `wgmma` + TMA, `k12_plan` sizes its launch,
-`k12_acc_coords` gives its accumulator map; `csrc/scan_int8_bf16.cu`); on a
-CPU tensor it is the plain PyTorch version `*_ref`.  There is no fallback
+`k12_acc_coords` gives its accumulator map; `csrc/scan_int8_bf16.cu`: int8
+`wgmma` + TMA, the same plan and accumulator map, the base read in place);
+on a CPU tensor it is the plain PyTorch version `*_ref`.  There is no fallback
 from one to the other.
 
 Channels are RAW, as the reference's kernel bodies take them: the base's
@@ -53,7 +54,7 @@ from .topk import INVALID_ID, quantize_rows_int8, smallest_positions, topk_small
 _NB = 1024  # K12 / K13 row padding (the reference's grid step)
 _NB_T = 2048  # K14 row padding
 _CHUNK = 128  # rows per survivor
-_BK = 64  # K13 / K14's depth step in bytes: a row's bytes must be a multiple
+_ROW_ALIGN = 16  # K13 / K14: TMA's row stride is a multiple of 16 bytes (int8 lanes)
 _K12_QT = 128  # K12's queries per CTA: 64 (the wgmma M) per consumer; a 128-row chunk is its N
 _REF_ROWS = 65536  # rows per block of the plain versions (bounds their transients)
 
@@ -138,13 +139,16 @@ def scan_chunkmin_ref(queries_scan, q_cache, base_scan, base_cache, n_valid: int
 
 
 def k12_plan(n_pad: int, B: int, sms: int = 132) -> dict:
-    """How K12's kernel (csrc/scan_bf16_chunkmin.cu) covers a (B, n_pad)
-    scan on a card of `sms` SMs -> {"qtiles", "ctas", "chunks"}.
+    """How K12's kernel (csrc/scan_bf16_chunkmin.cu) and K13 / K14's
+    (csrc/scan_int8_bf16.cu) cover a (B, n_pad) scan on a card of `sms` SMs
+    -> {"qtiles", "ctas", "chunks"}.
 
     The grid is (qtiles = ceil(B / 128), ctas); CTA (x, y) scans query tile
-    x (its consumer p the queries 128 x + 64 p ... + 63) against the 128-row
-    chunks y, y + ctas, y + 2 ctas, ...  ctas fills at most one wave (sms //
-    qtiles CTAs a query tile)."""
+    x against the 128-row chunks y, y + ctas, y + 2 ctas, ...  ctas fills at
+    most one wave (sms // qtiles CTAs a query tile).  In K12 consumer p
+    takes the queries 128 x + 64 p ... + 63 of every chunk; in K13 / K14 the
+    CTA's i-th chunk goes to consumer i % 2, which multiplies all 128
+    queries of the tile while the other runs its own chunk's epilogue."""
     qtiles = -(-B // _K12_QT)
     chunks = n_pad // _CHUNK
     return {"qtiles": qtiles, "ctas": max(1, min(chunks, sms // qtiles)), "chunks": chunks}
@@ -269,40 +273,50 @@ def scan_chunkmin_int8_t_ref(q8, q_scale, q_cache, base_i8, base_scale, base_cac
 
 
 def _int8_launch(chunkmin: bool, q8, q_scale, q_cache, base_i8, base_scale, base_cache, n_valid, dist, n_multiple):
-    """Checks, padding and the launch shared by K13 and K14."""
+    """Checks and the launch shared by K13 and K14.  On the CPU the plain
+    version takes the base zero-padded to N_pad rows; on CUDA the kernel
+    reads it in place (rows past N are TMA's zero fill)."""
     dev = _check(dist, q8, base_i8, q_scale, q_cache, base_scale, base_cache)
     if q8.dtype != torch.int8 or base_i8.dtype != torch.int8:
         raise TypeError("q8 and base_i8 must be int8")
-    B = q8.shape[0]
+    B, n = q8.shape[0], base_i8.shape[0]
     if q_scale.shape != (B,) or q_cache.shape != (B,):
         raise ValueError("q_scale and q_cache must be (B,)")
-    if base_scale.shape != (base_i8.shape[0],) or base_cache.shape != (base_i8.shape[0],):
+    if base_scale.shape != (n,) or base_cache.shape != (n,):
         raise ValueError("base_scale and base_cache must be (N,)")
-    base_i8, base_scale, base_cache = _pad_rows(n_multiple, base_i8, base_scale, base_cache)
-    args = (q8, q_scale, q_cache, base_i8, base_scale, base_cache, n_valid, dist)
     if dev.type == "cpu":
+        args = (q8, q_scale, q_cache, *_pad_rows(n_multiple, base_i8, base_scale, base_cache), n_valid, dist)
         return (scan_chunkmin_int8_t_ref if chunkmin else scan_dist_int8_ref)(*args)
     if not base_i8.is_contiguous():
         raise ValueError("base_i8 must be contiguous (the kernel reads it row-major in place)")
-    n_pad = base_i8.shape[0]
-    if n_pad // _NB > 65535:
-        raise ValueError(f"a base of {n_pad} rows exceeds the kernel's grid limit")
-    q8, base_i8 = _pad_cols(_BK, q8.contiguous(), base_i8)
-    qs, qc = q_scale.float().contiguous(), q_cache.float().contiguous()
-    sc, ca = base_scale.float().contiguous(), base_cache.float().contiguous()
+    n_pad = -(-n // n_multiple) * n_multiple
+    if n_pad >= 2**31:
+        raise ValueError(f"a base of {n} rows exceeds the kernel's int32 row ids")
+    # TMA's row stride is a multiple of 16 bytes: zero columns add nothing to a dot
+    q8, base_i8 = _pad_cols(_ROW_ALIGN, q8.contiguous(), base_i8)
+    if q8.data_ptr() % 16:
+        q8 = q8.clone()
+    if base_i8.data_ptr() % 16:
+        raise ValueError("base_i8 must be 16-byte aligned (TMA reads it in place)")
+    # the kernel reads the rows' channels in float2 pairs
+    qs, qc, sc, ca = (t.float().contiguous() for t in (q_scale, q_cache, base_scale, base_cache))
+    sc, ca = (t if t.data_ptr() % 8 == 0 else t.clone() for t in (sc, ca))
     if chunkmin:
         outd = torch.empty((n_pad // _CHUNK, B), dtype=torch.float32, device=dev)
         outi = torch.empty((n_pad // _CHUNK, B), dtype=torch.int32, device=dev)
     else:
         outd, outi = torch.empty((B, n_pad), dtype=torch.bfloat16, device=dev), None
+    if n_pad == 0 or B == 0:
+        return (outd, outi) if chunkmin else outd
     flags = int(dist == "cosine") | (2 if chunkmin else 0)
+    plan = k12_plan(n_pad, B, _sm_count(dev))  # the same 128-query tiles and 128-row chunks
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vecdb_scan_int8_bf16(
             q8.data_ptr(), qs.data_ptr(), qc.data_ptr(), base_i8.data_ptr(), sc.data_ptr(), ca.data_ptr(),
-            outd.data_ptr(), 0 if outi is None else outi.data_ptr(), B, n_pad, base_i8.shape[1],
-            int(n_valid), flags, stream,
+            outd.data_ptr(), 0 if outi is None else outi.data_ptr(), B, n, n_pad, base_i8.shape[1],
+            int(n_valid), flags, plan["ctas"], stream,
         )
     _build.check(status, "scan_int8_bf16")
     if chunkmin:
@@ -317,9 +331,12 @@ def scan_dist_int8(q8, q_scale, q_cache, base_i8, base_scale, base_cache, n_vali
 
     q8 (B, dim) int8 with q_scale, q_cache (B,) f32 (`quantize_rows_int8`,
     `distance.dist_cache`); base_i8 (N, dim) int8 with its raw base_scale
-    and base_cache (N,) f32.  N is zero-padded to a multiple of 1024; rows
-    >= n_valid are +inf.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel and count the launch in `scan_dist_int8.launches`."""
+    and base_cache (N,) f32.  N_pad is N rounded up to a multiple of 1024,
+    the rows past N zero rows (the kernel reads them as TMA's zero fill, so
+    the base is not copied unless its rows need zero columns to a multiple
+    of 16 bytes); rows >= n_valid are +inf.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel and count the launch in
+    `scan_dist_int8.launches`."""
     return _int8_launch(False, q8, q_scale, q_cache, base_i8, base_scale, base_cache, n_valid, dist, _NB)
 
 
@@ -330,7 +347,8 @@ def scan_chunkmin_int8_t(q8, q_scale, q_cache, base_i8, base_scale, base_cache, 
     """K13's distances reduced to one survivor per 128 rows -> ((N_pad/128,
     B) f32 min, (N_pad/128, B) int32 lowest argmin as a global row id).
 
-    Arguments as `scan_dist_int8`; N is zero-padded to a multiple of 2048.
+    Arguments as `scan_dist_int8`; N_pad is N rounded up to a multiple of
+    2048, the rows past N zero rows (read in place as `scan_dist_int8`).
     CPU tensors run the plain version; CUDA tensors launch the kernel and
     count the launch in `scan_chunkmin_int8_t.launches`."""
     return _int8_launch(True, q8, q_scale, q_cache, base_i8, base_scale, base_cache, n_valid, dist, _NB_T)

@@ -353,3 +353,189 @@ def test_k12_compensated_partials_within_rtol(dist, boxes):
     got = SR._chunk_min(d)[0]
     ref = SR.scan_chunkmin_ref(q, qc, x, ca, 2048, dist)[0]
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------ K13 / K14 layout ----
+
+@pytest.mark.parametrize("n_pad", [1024, 3 * 2048, 1_000_448, 1_001_472])
+@pytest.mark.parametrize("b", [1, 50, 1000, 1024])
+def test_k12_plan_covers_every_k13_k14_chunk_once(n_pad, b):
+    """K13 / K14's launch (`k12_plan`, at their N_pad multiples and batch
+    sizes): every (128-query tile, 128-row chunk) goes to exactly one CTA
+    and, within it, to one consumer (the CTA's i-th chunk to consumer
+    i % 2), the two consumers of a CTA a chunk apart at most, in one wave of
+    132 SMs."""
+    plan = SR.k12_plan(n_pad, b, 132)
+    chunks = n_pad // 128
+    assert plan["qtiles"] == -(-b // 128) and plan["chunks"] == chunks
+    assert plan["qtiles"] * plan["ctas"] <= 132
+    count = np.zeros((plan["qtiles"], chunks, 2), np.int64)
+    for y in range(plan["ctas"]):
+        for i, c in enumerate(range(y, chunks, plan["ctas"])):
+            count[:, c, i % 2] += 1
+        per = count[0, y :: plan["ctas"]].sum(0)
+        assert abs(int(per[0]) - int(per[1])) <= 1
+    assert (count.sum(-1) == 1).all()
+
+
+def _k13_stage_and_store(d, n0, a, row0, B, out):
+    """K13's epilogue for one accumulator as its consumer runs it: register
+    2 nt + h of lane (w, l) packs rows (8 nt + 2 t, + 1) of query 16 w + g +
+    8 h (`k12_acc_coords` of registers 4 nt + 2 h and + 1) in place; the
+    pairs go to the 16 KB staging buffer at (nt // 8) * 8192 + q * 128 +
+    16 ((nt % 8) ^ g) + 4 t; two TMA stores of 64 x 64 bf16 boxes with the
+    128-byte swizzle (piece s of smem row q holds the box row's piece
+    s ^ (q % 8)) write it at (query n0 + 64 a, rows row0 and row0 + 64) of
+    `out`, clipping queries >= B.  d: (64, 128) f32 of bf16 values.
+    Returns the staging words written per store instruction, for the bank
+    check."""
+    stg = np.full(4096, -1, np.int64)  # 16 KB as 4-byte words: the (query, row) of each bf16 pair
+    lanes = []
+    for nt in range(16):
+        for h in range(2):
+            banks = []
+            for w in range(4):
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    q0, r0 = SR.k12_acc_coords(w, lane, 4 * nt + 2 * h)
+                    q1, r1 = SR.k12_acc_coords(w, lane, 4 * nt + 2 * h + 1)
+                    assert (q0, r1) == (q1, r0 + 1) and q0 == 16 * w + g + 8 * h and r0 == 8 * nt + 2 * t
+                    byte = (nt // 8) * 8192 + q0 * 128 + 16 * ((nt % 8) ^ g) + 4 * t
+                    assert stg[byte // 4] == -1  # each word written once
+                    stg[byte // 4] = q0 * 128 + r0
+                    banks.append((byte // 4) % 32)
+            lanes.append(banks)
+    assert (stg >= 0).all()
+    for box in range(2):
+        for q in range(64):
+            if n0 + 64 * a + q >= B:
+                continue  # TMA clips the query rows past B
+            for s in range(8):
+                piece = s ^ (q % 8)  # the box row's 16-byte piece held at position s
+                for k in range(4):
+                    qq, rr = divmod(int(stg[(box * 8192 + q * 128 + 16 * s) // 4 + k]), 128)
+                    assert qq == q and rr == 64 * box + 8 * piece + 2 * k
+                    for j in range(2):
+                        assert np.isnan(out[n0 + 64 * a + q, row0 + rr + j])
+                        out[n0 + 64 * a + q, row0 + rr + j] = d[qq, rr + j]
+    return lanes
+
+
+@pytest.mark.parametrize("B,n0", [(1000, 896), (1000, 0), (50, 0), (64, 0)])
+def test_k13_staged_tile_emulated(B, n0):
+    """K13's staged tile writes every (query < B, row) of a chunk exactly
+    once, at its place in the (B, N_pad) output, and drops the query rows
+    past B; each store instruction's 32 lanes of a warp hit 32 banks; the
+    in-place packing reads every accumulator register before it is
+    overwritten (register 2 nt + h is written at step (nt, h), after the
+    steps that read it)."""
+    rng = np.random.default_rng(8)
+    row0, n_pad = 256, 1024
+    out = np.full((B, n_pad), np.nan, np.float32)
+    tile = _bf16(rng.standard_normal((128, 128))).float().numpy()
+    for a in range(2):
+        for banks in _k13_stage_and_store(tile[64 * a : 64 * a + 64], n0, a, row0, B, out):
+            for w in range(4):
+                assert len(set(banks[32 * w : 32 * w + 32])) == 32
+    q_hi = min(B, n0 + 128)
+    np.testing.assert_array_equal(out[n0:q_hi, row0 : row0 + 128], tile[: q_hi - n0])
+    written = ~np.isnan(out)
+    assert written.sum() == (q_hi - n0) * 128
+    read_at = {}
+    for step in range(32):  # step (nt, h) = 2 nt + h reads registers 2 step, 2 step + 1
+        read_at[2 * step] = read_at[2 * step + 1] = step
+    assert all(read_at[k] <= k for k in range(32))
+
+
+def _k14_chunk_emulate(d, row0):
+    """K14's chunk-min as its consumer runs it, for one accumulator (64
+    queries) of a chunk: each lane starts at (+inf, row0 + 2 t) and folds
+    its 32 rows of each of its two queries (`k12_acc_coords`) in ascending
+    order with a strict <, then the quad's lanes l ^ 1 and l ^ 2 in turn,
+    keeping the smaller d, then the lower row; lane t of a quad holds the
+    result of all four.  d: (64, 128) f32, +inf past n_valid -> ((64,) d,
+    (64,) row)."""
+    warp, lane = np.meshgrid(np.arange(4), np.arange(32), indexing="ij")
+    t = lane % 4
+    best = np.full((4, 32, 2), np.inf, np.float32)
+    brow = np.repeat((row0 + 2 * t)[..., None], 2, -1).astype(np.int64)
+    for nt in range(16):
+        for h in range(2):
+            for j in range(2):
+                q, r = SR.k12_acc_coords(warp, lane, nt * 4 + 2 * h + j)
+                take = d[q, r] < best[..., h]
+                best[..., h] = np.where(take, d[q, r], best[..., h])
+                brow[..., h] = np.where(take, row0 + r, brow[..., h])
+    for off in (1, 2):
+        d2, r2 = best[:, lane[0] ^ off], brow[:, lane[0] ^ off]
+        take = (d2 < best) | ((d2 == best) & (r2 < brow))
+        best, brow = np.where(take, d2, best), np.where(take, r2, brow)
+    out_d, out_i = np.empty(64, np.float32), np.empty(64, np.int64)
+    for w in range(4):
+        for g in range(8):
+            for h in range(2):
+                lanes = 4 * g + np.arange(4)
+                assert (best[w, lanes, h] == best[w, 4 * g, h]).all() and (brow[w, lanes, h] == brow[w, 4 * g, h]).all()
+                out_d[16 * w + g + 8 * h], out_i[16 * w + g + 8 * h] = best[w, 4 * g, h], brow[w, 4 * g, h]
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("n_valid", [128 * 3 + 128, 128 * 3 + 70, 128 * 3 + 1, 128 * 3])
+def test_k14_chunk_min_emulated(n_valid):
+    """The emulated K14 lane / quad reduction over both accumulators equals
+    `_chunk_min` (the plain version's) on bf16 values: the lowest row wins
+    ties in one lane (rows 8 / 9, 0 / 2 ... of one t), across a quad's lanes
+    (rows 1 / 2), across the 64-row middle (63 / 64, 0 / 127) and
+    three-way; rows at or past n_valid are +inf, and a chunk wholly past it
+    gives (+inf, its first row)."""
+    rng = np.random.default_rng(9)
+    row0 = 128 * 3
+    d = _bf16(rng.standard_normal((128, 128)) * 4).float().numpy()  # 3 significant digits: many ties
+    pairs = [(63, 64), (64, 63), (0, 127), (127, 0), (8, 9), (2, 1), (66, 120), (16, 8, 24), (5, 69, 101)]
+    for q in range(128):
+        d[q, list(pairs[q % len(pairs)])] = -10.0 - q // len(pairs)
+    d[3, 100] = -100.0  # a masked row may not win when n_valid cuts it
+    rows = row0 + np.arange(128)
+    dm = np.where(rows[None, :] < n_valid, d, np.inf).astype(np.float32)
+    want_d, want_i = SR._chunk_min(torch.from_numpy(dm))
+    for a in range(2):
+        got_d, got_i = _k14_chunk_emulate(dm[64 * a : 64 * a + 64], row0)
+        np.testing.assert_array_equal(got_d, want_d[64 * a : 64 * a + 64, 0].numpy())
+        np.testing.assert_array_equal(got_i, row0 + want_i[64 * a : 64 * a + 64, 0].numpy())
+    if n_valid <= row0:
+        assert np.isinf(want_d.numpy()).all() and (want_i.numpy() == 0).all()
+
+
+def test_bf16_doubling_is_exact():
+    """K13 / K14 skip the rounding of bf(2 p): for every bf16 value p
+    (subnormals, +-0, +-inf, the largest finite, random ones), 2 p in f32
+    is already a bf16 value (or +-inf), so bf(2 p) = 2 p bit for bit."""
+    bits = torch.arange(0, 1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    p = bits.float()
+    p = p[~torch.isnan(p)]
+    two_p = 2.0 * p
+    assert torch.equal(SR._bf(two_p).view(torch.int32), two_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 2047, 2049, 4100])
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_int8_wrappers_on_ragged_rows_match_padded_reference(dist, n):
+    """On the CPU the K13 / K14 wrappers equal their plain versions on the
+    base zero-padded to N_pad (1024 / 2048 rows), for N that is not a
+    multiple, with n_valid below and above N: the rows past N are zero rows
+    with scale and cache 0, the semantics the kernel gives them by reading
+    the base in place (TMA's zero fill, guarded channel loads)."""
+    base, qs = _make(n, 48, B, seed=10)
+    q8, qsc, qc, b8, bsc, cache = _t(*_int8_inputs(dist, 48, seed=10, n=n))
+    for nv in (max(n - 7, 0), n + 5):
+        want13 = SR.scan_dist_int8_ref(q8, qsc, qc, *SR._pad_rows(SR._NB, b8, bsc, cache), nv, dist)
+        got13 = SR.scan_dist_int8(q8, qsc, qc, b8, bsc, cache, nv, dist)
+        assert got13.shape == (B, -(-n // 1024) * 1024) and torch.equal(got13, want13)
+        pad = got13[:, n:].float()
+        zero = SR._epilogue_bf16(torch.zeros(()), qsc[:, None], qc[:, None], torch.zeros(()), torch.zeros(()), dist)
+        past = torch.arange(n, got13.shape[1]) >= nv
+        np.testing.assert_array_equal(pad.numpy(), torch.where(past, float("inf"), zero.expand_as(pad)).numpy())
+        want14 = SR.scan_chunkmin_int8_t_ref(q8, qsc, qc, *SR._pad_rows(SR._NB_T, b8, bsc, cache), nv, dist)
+        got14 = SR.scan_chunkmin_int8_t(q8, qsc, qc, b8, bsc, cache, nv, dist)
+        assert got14[0].shape == (-(-n // 2048) * 16, B)
+        assert torch.equal(got14[0], want14[0]) and torch.equal(got14[1], want14[1])
