@@ -59,7 +59,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                each route's recall against the exact scan and its QPS, and
                on 128 queries its recall with the kernels and with their
                plain versions (must agree within 0.005, with every kernel
-               count still 0 after the plain run), the graph route's device
+               count still 0 after the plain run), the graph routes' device
                busy ms and a hash of its ids at each ef; K4 / K5 on the
                arguments of one of their launches in the graph route at ef
                180 and 600 (equal), timed back to back beside their plain
@@ -67,7 +67,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                version at B = 1000, EL = 128 and ef 180 / 360 / 600, and on
                the arguments of one of its launches in the classic loop at
                ef 180 and 600 (equal), timed back to back and replayed from
-               a CUDA graph, K8 and
+               a CUDA graph beside its library line, and bit for bit on the
+               CPU tests' edge inputs and at ef + EL = 8,192, K8 and
                K9 ids at widths 1 / 16 / 128 (equal; K8 also at code widths
                7 and 20, its byte-wise reads), K8 / K9 dense on one
                block (equal; also at the cosine route's R = 1001, K9 on the
@@ -144,7 +145,7 @@ line before it lists each kernel with its launch count on its path (K1 / K2:
 the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
 traversal_stats run, `ms` back to back as every kernel's, `graph_ms`
 replayed from a CUDA graph beside it; K6-K9: the first call of the PQ route that takes each,
-K6's `graph_ms` replayed on its captured classic-loop arguments;
+K6's `graph_ms` and `library_graph_ms` replayed on its captured classic-loop arguments;
 K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
 codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
 first search; K12-K14: the resident phase's three entry points, K13 / K14
@@ -707,12 +708,13 @@ def run_route(name, search, gt, need, B, rounds, per_round):
 
 def check_k6(B, ef, EL, N):
     """K6 against its plain version at one of the classic loop's shapes
-    (ef 180 / 360 sort 512 keys with 204 / 24 padding keys, ef 600 sorts
-    1024): all three outputs equal; times, bound and the library line (one
-    stable torch.sort of the (B, ef + EL) concatenation + the id gather)."""
+    (ef 180 / 360 / 600): all three outputs equal; times, bound and the
+    library line (`time_adc.k6_library`: one stable torch.sort of the (B,
+    ef + EL) concatenation + the id gather)."""
     import numpy as np
     import torch
     from lab_1806_vec_db_tpu_torch.bench import beam_states as BS
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
     from lab_1806_vec_db_tpu_torch.ops import merge as M
 
     st = [torch.from_numpy(a).cuda() for a in BS.merge_state(np.random.default_rng(6), B, ef, EL, N)]
@@ -721,14 +723,8 @@ def check_k6(B, ef, EL, N):
     for name, a, b in zip(("d", "i", "e"), got, ref):
         check(torch.equal(a, b), f"K6 (B {B}, ef {ef}, EL {EL}): {name} differs from the plain version")
     err = max(max_abs_err(a, b) for a, b in zip(got, ref))
-    bd, bi, _, nd, ni = st
-
-    def library():
-        d, pos = torch.sort(torch.cat([bd, nd], 1), dim=1, stable=True)
-        return d[:, :ef], torch.gather(torch.cat([bi, ni], 1), 1, pos[:, :ef])
-
     ms, plain_ms = in_turns(lambda: M.merge_sorted(*st), lambda: M.merge_sorted_ref(*st), 50, 20)
-    lib_ms = cuda_ms(library, 20)
+    lib_ms = cuda_ms(lambda: TA.k6_library(*st), 20)
     # reads beam d / i / e (1 byte) and the tile's d / i; writes d / i / e
     bound = bound_ms(B * (9 * ef + 8 * EL) + B * 9 * ef)
     log(f"[pq] K6 (B {B}, ef {ef}, EL {EL}) equal to its plain version; {ms:.4f} ms, "
@@ -758,13 +754,25 @@ def check_k6_graph(index, pq, q_host, ef, launches, nth=8):
     g0 = TA.graph_ms(kern, 50)
     ms, plain_ms = in_turns(kern, lambda: M.merge_sorted_ref(*args), 20, 5)
     graph = (g0 + TA.graph_ms(kern, 50)) / 2
+    lib_graph = TA.graph_ms(lambda: TA.k6_library(*args), 20)
     bound = bound_ms(B * (9 * W + 8 * EL) + B * 9 * W)
-    out = {"W": W, "EL": EL, "ms": ms, "graph_ms": graph, "plain_ms": plain_ms, "bound": bound,
-           "launches": launches, "score_ms": launches * (graph - bound[0])}
+    out = {"W": W, "EL": EL, "ms": ms, "graph_ms": graph, "plain_ms": plain_ms, "library_graph_ms": lib_graph,
+           "bound": bound, "launches": launches, "score_ms": launches * (graph - bound[0])}
     log(f"[pq] K6 at hnsw_pq_200k classic graph ef {ef} (beam {W}, tile {EL}): equal to its plain version; "
-        f"{ms:.4f} ms (graph replay {graph:.4f}), plain {plain_ms:.4f}, bound {bound[0]:.5f}, {launches} "
-        f"launches, score {out['score_ms']:.2f} ms")
+        f"{ms:.4f} ms (graph replay {graph:.4f}), plain {plain_ms:.4f}, library graph replay {lib_graph:.4f}, "
+        f"bound {bound[0]:.5f}, {launches} launches, score {out['score_ms']:.2f} ms")
     return out
+
+
+def check_k6_edges():
+    """K6 against its plain version on the CPU tests' edge cases, at ef + EL
+    = 8,192 and on unaligned operands (`time_adc.k6_edge_checks`)."""
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
+
+    eq = TA.k6_edge_checks()
+    check(all(eq.values()), f"K6 differs from its plain version on edge inputs: {eq}")
+    log(f"[pq] K6 equal to its plain version bit for bit on {len(eq)} edge inputs: {sorted(eq)}")
+    return eq
 
 
 def lookup_bound_ms(lookups: float) -> float:
@@ -1074,9 +1082,10 @@ def phase_pq_200k(db, q_host, gts, x_host):
                 launches[name] = h[name][ef]["launches"]
         log(f"[pq] hnsw_pq_200k {name}: " + ", ".join(
             f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}" for ef, v in h[name].items()))
-    log("[pq] hnsw_pq_200k graph: device busy ms a batch " + ", ".join(
-        f"ef {ef} {v['profile'].get('device_busy_ms')} (wall {v['profile']['wall_ms']:.1f})"
-        for ef, v in h["graph"].items()))
+    for name in ("graph", "graph_classic"):
+        log(f"[pq] hnsw_pq_200k {name}: device busy ms a batch " + ", ".join(
+            f"ef {ef} {v['profile'].get('device_busy_ms')} (wall {v['profile']['wall_ms']:.1f})"
+            for ef, v in h[name].items()))
     h["device_bytes"] = pq.device_bytes()
     k45 = {ef: check_k45_graph(index, pq, q_host, ef, h["graph"][ef]["launches"]) for ef in (180, 600)}
     for key in ("k4", "k5"):  # for the kernels line: ms, bound, launches and score at each ef
@@ -1090,6 +1099,7 @@ def phase_pq_200k(db, q_host, gts, x_host):
     meas["k6"] = {ef: check_k6(B, ef, 128, len(index)) for ef in (180, 360, 600)}
     meas["k6_graph"] = {ef: check_k6_graph(index, pq, q_host, ef, h["graph_classic"][ef]["launches"]["k6"])
                         for ef in (180, 600)}
+    meas["k6_edges"] = check_k6_edges()
     out["hnsw_pq_200k"] = h
 
     # n_bits = 8 on the same store: K9's dense (scan) and ids (graph) shapes
@@ -2483,8 +2493,9 @@ def main() -> None:
                   pq_launches["graph_classic"]["k6"],
                   {**k6, "max_abs_err": max(v["max_abs_err"] for v in pm["k6"].values()),
                    "extra": {"graph_ms": pm["k6_graph"][180]["graph_ms"],
-                             "classic_graph": {ef: {f: v[f] for f in ("ms", "graph_ms", "bound", "launches",
-                                                                      "score_ms")}
+                             "library_graph_ms": pm["k6_graph"][180]["library_graph_ms"],
+                             "classic_graph": {ef: {f: v[f] for f in ("ms", "graph_ms", "library_graph_ms",
+                                                                      "bound", "launches", "score_ms")}
                                                for ef, v in pm["k6_graph"].items()}}},
                   k6["library_ms"]),
         # K7 on flat_pq_1m's first search (ef 100); measured there at 1M rows

@@ -122,3 +122,60 @@ def merge_state(rng, B, ef, EL, N):
     nd[:, 9] = nd[:, 7]      # and within the tile
     nd[nids < 0] = np.inf
     return beam_d, beam_i, beam_e, nd, nids
+
+
+# K6's edge cases: name -> (B, ef, EL).  `merge_edge_state` draws each one.
+MERGE_EDGE_CASES = {
+    "ties": (16, 100, 128),        # exact beam / tile and tile / tile ties
+    "signed_zero": (8, 64, 64),    # -0 against +0 in the beam and the tile
+    "neg_inf": (8, 64, 128),       # -inf at the beam's front and in the tile
+    "inf_tails": (12, 120, 128),   # +inf lanes with ids >= 0 in the beam and the tile
+    "nan_tile": (8, 64, 128),      # NaN tile lanes, some with ids >= 0; NaN beam tails
+    "stale_tile": (6, 50, 64),     # every tile lane (inf, -1)
+    "single_live": (8, 96, 128),   # a beam with one live entry
+    "wide_tile": (8, 40, 256),     # EL > ef
+    "odd_ef": (8, 181, 128),       # rows 4 * 181 bytes apart: no 16-byte vector lanes
+    "one_query": (1, 600, 128),    # B = 1
+}
+# K6 at its widest shapes (ef + EL = 8,192, the wrapper's limit), on the
+# "ties" draw: held on the card only
+MERGE_WIDE_SHAPES = ((2, 8064, 128), (2, 4096, 4096), (2, 192, 8000))
+
+
+def merge_edge_state(rng, case, shape=None, N=5000):
+    """K6 inputs for one of MERGE_EDGE_CASES (`shape` = (B, ef, EL)
+    overrides its shape).  The base draw: distances on a grid of 1/8 (ties
+    beam / tile and tile / tile), a beam filled to a random width in [1, ef]
+    then (inf, -1, False), half of it expanded, a tile with 30% stale (inf,
+    -1) lanes; each case then edits it as MERGE_EDGE_CASES says."""
+    B, ef, EL = MERGE_EDGE_CASES[case] if shape is None else shape
+    fill = rng.integers(1, ef + 1, (B, 1))
+    tail = np.arange(ef)[None, :] >= fill
+    beam_d = np.sort(rng.integers(0, 64, (B, ef)).astype(np.float32) / 8, axis=1)
+    beam_i = rng.integers(0, N, (B, ef)).astype(np.int32)
+    beam_e = (rng.random((B, ef)) < 0.5) & ~tail
+    beam_d[tail], beam_i[tail] = np.inf, -1
+    nd = rng.integers(0, 64, (B, EL)).astype(np.float32) / 8
+    nids = rng.integers(0, N, (B, EL)).astype(np.int32)
+    stale = rng.random((B, EL)) < 0.3
+    nd[stale], nids[stale] = np.inf, -1
+    if case == "signed_zero":  # the beam's first lanes and a third of the tile are +-0
+        beam_d[:, :4] = np.where(rng.random((B, 4)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        z = rng.random((B, EL)) < 0.3
+        nd[z] = np.where(rng.random(int(z.sum())) < 0.5, np.float32(-0.0), np.float32(0.0))
+    elif case == "neg_inf":
+        beam_d[:, :2] = -np.inf
+        nd[rng.random((B, EL)) < 0.1] = -np.inf
+    elif case == "inf_tails":  # the last three live beam lanes +inf, ids kept; stale tile ids kept on half
+        live_inf = (np.arange(ef)[None, :] >= fill - 3) & ~tail
+        beam_d[live_inf] = np.inf
+        nids[stale & (rng.random((B, EL)) < 0.5)] = rng.integers(0, N)
+    elif case == "nan_tile":  # odd rows: the beam's tail NaN (sorted last) and 90% of the tile NaN
+        odd = (np.arange(B) % 2 == 1)[:, None]
+        beam_d[tail & odd] = np.nan
+        nd[rng.random((B, EL)) < np.where(odd, 0.9, 0.2)] = np.nan
+    elif case == "stale_tile":
+        nd[:], nids[:] = np.inf, -1
+    elif case == "single_live":
+        beam_d[:, 1:], beam_i[:, 1:], beam_e[:, 1:] = np.inf, -1, False
+    return beam_d, beam_i, beam_e, nd, nids

@@ -51,7 +51,9 @@ LUTs it times, with CUDA events (three means of five launches each):
   at the HNSW+PQ graph route's shapes: B 1000, E 4, EL 128, R 256, W 256
   (ef 180) and W 1024 (ef 600), on states shaped like a loop iteration's;
 - K6 (the classic loop's merge) at its ef 180 and 600 shapes: B 1000, EL
-  128, on `beam_states.merge_state`;
+  128, on `beam_states.merge_state`, with its library line (stable
+  torch.sort + gather) replayed from a CUDA graph too, and untimed on
+  `beam_states`' edge cases and at ef + EL = 8,192 (`k6_edge_checks`);
 
 each K1 / K4 / K5 / K6 / K8 / K9 / K10 result against its plain version (torch.equal,
 the plain version timed beside it), and prints each kernel's registers from the
@@ -407,10 +409,53 @@ def _time_k1314(label, which, B=1000):
                   f"equal {equal}", flush=True)
 
 
+def k6_library(beam_d, beam_i, beam_e, nd, nids):
+    """K6's library line: one stable torch.sort of [beam, tile] and the id
+    gather (the flags' gather left out)."""
+    import torch
+
+    ef = beam_d.shape[1]
+    d, pos = torch.sort(torch.cat([beam_d, nd], 1), dim=1, stable=True)
+    return d[:, :ef], torch.gather(torch.cat([beam_i, nids], 1), 1, pos[:, :ef])
+
+
+def k6_edge_checks() -> dict:
+    """K6 against its plain version on the card on every
+    `beam_states.MERGE_EDGE_CASES` draw, at the widest shapes (ef + EL =
+    8,192, `MERGE_WIDE_SHAPES`) and on the "ties" draw with every operand 4
+    bytes past a 16-byte boundary (the kernel's 4-byte lanes): {name: equal},
+    d compared as its bits (NaN lanes count), i and e with torch.equal."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench import beam_states
+    from lab_1806_vec_db_tpu_torch.ops import merge as M
+
+    def shifted(t):  # the same values, 4 bytes past an aligned allocation
+        buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=t.device)
+        out = buf[4:4 + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+        out.copy_(t)
+        return out
+
+    runs = [(c, c, None, False) for c in beam_states.MERGE_EDGE_CASES]
+    runs += [("x".join(map(str, s)), "ties", s, False) for s in beam_states.MERGE_WIDE_SHAPES]
+    runs.append(("ties_unaligned", "ties", None, True))
+    out = {}
+    for name, case, shape, shift in runs:
+        st = [torch.from_numpy(a).cuda() for a in
+              beam_states.merge_edge_state(np.random.default_rng(len(case)), case, shape)]
+        if shift:
+            st = [shifted(t) for t in st]
+        got, want = M.merge_sorted(*st), M.merge_sorted_ref(*st)
+        out[name] = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                     and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+    return out
+
+
 def _time_k6(label, B=1000, EL=128, N=200_000):
     """K6 at the classic loop's ef 180 and 600 shapes on
     `beam_states.merge_state`, back to back and replayed from a CUDA graph,
-    against its plain version."""
+    against its plain version and its library line (`k6_library`, replayed
+    from a CUDA graph too); then `k6_edge_checks` (untimed)."""
     import numpy as np
     import torch
     from lab_1806_vec_db_tpu_torch.bench import beam_states
@@ -422,8 +467,9 @@ def _time_k6(label, B=1000, EL=128, N=200_000):
         kern, plain = (lambda: M.merge_sorted(*st)), (lambda: M.merge_sorted_ref(*st))
         equal = all(torch.equal(a, b) for a, b in zip(kern(), plain()))
         print(label, f"K6 ef {ef} B {B} EL {EL}: ms {[round(_ms(kern, 20), 4) for _ in range(3)]} graph ms "
-              f"{[round(graph_ms(kern, 50), 4) for _ in range(3)]} plain {_ms(plain, 5):.4f} equal {equal}",
-              flush=True)
+              f"{[round(graph_ms(kern, 50), 4) for _ in range(3)]} plain {_ms(plain, 5):.4f} library graph ms "
+              f"{graph_ms(lambda: k6_library(*st), 20):.4f} equal {equal}", flush=True)
+    print(label, "K6 edge cases equal:", k6_edge_checks(), flush=True)
 
 
 def _time_pool(label, g, B=1000, C=2048, m=320, n_table=10_000_000):

@@ -3,8 +3,11 @@
 //   row_dist / query_norm   the exact per-row distance (K2, K3; f32 or bf16 rows)
 //   block_rank              block-wide ballot prefix count (K3, K4)
 //   dedup_compact           K3's tile dedup + novel-first compaction
-//   bitonic_sort            K3's merge: sort of the 2W (d, rank<<1|e) keys; K6's sort
+//   bitonic_sort            K3's merge: sort of the 2W (d, rank<<1|e) keys
 //   remask_select           K3's epilogue: ef re-mask + expansion select
+//   order_key / count_below the merge by rank of K5 and K6: a float's u32
+//                           order key, the co-rank of a key in a sorted run
+//   copy_lanes              K5's and K6's vector lane copies
 //
 // K3 (csrc/traverse.cu) is one CTA's whole loop on these and gives the same
 // bits as K2 (csrc/gather_dists.cu).  K4 and K5 (csrc/beam_pre.cu,
@@ -141,6 +144,38 @@ __device__ __forceinline__ int dedup_compact(const int* nbrs, int EL, const int*
   if (fresh) comp[rank - 1] = id;
   __syncthreads();
   return count;
+}
+
+// u32 image of d, monotone in the float order; -0 and +0 give one key, NaN
+// the largest.
+__device__ __forceinline__ unsigned order_key(float d) {
+  if (isnan(d)) return 0xffffffffu;
+  const unsigned u = __float_as_uint(d == 0.f ? 0.f : d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Number of a[0, n) (ascending) that are < x, or with `or_equal` <= x.
+template <bool or_equal>
+__device__ __forceinline__ int count_below(const unsigned* a, int n, unsigned x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (or_equal ? a[mid] <= x : a[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// V adjacent lanes moved as one V * sizeof(T)-byte access (V = 1, 2 or 4).
+template <int V, typename T>
+struct alignas(sizeof(T) * V) Lanes {
+  T v[V];
+};
+template <int V, typename T>
+__device__ __forceinline__ void copy_lanes(T* dst, const T* src) {
+  *reinterpret_cast<Lanes<V, T>*>(dst) = *reinterpret_cast<const Lanes<V, T>*>(src);
 }
 
 // Ascending bitonic sort of n (a power of two) keys (kd, kre) carrying kid.

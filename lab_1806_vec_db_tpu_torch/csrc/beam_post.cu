@@ -38,48 +38,17 @@
 //      adjacent lanes, and one block-wide prefix count of the unexpanded
 //      entries (warp shuffles, one barrier for the warp totals) ranks them.
 //
-// Order keys: a float d maps to a u32 whose unsigned order is the float
-// order (-0 and +0 share one key, NaN sits above +inf as in the plain
-// version's sort).  Values are moved, never recomputed, so the result
-// equals the plain version's stable sort bit for bit.
+// Order keys (beam_body.cuh's order_key, shared with K6): a float d maps to
+// a u32 whose unsigned order is the float order (-0 and +0 share one key,
+// NaN sits above +inf as in the plain version's sort).  Values are moved,
+// never recomputed, so the result equals the plain version's stable sort
+// bit for bit.
 
 #include "beam_body.cuh"
 
 namespace {
 
 constexpr int MAX_THREADS = 256;
-
-// u32 image of d, monotone in the float order; -0 and +0 give one key, NaN
-// the largest.
-__device__ __forceinline__ unsigned order_key(float d) {
-  if (isnan(d)) return 0xffffffffu;
-  const unsigned u = __float_as_uint(d == 0.f ? 0.f : d);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// Number of a[0, n) (ascending) that are < x, or with `or_equal` <= x.
-template <bool or_equal>
-__device__ __forceinline__ int count_below(const unsigned* a, int n, unsigned x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (or_equal ? a[mid] <= x : a[mid] < x)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// V adjacent 4-byte lanes moved as one 4V-byte access (V = 1, 2 or 4).
-template <int V, typename T>
-struct alignas(sizeof(T) * V) Lanes {
-  T v[V];
-};
-template <int V, typename T>
-__device__ __forceinline__ void copy_lanes(T* dst, const T* src) {
-  *reinterpret_cast<Lanes<V, T>*>(dst) = *reinterpret_cast<const Lanes<V, T>*>(src);
-}
 
 // Shared memory of one query, in bytes (mp = m rounded up to 4 lanes).
 size_t smem_bytes(int W, int mp, int threads) {
@@ -117,7 +86,7 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
   __syncthreads();
   // A: the beam's order keys; the live tile lanes (thread t holds lanes
   // q*T + t), appended in any order, one atomic per warp
-  for (int j = t; j < m; j += T) s_bkey[j] = order_key(bd[j]);
+  for (int j = t; j < m; j += T) s_bkey[j] = vecdb::order_key(bd[j]);
   float dt[K];
   unsigned live[K];
   int warp_live = 0;
@@ -135,7 +104,7 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
   for (int q = 0; q < K; ++q) {
     if (dt[q] < INFINITY)
       s_tkey[slot + __popc(live[q] & ((1u << lane) - 1u))] =
-          (static_cast<unsigned long long>(order_key(dt[q])) << 32) | (q * T + t);
+          (static_cast<unsigned long long>(vecdb::order_key(dt[q])) << 32) | (q * T + t);
     slot += __popc(live[q]);
   }
   __syncthreads();
@@ -156,7 +125,7 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
       const unsigned k = static_cast<unsigned>(key >> 32);
       const int j = static_cast<int>(key & 0xffffffffu);
       s_tsd[below] = k;
-      const int pos = below + count_below<true>(s_bkey, m, k);
+      const int pos = below + vecdb::count_below<true>(s_bkey, m, k);
       if (pos < m) {
         s_od[pos] = td[j];
         s_oi[pos] = ti[j];
@@ -168,7 +137,7 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
 
   // C: beam lane j goes to j + the live tile keys below it
   for (int j = t; j < m; j += T) {
-    const int pos = j + count_below<false>(s_tsd, n, s_bkey[j]);
+    const int pos = j + vecdb::count_below<false>(s_tsd, n, s_bkey[j]);
     if (pos < m) {
       s_od[pos] = bd[j];
       s_oi[pos] = beam_i[row + j];
@@ -187,9 +156,9 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
 #pragma unroll
   for (int v = 0; v < K; v += V) {
     if (j0 + v < m) {
-      copy_lanes<V>(d + v, s_od + j0 + v);
-      copy_lanes<V>(id + v, s_oi + j0 + v);
-      copy_lanes<V>(e + v, s_oe + j0 + v);
+      vecdb::copy_lanes<V>(d + v, s_od + j0 + v);
+      vecdb::copy_lanes<V>(id + v, s_oi + j0 + v);
+      vecdb::copy_lanes<V>(e + v, s_oe + j0 + v);
     }
   }
   unsigned unexp = 0;
@@ -231,9 +200,9 @@ beam_post_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam_
   if (j0 < W) {
 #pragma unroll
     for (int v = 0; v < K; v += V) {
-      copy_lanes<V>(od + row + j0 + v, d + v);
-      copy_lanes<V>(oi + row + j0 + v, id + v);
-      copy_lanes<V>(oe + row + j0 + v, e + v);
+      vecdb::copy_lanes<V>(od + row + j0 + v, d + v);
+      vecdb::copy_lanes<V>(oi + row + j0 + v, id + v);
+      vecdb::copy_lanes<V>(oe + row + j0 + v, e + v);
     }
   }
   for (int j = min(total, E) + t; j < vecdb::SEL_LANES; j += T) sel_b[j] = -1;

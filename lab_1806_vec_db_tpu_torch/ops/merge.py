@@ -4,11 +4,12 @@ ops/pallas_merge.py's `merge_sorted`).
 Each iteration of the classic loop (`ops/beam.py:beam_search`, reached on
 CUDA with `fused=False`) merges the sorted (B, ef) beam with the scored,
 unsorted (B, EL) tile and keeps the ef best.  The order is the key
-(d, rank << 1 | e): beam lane j has rank j, tile lane j rank ef + j, so ties
-go to the beam, then to the lower lane, `lax.top_k`'s stable order.  Every
-key is distinct, so the kernel's bitonic sort (`csrc/merge_sorted.cu`) and
-the plain version's stable sort of [beam, tile] give one result, bit for
-bit, the +inf tail included.
+(d, rank): beam lane j has rank j, tile lane j rank ef + j, so ties go to
+the beam, then to the lower lane, `lax.top_k`'s stable order.  Every key is
+distinct, so the kernel's merge by rank (`csrc/merge_sorted.cu`: each key's
+merged position counted, no sort) and the plain version's stable sort of
+[beam, tile] give one result, bit for bit, the +inf and NaN tail included.
+The beam must be ascending (NaN last), as the reference requires.
 
 On a CUDA tensor `merge_sorted` launches the kernel (no fallback); on a CPU
 tensor it runs `merge_sorted_ref`.
@@ -19,9 +20,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .beam_fused import pow2
 
-MAX_KEYS = 8192  # widest pow2(ef + EL) the kernel sorts in shared memory (96 KB)
+MAX_KEYS = 8192  # widest ef + EL the kernel merges (at most 176 KB of shared memory)
 
 
 def merge_sorted_ref(beam_d, beam_i, beam_e, nd, nids):
@@ -57,23 +57,22 @@ def merge_sorted(beam_d, beam_i, beam_e, nd, nids):
         return merge_sorted_ref(beam_d, beam_i, beam_e, nd, nids)
     if dev.type != "cuda":
         raise RuntimeError(f"no K6 kernel for device {dev}")
-    n = pow2(ef + EL)
-    if n > MAX_KEYS:
+    if ef + EL > MAX_KEYS:
         raise ValueError(f"merge_sorted: ef + EL = {ef + EL} exceeds the kernel's {MAX_KEYS} keys")
-    beam_d, beam_i, nd, nids = (t.contiguous() for t in (beam_d, beam_i, nd, nids))
-    be = beam_e.to(torch.int32).contiguous()
+    # the kernel reads and writes the flags as the bool storage's bytes
+    beam_d, beam_i, beam_e, nd, nids = (t.contiguous() for t in (beam_d, beam_i, beam_e, nd, nids))
     od = torch.empty((B, ef), dtype=torch.float32, device=dev)
     oi = torch.empty((B, ef), dtype=torch.int32, device=dev)
-    oe = torch.empty((B, ef), dtype=torch.int32, device=dev)
+    oe = torch.empty((B, ef), dtype=torch.bool, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.vecdb_merge_sorted(
-            beam_d.data_ptr(), beam_i.data_ptr(), be.data_ptr(), nd.data_ptr(), nids.data_ptr(),
-            od.data_ptr(), oi.data_ptr(), oe.data_ptr(), B, ef, EL, n,
+            beam_d.data_ptr(), beam_i.data_ptr(), beam_e.data_ptr(), nd.data_ptr(), nids.data_ptr(),
+            od.data_ptr(), oi.data_ptr(), oe.data_ptr(), B, ef, EL,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "merge_sorted")
     merge_sorted.launches += 1
-    return od, oi, oe.bool()
+    return od, oi, oe
 
 
 merge_sorted.launches = 0
