@@ -32,7 +32,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                the HNSW graph, the PQ table and every route's ids repeat
                from run to run and tree to tree): batch_add, batch_search (B = 1000,
                k = 10) through both kernels, recall@10 against the exact scan,
-               search, the upper_bound filter, delete, close and reopen;
+               search on the card (50 queries, a batch of one each: ids
+               equal to the exact scan's) and through the native engine on
+               the host rows (distances within rtol 1e-5 / atol 1e-6 of
+               float64, no row farther than the exact scan's at its rank,
+               rtol 1e-6), µs a search each way, the upper_bound filter,
+               delete, close and reopen;
      hnsw    — inside phase 5, on the l2sqr table: build_hnsw_index (M = 16,
                ef_construction = 200), batch_search with ef (the scan route,
                K1 + K2), the graph route (K3) at ef 120 / 200 / 360 with
@@ -46,6 +51,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                all equal element for element), K3 against its
                plain version on the route's B = 1000 queries at every ef,
                index_bytes, and close / reopen as HNSW;
+     native  — inside phase 5, on the reopened HNSW table, 200 single
+               queries at ef 120 / 200 both ways: VecDB.search on the card
+               (the scan route, K1 + K2 once a query, recall@10 >= 0.99) and
+               the native engine on the host rows and links (no kernel may
+               launch; recall@10 within 0.08 of the graph route's on the
+               same queries); µs a search each way;
      pq      — inside phase 5, after hnsw (the reference's PQ settings: 4-bit
                codes, m = 320, 10,000 k-means samples, 20 iterations):
                vecdb_pq_cos_200k, VecDB.build_pq_table on the cosine table
@@ -100,6 +111,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                kernels-vs-plain recall gate on 128 queries;
                K1 on the overflow segment and f32 K2 on the binned
                rerank's candidates against their plain versions;
+     pca     — pca_1m: the same store in the "pca" scan mode
+               (`store.scan_mode = ScanMode("pca", 256)`, then restored): fit and mirror build s, K1 / K2 launches from 0
+               around one batch, recall@10, ids with the kernels = ids with
+               the plain versions (128 queries), chained QPS beside the int8
+               route's, a stage split, index_bytes with the projected
+               mirror, K1 at D 256 against its plain version (equal, timed
+               in turns, bound); the "bf16" and "exact" modes on one batch
+               each (exact = knn_scan's ids); pca_cos_200k (the cosine
+               200,000-row cut: recall, K1 equal), a swap_remove + push after
+               the fit found at distance < 1e-5; K1 at D 128 on a 69,500-row
+               ragged mirror (B 1000, 37), equal; pca_lowrank_1m: 1,000,000 x
+               960 of rank 64 drawn on the card, recall@10 >= 0.95;
                ivf_lean_4m: IVFIndex.from_device_blocks at 4,000,000 x 960
                (nlist 1024, the ingest-sorted mirror), exact ground truth by
                block regeneration, the same sweep and gate, Flat refusing
@@ -139,10 +162,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                vecdb_u8_100k: a uint8 VecDB table of 100,000 rows through the
                API (batch_add, batch_search against the index, the 200.7 ->
                200 cast, HNSW and PQ refused with RuntimeError, reopen).
+  9. harness — harness_200k, in a temporary directory: the synth CLI
+               (200,000 x 960, 1,000 queries, --gnd), gen_gnd (equal to
+               synth's), convert_fvecs on a small file, the bench harness on
+               two chained TOMLs (Flat: K1 + K2; IVF nlist 256, n_probes 8 /
+               16 / 32: K10), launches from 0 around each; results.toml loads
+               in ResultList with chained = true and a recall per point, its
+               .html beside it; ms/query and recall per point.
+ 10. examples — the four examples/*.py against the port, each in a
+               subprocess (a copy importing the port's VecDB, in a temporary
+               working directory): exit 0 and "Test passed".
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
-the VecDB batch_search run; K3: the graph-route searches; K4 / K5: the
+the VecDB batch_search run; K1 at 256 lanes, `..._pca256`: pca_1m's batch; K3: the graph-route searches; K4 / K5: the
 traversal_stats run, `ms` back to back as every kernel's, `graph_ms`
 replayed from a CUDA graph beside it; K6-K9: the first call of the PQ route that takes each,
 K6's `graph_ms` and `library_graph_ms` replayed on its captured classic-loop arguments;
@@ -1882,10 +1915,9 @@ def phase_vecdb(x_host, q_host):
             check(all(len(r) == k for r in ids), f"{key}: short result rows")
             rec = recall_at_k(gt.tolist(), ids, k)
             check(rec >= 0.99, f"{key}: recall@10 {rec:.4f} < 0.99")
-            # single-query search is exact
+            # single-query search: on the card, and through the native engine
+            single_us = check_single_query(db, key, exact, x_host, q_host)
             one = db.search(key, q_host[0], k)
-            _, gt1 = exact.knn_batch(q_host[:1], k, exact=True)
-            check([int(m["id"]) for m, _ in one] == gt1[0].tolist(), f"{key}: search != exact top-10")
             ub = one[4][1]
             flt = db.search(key, q_host[0], k, None, ub)
             check(len(flt) >= 5 and all(d <= ub for _, d in flt) and flt == one[: len(flt)],
@@ -1895,11 +1927,14 @@ def phase_vecdb(x_host, q_host):
             out[key] = {"dist": dist, "recall_at_10": rec, "batch_add_s": t_add,
                         "batch_search_first_s": t_first, "batch_search_median_s": t_warm,
                         "batch_search_min_s": min(calls), "batch_search_max_s": max(calls),
+                        "single_query_us": {"device": single_us[0], "native": single_us[1]},
                         "launches": {"k1": launches[key][0], "k2": launches[key][1]}}
             log(f"[5/6] VecDB {key}: recall@10 {rec:.4f}, batch_search {t_warm*1e3:.1f} ms "
-                f"(first {t_first:.2f} s), K1/K2 launches {launches[key]}")
+                f"(first {t_first:.2f} s), K1/K2 launches {launches[key]}; one query on the card "
+                f"{single_us[0]:.0f} µs, native {single_us[1]:.0f} µs")
         key = "gist_l2"
         out["hnsw"], hnsw_launches, hnsw_meas, db = phase_hnsw(db, db_dir, key, q_host, gts[key])
+        out["native"] = phase_native(db, key, q_host, gts[key])
         pq_out, pq_launches, pq_meas = phase_pq_200k(db, q_host, gts, x_host)
         cos_before = db.batch_search("gist_cos", q_host, k, ef=200)
         # delete by pattern (it downgrades the table to Flat): row 7 is its
@@ -2376,7 +2411,507 @@ def phase_1m(card):
     resident = phase_resident(store, q, gt.tolist())
     pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
     ivf_out, k10 = phase_ivf_1m(store, q, gt.tolist())
-    return out, resident, pq_out, k7, ivf_out, k10
+    pca = phase_pca(store, q, gt.tolist())
+    return out, resident, pq_out, k7, ivf_out, k10, pca
+
+
+# --------------------------------------------------------------- pca ----
+PCA_DIM = 256  # the "pca" scan mode's projected width (the reference's VECDB_TPU_PCA_DIM default)
+
+
+@contextlib.contextmanager
+def scan_mode(store, scan, pca_dim=PCA_DIM):
+    """The Flat planner over `store` in a scan mode (the planners read the
+    store's `ScanMode`); the store's mode is restored on exit."""
+    from lab_1806_vec_db_tpu_torch.models import FlatIndex, ScanMode
+
+    old = store.scan_mode
+    store.scan_mode = ScanMode(scan, pca_dim)
+    try:
+        yield FlatIndex.from_store(store)
+    finally:
+        store.scan_mode = old
+
+
+def lowrank_device(n, dim, rank, seed, n_queries):
+    """tests/test_project.py's `_lowrank` drawn on the card from a seeded
+    torch.Generator: rows z * scales @ basis.T + 0.01 noise, z Gaussian,
+    scales 1 / sqrt(1 + i), basis orthonormal (dim, rank) (a QR of a
+    Gaussian); the queries are further draws."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    basis = torch.linalg.qr(torch.randn((dim, rank), generator=gen, device="cuda"))[0]
+    scales = 1.0 / torch.sqrt(1.0 + torch.arange(rank, device="cuda", dtype=torch.float32))
+
+    def draw(m):
+        out = torch.empty((m, dim), device="cuda")
+        for r0 in range(0, m, 131072):
+            rows = min(131072, m - r0)
+            z = torch.randn((rows, rank), generator=gen, device="cuda") * scales
+            out[r0 : r0 + rows] = z @ basis.T + 0.01 * torch.randn((rows, dim), generator=gen, device="cuda")
+        return out
+
+    return draw(n), draw(n_queries)
+
+
+def k1_bound(n, B, lanes):
+    """K1's least time on its own inputs: n int8 rows of `lanes` with a
+    scale and a cached term each, B int8 queries, one int32 per (128 rows,
+    query); 2 n B lanes int8 operations."""
+    return bound_ms(n * lanes + 8 * n + B * (lanes + 8) + -(-n // 128) * B * 4, 2.0 * n * B * lanes)
+
+
+def check_k1_proj(store, q, d_red, tag, n_rows=None, timed=False):
+    """K1 on the store's PCA mirror (d_red lanes, padded to 128) with the
+    projected queries against its plain version: equal element for
+    element.  `n_rows` cuts the mirror to a ragged length whose last 500
+    rows are turned into sentinels.  Returns (lanes, the largest absolute
+    difference, timing dict)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import project as PJ
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    proj, mu, p8, psc, pca = store.device_proj_int8(d_red)
+    if n_rows is not None:
+        p8, psc, pca = p8[:n_rows], psc[:n_rows].clone(), pca[:n_rows].clone()
+        psc[-500:] = 0.0
+        pca[-500:] = S._BIG
+    q8, qs2, qc = S.quantize_queries(PJ.project(q, proj, mu), p8.shape[1], store.dist)
+    k1 = lambda: S.scan_chunkmin_int8_packed(q8, qs2, qc, p8, psc, pca)
+    k1_ref = lambda: S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(p8, psc, pca, S._NB))
+    out, ref = k1(), k1_ref()
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape, f"K1 {tag}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    err = int((out.long() - ref.long()).abs().max())
+    check(torch.equal(out, ref), f"K1 {tag}: {int((out != ref).sum())} packed values differ (max {err})")
+    log(f"[pca] K1 {tag}: D {p8.shape[1]} ({p8.shape[0]} rows, B {q.shape[0]}) equal to the plain "
+        "version element for element")
+    if not timed:
+        return p8.shape[1], err, None
+    ms, plain_ms = in_turns(k1, k1_ref, 10, 2)
+    return p8.shape[1], err, {"ms": ms, "plain_ms": plain_ms, "bound": k1_bound(len(store), q.shape[0], d_red)}
+
+
+def pca_stage_ms(pflat, q, k, passes=10):
+    """The PCA route's stages with CUDA events (mean of `passes` after one
+    warm-up): project + quantize + K1, the top-r over the survivors, K2 +
+    top-k."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import project as PJ
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    store = pflat.store
+    proj, mu, p8, psc, pca = store.device_proj_int8(store.scan_mode.pca_dim)
+    r = pflat.rerank_depth(k)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split = {"project_quantize_k1": 0.0, "topr": 0.0, "k2_topk": 0.0}
+    for i in range(passes + 1):
+        ev[0].record()
+        q8, qs2, qc = S.quantize_queries(PJ.project(q, proj, mu), p8.shape[1], store.dist)
+        packed = S.scan_chunkmin_int8_packed(q8, qs2, qc, p8, psc, pca)
+        ev[1].record()
+        _, cand = S.select_survivors(packed, r)
+        ev[2].record()
+        G.rerank_topk(q, store.device_rerank(), cand, k, store.dist)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i:
+            for name, a, b in zip(split, ev, ev[1:]):
+                split[name] += a.elapsed_time(b) / passes
+    return split
+
+
+def pca_route(store, q, gt, tag, timed=False, gate=None):
+    """The "pca" scan mode on `store` (pca_dim 256): fit and mirror build
+    times, the route's K1 / K2 launches from 0 around one batch, recall@10
+    against the exact scan (gated at `gate` when given), its ids with the
+    kernels against its ids with their plain versions on GATE_Q queries
+    (equal), and with `timed` the chained QPS beside the int8 route's, a
+    stage split, K1 in turns with its plain version and index_bytes."""
+    k = 10
+    if timed:
+        with scan_mode(store, "int8") as flat:
+            int8 = {"ids": flat._knn_device(q, k)[1].cpu().numpy().tolist(),
+                    "qps": chained_qps(lambda qq: flat._knn_device(qq, k), q, 5, 8)}
+    with scan_mode(store, "pca") as pflat:
+        out = pca_route_in_mode(pflat, q, gt, tag, timed, gate)
+    if timed:
+        out["int8_recall_at_10"] = recall_at_k(gt, int8["ids"], k)
+        out["int8"] = int8["qps"]
+    log(f"[pca] {tag}: fit {out['fit_s']:.2f} s, fit + mirror {out['fit_and_mirror_build_s']:.2f} s, "
+        f"recall@10 {out['recall_at_10']:.4f}" + (f", QPS best {out['pca']['qps_best']:.0f} (int8 "
+                                                  f"{out['int8']['qps_best']:.0f})" if timed else ""))
+    return out
+
+
+def pca_route_in_mode(pflat, q, gt, tag, timed, gate):
+    """`pca_route`'s body, with the store in the "pca" mode."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import project as PJ
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    store = pflat.store
+    k, n = 10, len(store)
+    check(pflat.uses_pca, f"pca {tag}: the mode did not take the PCA route")
+    vecs, _ = store.device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PJ.pca_fit(vecs, n, PCA_DIM, store.dist)
+    fit_s = time.perf_counter() - t0
+    store._dev_proj = None  # the mirror below fits again, then builds
+    t0 = time.perf_counter()
+    store.device_proj_int8(PCA_DIM)
+    torch.cuda.synchronize()
+    out = {"cell": tag, "n": n, "dist": store.dist, "pca_dim": PCA_DIM, "rerank_depth": pflat.rerank_depth(k),
+           "fit_s": fit_s, "fit_and_mirror_build_s": time.perf_counter() - t0}
+    S.scan_chunkmin_int8_packed.launches = 0
+    G.gather_dists.launches = 0
+    d, ids = pflat._knn_device(q, k)
+    launches = {"k1": S.scan_chunkmin_int8_packed.launches, "k2": G.gather_dists.launches}
+    check(min(launches.values()) > 0, f"pca {tag}: the route launched K1/K2 {launches}")
+    check(bool(torch.isfinite(d).all()) and d.shape == (q.shape[0], k), f"pca {tag}: malformed result")
+    ids = ids.cpu().numpy()
+    out.update(launches=launches, recall_at_10=recall_at_k(gt, ids.tolist(), k), ids_sha1=ids_hash(ids))
+    ids_k = pflat._knn_device(q[:GATE_Q], k)[1].cpu().numpy()
+    with plain_kernels():
+        ids_p = pflat._knn_device(q[:GATE_Q], k)[1].cpu().numpy()
+    check(ids_hash(ids_k) == ids_hash(ids_p), f"pca {tag}: ids with the kernels differ from the plain versions'")
+    out["gate_ids_sha1"] = ids_hash(ids_k)
+    if gate is not None:
+        check(out["recall_at_10"] >= gate, f"pca {tag}: recall@10 {out['recall_at_10']:.4f} < {gate}")
+    if timed:
+        out["pca"] = chained_qps(lambda qq: pflat._knn_device(qq, k), q, 5, 8)
+        out["stage_ms"] = pca_stage_ms(pflat, q, k)
+        out["index_device_bytes"] = pflat.index_bytes()
+        proj = store._dev_proj
+        out["pca_mirror_bytes"] = sum(t.numel() * t.element_size() for t in (proj[1], proj[2], *proj[3]))
+    return out
+
+
+def phase_pca(store, q, gt):
+    """pca_1m, pca_lowrank_1m and the cosine / mode checks (see the module
+    doc).  Returns (results, K1 at D 256 timed, the D 256 route's K1
+    launches)."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import FlatIndex, VecStore
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+
+    k, B = 10, q.shape[0]
+    res = {"pca_1m": pca_route(store, q, gt, "pca_1m", timed=True)}
+    _, k1_err, k1 = check_k1_proj(store, q, PCA_DIM, "pca_1m", timed=True)
+    k1["launches"] = res["pca_1m"]["launches"]["k1"]
+    res["pca_1m"]["k1"] = k1
+    # the other modes on the same store: each answers one batch
+    vecs, cache = store.device()
+    with scan_mode(store, "bf16") as bflat:
+        _, ids_b = bflat._knn_device(q, k)
+    res["bf16_recall_at_10"] = recall_at_k(gt, ids_b.cpu().numpy().tolist(), k)
+    store._dev_bf16 = None
+    with scan_mode(store, "exact") as eflat:
+        _, ids_e = eflat._knn_device(q, k)
+    _, ids_s = T.knn_scan(q, vecs, cache, len(store), k, store.dist)
+    check(torch.equal(ids_e, ids_s), "pca: the exact mode's ids differ from knn_scan's")
+    res["exact_recall_at_10"] = recall_at_k(gt, ids_e.cpu().numpy().tolist(), k)
+    store._dev_proj = None
+    torch.cuda.empty_cache()
+
+    # cosine on the 200,000-row cut; then an incremental write after the fit
+    cstore = VecStore.from_device(vecs[: min(200_000, len(store))], "cosine")
+    _, gt_c = FlatIndex.from_store(cstore)._knn_device(q, k, exact=True)
+    res["pca_cos_200k"] = pca_route(cstore, q, gt_c.cpu().numpy().tolist(), "pca_cos_200k")
+    k1_err = max(k1_err, check_k1_proj(cstore, q, PCA_DIM, "pca_cos_200k")[1])
+    v_new = np.random.default_rng(14).random(cstore.dim, dtype=np.float32)
+    cstore.swap_remove(0)
+    new_id = cstore.push(v_new)
+    with scan_mode(cstore, "pca") as cflat:
+        d_new, i_new = cflat._knn_device(v_new[None, :], 1)
+    check(int(i_new[0, 0]) == new_id and float(d_new[0, 0]) < 1e-5,
+          f"pca: the row pushed after the fit came back as {int(i_new[0, 0])} at {float(d_new[0, 0])}")
+    res["incremental_write"] = {"row": new_id, "distance": float(d_new[0, 0])}
+    # K1 at 128 lanes: a 70,000-row store projected to 100 lanes, cut to a
+    # ragged 69,500 rows (the last 500 sentinels), B 1000 and 37
+    sstore = VecStore.from_device(vecs[: min(70_000, len(store))], "l2sqr")
+    lanes, err, _ = check_k1_proj(sstore, q, 100, "d128_ragged", n_rows=69_500)
+    k1["max_abs_err"] = max(k1_err, err, check_k1_proj(sstore, q[:37], 100, "d128_ragged_b37", n_rows=69_500)[1])
+    check(lanes == 128, f"pca: the 100-lane mirror has {lanes} lanes")
+    del cstore, sstore
+    torch.cuda.empty_cache()
+
+    # the rank-64 set at 1M x 960: the regime the mode exists for
+    t0 = time.perf_counter()
+    x_low, q_low = lowrank_device(1_000_000, 960, 64, 21, B)
+    lstore = VecStore.from_device(x_low, "l2sqr")
+    del x_low
+    _, gt_l = FlatIndex.from_store(lstore)._knn_device(q_low, k, exact=True)
+    gt_l = gt_l.cpu().numpy().tolist()
+    res["lowrank_make_s"] = time.perf_counter() - t0
+    res["pca_lowrank_1m"] = pca_route(lstore, q_low, gt_l, "pca_lowrank_1m", gate=0.95)
+    _, ids8 = FlatIndex.from_store(lstore)._knn_device(q_low, k)
+    res["pca_lowrank_1m"]["int8_recall_at_10"] = recall_at_k(gt_l, ids8.cpu().numpy().tolist(), k)
+    del lstore
+    torch.cuda.empty_cache()
+    log(f"[pca] bf16 recall@10 {res['bf16_recall_at_10']:.4f}, exact {res['exact_recall_at_10']:.4f}; "
+        f"incremental write {res['incremental_write']}; low-rank {res['pca_lowrank_1m']['recall_at_10']:.4f} "
+        f"(int8 {res['pca_lowrank_1m']['int8_recall_at_10']:.4f})")
+    return res, k1
+
+
+# ----------------------------------------------------------- harness ----
+HARNESS_ROWS, HARNESS_QUERIES = 200_000, 1000
+
+
+def harness_toml(d, label, algo_body, ef_list):
+    path = os.path.join(d, f"{label}.toml")
+    with open(path, "w") as f:
+        f.write(f'label = "{label}"\ndist = "L2Sqr"\ngnd_path = "{d}/gnd_synth.local.npz"\n'
+                f'index_cache = ""\nbench_output = "{d}/results.toml"\nchained = true\n\n'
+                f"[ef]\nlist = {list(ef_list)}\n\n{algo_body}\n"
+                f'[base]\ndim = 960\ndata_path = "{d}/gist.local.bin"\n\n'
+                f'[test]\ndim = 960\ndata_path = "{d}/gist_test.local.bin"\n')
+    return path
+
+
+def phase_harness():
+    """harness_200k: the port's tools at the vecdb_200k cut, in a temporary
+    directory: the synth CLI (base, 1,000 queries, --gnd), gen_gnd (its ids
+    must equal synth's), convert_fvecs on a small file, and the bench harness
+    on two chained TOMLs (Flat: K1 + K2; IVF nlist 256, n_probes 8-32: K10),
+    the launch counts from 0 around each; results.toml must load in
+    ResultList with chained = true and a recall per point, its .html beside
+    it."""
+    import numpy as np
+    from lab_1806_vec_db_tpu_torch.bench import harness, synth
+    from lab_1806_vec_db_tpu_torch.cli import convert_fvecs, gen_gnd
+    from lab_1806_vec_db_tpu_torch.utils import io
+    from lab_1806_vec_db_tpu_torch.utils.candidates import GroundTruth
+
+    d = os.path.join(HERE, "tmp", "chip_smoke_harness")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    out = {"cell": "harness_200k", "rows": HARNESS_ROWS, "queries": HARNESS_QUERIES}
+    try:
+        with contextlib.redirect_stdout(sys.stderr):  # the tools' prints go to the log
+            t0 = time.perf_counter()
+            synth.main(["-n", str(HARNESS_ROWS), "--prefix", f"{d}/gist", "-q", str(HARNESS_QUERIES),
+                        "--gnd", f"{d}/gist_test.local.bin", "--gnd-out", f"{d}/gnd_synth.local.npz"])
+            out["synth_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gen_gnd.main(["--base", f"{d}/gist.local.bin", "--test", f"{d}/gist_test.local.bin",
+                          "-o", f"{d}/gnd.local.npz"])
+            out["gen_gnd_s"] = time.perf_counter() - t0
+            g1 = GroundTruth.load(f"{d}/gnd.local.npz").rows
+            g2 = GroundTruth.load(f"{d}/gnd_synth.local.npz").rows
+            check(g1.shape == (HARNESS_QUERIES, 10) and np.array_equal(g1, g2),
+                  "harness: gen_gnd's ground truth differs from synth's --gnd")
+            small = np.random.default_rng(0).random((50, 960), dtype=np.float32)
+            with open(f"{d}/small.fvecs", "wb") as f:
+                for row in small:
+                    f.write(np.uint32(960).tobytes() + row.tobytes())
+            convert_fvecs.main([f"{d}/small.fvecs", "-o", f"{d}/small.local.bin", "-l", "40"])
+            check(np.array_equal(io.load_raw(f"{d}/small.local.bin", 960), small[:40]),
+                  "harness: convert_fvecs output differs from its input rows")
+            sweeps = {"Flat": ("[algorithm.Flat]\n", [10], ("k1", "k2")),
+                      "IVF": ("[algorithm.IVF]\nk = 256\nk_means_size = 20000\nk_means_max_iter = 10\n",
+                              [8, 16, 32], ("k10", "k2"))}
+            for label, (body, efs, need) in sweeps.items():
+                pq_counts(reset=True)
+                t0 = time.perf_counter()
+                harness.main([harness_toml(d, label, body, efs)])
+                launches = pq_counts()
+                missing = [kk for kk in need if launches[kk] == 0]
+                check(not missing, f"harness {label}: kernels {missing} launched no time ({launches})")
+                out[label] = {"wall_s": time.perf_counter() - t0,
+                              "launches": {kk: v for kk, v in launches.items() if v}}
+        rl = harness.ResultList.load(f"{d}/results.toml")
+        check(set(rl.results) == {"Flat", "IVF"}, f"harness: results.toml holds {list(rl.results)}")
+        check(os.path.exists(f"{d}/results.html"), "harness: no results.html beside results.toml")
+        for label, row in rl.results.items():
+            check(row.get("chained") is True, f"harness {label}: the row is not chained")
+            check(len(row["recall"]) == len(row["ef"]) == len(row["search_time"]), f"harness {label}: ragged row")
+            out[label]["points"] = [{"ef": ef, "ms_per_query": t, "ms_per_query_median": m, "recall": r}
+                                    for ef, t, m, r in zip(row["ef"], row["search_time"],
+                                                           row["search_time_median"], row["recall"])]
+            out[label].update(build_seconds=row.get("build_seconds"),
+                              index_device_bytes=row.get("index_device_bytes"))
+            for p in out[label]["points"]:
+                log(f"[harness] {label} ef {p['ef']}: {p['ms_per_query']:.5f} ms/query, "
+                    f"recall {p['recall']:.4f}")
+        check(out["Flat"]["points"][0]["recall"] >= 0.99, f"harness: Flat recall {out['Flat']['points']}")
+        ivf_rec = [p["recall"] for p in out["IVF"]["points"]]
+        check(ivf_rec == sorted(ivf_rec), f"harness: IVF recall falls with n_probes {ivf_rec}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------------ native ----
+@contextlib.contextmanager
+def no_host_engine():
+    """Any call into the native engine's searches fails inside this block."""
+    from lab_1806_vec_db_tpu_torch.models import native
+
+    real = native.flat_knn_single, native.hnsw_knn_single
+
+    def refuse(*_):
+        fail("a single query on a CUDA table ran on the host engine")
+
+    native.flat_knn_single = native.hnsw_knn_single = refuse
+    try:
+        yield
+    finally:
+        native.flat_knn_single, native.hnsw_knn_single = real
+
+
+def dist64(rows, q, dist):
+    """float64 distances of `rows` (m, dim) to one query."""
+    import numpy as np
+
+    rows, q = np.asarray(rows, np.float64), np.asarray(q, np.float64)
+    if dist == "l2sqr":
+        return ((rows - q) ** 2).sum(axis=1)
+    return 1.0 - rows @ q / np.maximum(np.linalg.norm(rows, axis=1) * np.linalg.norm(q), 1e-30)
+
+
+def phase_native(db, key, q_host, gt, n_q=200):
+    """Single queries on the seeded l2sqr HNSW table of phase 5, at ef 120 /
+    200, both ways: `VecDB.search` on the card (a batch of one through the
+    scan route: K1 and K2 launch once a query, the host engine never runs;
+    recall@10 >= 0.99, the scan route's gate) and the native engine on the
+    table's host rows and links (`native.hnsw_knn_single`: no kernel
+    launches; recall@10 within 0.08 of the graph route's on the same
+    queries, the CPU test's margin).  µs a search each way."""
+    import numpy as np
+    from lab_1806_vec_db_tpu_torch.models import native
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    index = db._inner._table_mgr(key).obj.inner.inner
+    t0 = time.perf_counter()
+    native.module()
+    out = {"queries": n_q, "engine_load_s": time.perf_counter() - t0}
+    for ef in (120, 200):
+        db.search(key, q_host[0], 10, ef)  # warm-up
+        pq_counts(reset=True)
+        with no_host_engine():
+            t0 = time.perf_counter()
+            res = [db.search(key, q_host[i], 10, ef) for i in range(n_q)]
+            t_dev = time.perf_counter() - t0
+        dev_launches = pq_counts()
+        check(dev_launches["k1"] == n_q and dev_launches["k2"] >= n_q,
+              f"single queries on the card: K1 / K2 launched {dev_launches['k1']} / {dev_launches['k2']} "
+              f"times for {n_q} queries")
+        dev_ids = [[int(m["id"]) for m, _ in row] for row in res]
+        check(all(len(r) == 10 for r in dev_ids), "single queries on the card: short result rows")
+        pq_counts(reset=True)
+        TR.traverse.launches = 0
+        t0 = time.perf_counter()
+        nat = [native.hnsw_knn_single(index, q_host[i], 10, ef) for i in range(n_q)]
+        t_nat = time.perf_counter() - t0
+        launched = {kk: v for kk, v in pq_counts().items() if v}
+        check(not launched and TR.traverse.launches == 0, f"native: the engine launched kernels {launched}")
+        ids = [list(i_) for i_, _ in nat]
+        check(all(len(r) == 10 for r in ids), "native: short result rows")
+        _, gids = index.knn_with_ef_batch(q_host[:n_q], 10, ef, route="graph")
+        rec, grec = recall_at_k(gt[:n_q], ids, 10), recall_at_k(gt[:n_q], gids.tolist(), 10)
+        drec = recall_at_k(gt[:n_q], dev_ids, 10)
+        check(drec >= 0.99, f"single queries on the card, ef {ef}: recall@10 {drec:.4f} < 0.99")
+        check(abs(rec - grec) <= 0.08, f"native ef {ef}: recall@10 {rec:.4f} vs the graph route's {grec:.4f}")
+        out[ef] = {"device_us_per_search": t_dev / n_q * 1e6, "device_recall_at_10": drec,
+                   "native_us_per_search": t_nat / n_q * 1e6, "native_recall_at_10": rec,
+                   "graph_route_recall_at_10": grec, "native_ids_sha1": ids_hash(np.asarray(ids))}
+        log(f"[native] ef {ef}: VecDB.search on the card {out[ef]['device_us_per_search']:.0f} µs a search "
+            f"(recall@10 {drec:.4f}); native engine {out[ef]['native_us_per_search']:.0f} µs "
+            f"(recall@10 {rec:.4f}, graph route {grec:.4f})")
+    return out
+
+
+def check_single_query(db, key, exact, x_host, q_host, n_q=50):
+    """Single queries on a Flat table of phase 5, both ways:
+    - `VecDB.search` on the card (the exact scan, a batch of one; the host
+      engine never runs): its ids equal the exact scan's of the same query,
+      element for element;
+    - the native engine (`native.flat_knn_single`) on the table's host rows:
+      each returned distance within rtol 1e-5 / atol 1e-6 of the float64
+      distance of the row it names (f32 sums), and, sorted by float64 distance, its i-th row
+      no farther than the i-th of the exact scan's top k + 1 (rtol 1e-6), so
+      an id that differs from the exact scan's passes only where the two
+      rows' exact distances tie.
+    Returns µs a search each way."""
+    import numpy as np
+    from lab_1806_vec_db_tpu_torch.models import native
+
+    k, dist = 10, exact.dist
+    db.search(key, q_host[0], k)  # warm-up
+    with no_host_engine():
+        t0 = time.perf_counter()
+        res = [db.search(key, q_host[i], k) for i in range(n_q)]
+        dev_us = (time.perf_counter() - t0) / n_q * 1e6
+    for r, row in enumerate(res):
+        _, ref = exact.knn_batch(q_host[r : r + 1], k, exact=True)
+        check([int(m["id"]) for m, _ in row] == ref[0].tolist(),
+              f"{key}: search of query {r} on the card != the exact scan's top-10")
+    store = db._inner._table_mgr(key).obj.inner.inner.store
+    t0 = time.perf_counter()
+    nat = [native.flat_knn_single(store, q_host[i], k) for i in range(n_q)]
+    nat_us = (time.perf_counter() - t0) / n_q * 1e6
+    _, ref = exact.knn_batch(q_host[:n_q], k + 1, exact=True)
+    for r, (ids, d) in enumerate(nat):
+        check(len(ids) == k == len(set(ids)), f"{key}: native search of query {r} returned {ids}")
+        d_own = dist64(x_host[ids], q_host[r], dist)
+        check(np.allclose(d, d_own, rtol=1e-5, atol=1e-6),
+              f"{key}: native distances of query {r} {d} vs float64 {d_own.tolist()}")
+        mine, best = np.sort(d_own), np.sort(dist64(x_host[ref[r]], q_host[r], dist))[:k]
+        bad = np.nonzero(mine > best + 1e-6 * np.abs(best))[0]
+        check(len(bad) == 0, f"{key}: native search of query {r} is farther than the exact scan at {bad}: "
+                             f"ids {ids} vs {ref[r].tolist()}")
+    return dev_us, nat_us
+
+
+# ---------------------------------------------------------- examples ----
+def phase_examples():
+    """Each examples/*.py against the port, in a subprocess of its own (all
+    four at once): a copy whose `from lab_1806_vec_db_tpu import VecDB`
+    names the port, run in a temporary working directory (they write
+    ./tmp/...).  Each must exit 0 and print its "Test passed" line."""
+    import glob
+    import tempfile
+
+    srcs = sorted(glob.glob(os.path.join(HERE, "examples", "*.py")))
+    check(len(srcs) == 4, f"examples: found {len(srcs)} scripts")
+    work = tempfile.mkdtemp(prefix="vecdb_examples_")
+    env = {**os.environ, "PYTHONPATH": HERE}
+    procs = {}
+    try:
+        for src in srcs:
+            name = os.path.basename(src)
+            with open(src) as f:
+                text = f.read()
+            check("from lab_1806_vec_db_tpu import VecDB" in text, f"examples: {name} imports no VecDB")
+            cwd = os.path.join(work, name[:-3])
+            os.makedirs(cwd)
+            path = os.path.join(cwd, name)
+            with open(path, "w") as f:
+                f.write(text.replace("from lab_1806_vec_db_tpu import VecDB", f"from {PKG} import VecDB"))
+            procs[name] = subprocess.Popen([sys.executable, path], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        out = {}
+        for name, proc in procs.items():
+            t0 = time.perf_counter()
+            text, _ = proc.communicate(timeout=300)
+            check(proc.returncode == 0 and "Test passed" in text,
+                  f"examples: {name} exited {proc.returncode}:\n{text[-2000:]}")
+            out[name] = {"exit": proc.returncode, "wait_s": time.perf_counter() - t0}
+            log(f"[examples] {name}: Test passed")
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> None:
@@ -2414,12 +2949,13 @@ def main() -> None:
     del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
-    m, (resident, rm), pq_1m, k7, ivf_1m, k10 = phase_1m(card)
+    m, (resident, rm), pq_1m, k7, ivf_1m, k10, (pca, k1_pca) = phase_1m(card)
     print(json.dumps(m), flush=True)
     print(json.dumps({"phase": "resident", "card": card, "resident_1m": resident,
                       "kernels_vs_plain": {**rm, "cosine_200k": resident_cos}}, default=str), flush=True)
     print(json.dumps({"phase": "pq", "card": card, "flat_pq_1m": pq_1m, **pq_out,
                       "kernels_vs_plain": {"k7_1m": k7, **pm}}, default=str), flush=True)
+    print(json.dumps({"phase": "pca", "card": card, **pca}, default=str), flush=True)
     torch.cuda.empty_cache()
     ivf_lean, lean_scan, k2_bf16 = phase_lean(card)
     print(json.dumps({"phase": "ivf", "card": card, "ivf_1m": ivf_1m, "ivf_lean_4m": ivf_lean,
@@ -2433,6 +2969,9 @@ def main() -> None:
                      default=str), flush=True)
     torch.cuda.empty_cache()
     print(json.dumps({"phase": "u8", "card": card, **phase_u8()}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "harness", "card": card, **phase_harness()}, default=str), flush=True)
+    print(json.dumps({"phase": "examples", "card": card, **phase_examples()}, default=str), flush=True)
 
     main_launches = launches["gist_l2"]
     # each error is the largest over every comparison of that kernel with its
@@ -2452,6 +2991,14 @@ def main() -> None:
          "ms": m["k1_ms"], "plain_ms": m["k1_plain_ms"], "bound_ms": m["k1_bound"][0],
          "bound_by": m["k1_bound"][1], "library_ms": None,
          "ptxas": ptxas["k1"]},
+        # K1 on the "pca" route's projected mirror (flat_1m's rows at 256
+        # lanes); launches: that route's first batch
+        {"name": "scan_chunkmin_int8_packed_pca256", "route": "cuda",
+         "source": f"{PKG}/csrc/scan_int8_packed.cu",
+         "replaces": "lab_1806_vec_db_tpu/ops/pallas_scan.py:542",
+         "launches": k1_pca["launches"], "max_abs_err": k1_pca["max_abs_err"],
+         "ms": k1_pca["ms"], "plain_ms": k1_pca["plain_ms"], "bound_ms": k1_pca["bound"][0],
+         "bound_by": k1_pca["bound"][1], "library_ms": None},
         {"name": "gather_dists", "route": "cuda",
          "source": f"{PKG}/csrc/gather_dists.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_gather.py:261",

@@ -27,7 +27,21 @@ Ported so far, over float32 tables:
   chunk-min), K13 (int8, the bf16 distance matrix) and K14 (int8 with a
   chunk-min), each behind its candidate function;
 - uint8 tables (`models/u8.py`: `U8VecSet`, `FlatIndexU8`; `ops/u8.py`):
-  exact integer distances through int8 GEMMs, through `VecDB` too.
+  exact integer distances through int8 GEMMs, through `VecDB` too;
+- the Flat planner's scan modes (`models/store.py:ScanMode`, "int8" /
+  "pca" / "bf16" / "exact" with `pca_dim`, held by the store and set by
+  `FlatIndex(..., scan=, pca_dim=)` or `VecDB(dir, scan=, pca_dim=)`; HNSW's
+  scan route reads its store's): "pca" runs K1 over the store's
+  PCA-projected mirror (`ops/project.py`);
+- the native single-query engine (`models/native.py`, its own copy of the
+  reference's C++ source in `csrc/hnsw_native.cpp`, built with g++ at first
+  use) behind `FlatIndex.knn` and `HNSWIndex.knn_with_ef` on host stores (a
+  CUDA store answers one query on the card);
+- the tools: `bench/harness.py` (TOML ef sweeps, `ResultList`),
+  `bench/synth.py`'s CLI, `cli/gen_gnd.py`, `cli/convert_fvecs.py`,
+  `utils/io.py` (raw and fvecs files) and `utils/profiling.py`.
+
+Not ported yet: the sharded indexes (`parallel/sharded.py`).
 """
 
 import torch

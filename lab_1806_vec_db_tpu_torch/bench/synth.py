@@ -1,6 +1,17 @@
 """Gist-spectrum synthetic data (port of bench/synth.py and of the device
 generator in bench.py).
 
+`make(n, dim, seed)` is the reference's host generator, drawn from numpy
+with the same calls, so the same arguments give the same bytes in both
+packages; `main` is its CLI:
+
+    python -m lab_1806_vec_db_tpu_torch.bench.synth -n 200000 --prefix tmp/gist_200k \
+        -q 1000 --gnd tmp/gist_200k_test.local.bin
+
+writes `<prefix>.local.bin`, with `-q` `<prefix>_test.local.bin` (queries
+from seed + 1), and with `--gnd` the exact ground truth of that test file
+(`<prefix>_gnd.local.npz`, the port's exact scan on `--device`).
+
 `gist_spectrum` is a PCA model of the committed real Gist slice
 (data/gist_1000.bin + data/gist_test.bin): rows drawn as Gaussians in its
 basis, scaled by its spectrum and clipped to >= 0 like real Gist, reproduce
@@ -45,6 +56,25 @@ def gist_spectrum(dim: int, data_dir: str | None = None):
     out = (mu.astype(np.float32), scales.astype(np.float32), vt.astype(np.float32))
     _SPECTRUM_CACHE[dim] = out
     return out
+
+
+def make(n: int, dim: int, seed: int = 0, kind: str = "gist", n_clusters: int = 256,
+         spread: float = 0.35) -> np.ndarray:
+    """(n, dim) f32 rows on the host: Gist-spectrum Gaussians clipped at 0
+    (kind "gist", dim <= 960), else a clustered Gaussian mixture, from
+    `np.random.default_rng(seed)` exactly as the reference draws them."""
+    rng = np.random.default_rng(seed)
+    if kind == "gist" and dim <= 960:
+        mu, scales, vt = gist_spectrum(dim)
+        z = rng.standard_normal((n, len(scales)), dtype=np.float32)
+        z *= scales
+        x = z @ vt
+        x += mu
+        np.clip(x, 0.0, None, out=x)
+        return x
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, size=n)
+    return (centers[assign] + spread * rng.standard_normal((n, dim)).astype(np.float32)).astype(np.float32)
 
 
 def make_device(n: int, dim: int, seed: int, device, block_rows: int = 65536) -> torch.Tensor:
@@ -163,3 +193,44 @@ def exact_gt_blocked(fill, n: int, queries: torch.Tensor, k: int, dist: str,
         ti = torch.where(ti >= 0, ti + row0, ti)
         best_d, best_i = T.merge_topk(best_d, best_i, td, ti, k)
     return best_i
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from ..utils import io
+    from ..utils.candidates import GroundTruth
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-n", type=int, required=True)
+    ap.add_argument("-d", "--dim", type=int, default=960)
+    ap.add_argument("--prefix", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("-q", "--queries", type=int, default=0,
+                    help="also write <prefix>_test.local.bin in-distribution queries")
+    ap.add_argument("--gnd", default=None, help="also generate ground truth vs this test set")
+    ap.add_argument("--gnd-out", default=None)
+    ap.add_argument("--device", default="cuda", help="device of the --gnd exact scan")
+    args = ap.parse_args(argv)
+
+    base = make(args.n, args.dim, args.seed)
+    out = f"{args.prefix}.local.bin"
+    io.save_raw(out, base)
+    print(f"Wrote {out}: {base.shape}")
+    if args.queries:
+        # fresh draws from the same distribution: in-distribution queries
+        qs = make(args.queries, args.dim, args.seed + 1)
+        qout = f"{args.prefix}_test.local.bin"
+        io.save_raw(qout, qs.astype(np.float32))
+        print(f"Wrote {qout}: {qs.shape}")
+    if args.gnd:
+        from ..cli.gen_gnd import exact_ids
+
+        test = io.load_raw(args.gnd, args.dim, "float32")
+        GroundTruth(exact_ids(base, test, 10, "l2sqr", args.device)).save(
+            args.gnd_out or f"{args.prefix}_gnd.local.npz")
+        print(f"Wrote ground truth for {len(test)} queries")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,14 @@ Port of lab_1806_vec_db_tpu/db/api.py.  `VecDB(dir, device="cuda")` serves
 float32 Flat and HNSW tables, with or without a PQ table, and uint8 Flat
 tables (exact integer distances) on the given device, and raises
 RuntimeError when that device is unavailable.  `VecDB(dir, seed=s)` makes
-its tables' HNSW builds and PQ training reproducible (see `VecDB`).
+its tables' HNSW builds and PQ training reproducible, and `VecDB(dir,
+scan="pca", pca_dim=256)` picks the Flat planner's scan mode (see `VecDB`).
 """
 
 from __future__ import annotations
 
 from .manager import VecDBManager
+from ..models.store import ScanMode
 from ..ops.distance import calc_dist_host
 
 
@@ -57,14 +59,20 @@ class VecDB:
     - Unique: only one manager per database directory (flock-enforced).
     """
 
-    def __init__(self, dir: str, device="cuda", seed: int | None = None) -> None:
+    def __init__(self, dir: str, device="cuda", seed: int | None = None, scan: str = "int8",
+                 pca_dim: int = 256) -> None:
         """Extension over the reference stub: `device` places the tables;
         `seed`, when given, seeds every table this VecDB creates or opens,
         so an HNSW build draws the same levels (and builds the same graph)
         and PQ training the same codebooks each time.  None, the default,
         draws HNSW levels from fresh entropy as the reference does (PQ
-        training then uses seed 0)."""
-        self._inner = VecDBManager(dir, device=device, seed=seed)
+        training then uses seed 0).  `scan` is the float32 tables' scan
+        mode ("int8", the default, "pca", "bf16" / "2stage" or "exact"; the
+        reference's VECDB_TPU_SCAN) and `pca_dim` the "pca" mode's
+        projected width (its VECDB_TPU_PCA_DIM); an unknown mode raises
+        ValueError before the directory is touched."""
+        self._inner = VecDBManager(dir, device=device, seed=seed,
+                                   scan_mode=ScanMode(scan, pca_dim))
 
     @_runtime_wrap
     def create_table_if_not_exists(

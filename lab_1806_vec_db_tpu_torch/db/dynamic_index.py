@@ -3,7 +3,11 @@
 The runtime-dtype dispatch is the DB-layer face of the reference's
 DynamicVecSet (src/vec_set.rs:237-263): float32 tables hold a Flat index
 that can be upgraded to HNSW, uint8 tables the exact u8 Flat index
-(`models/u8.py`), which never casts the set to f32 and refuses HNSW.  The
+(`models/u8.py`), which never casts the set to f32 and refuses HNSW.
+The float32 indexes search in the table's scan mode (a `ScanMode`, the
+reference's VECDB_TPU_SCAN / VECDB_TPU_PCA_DIM; see `models/flat.py`): it is
+set on the index's store whenever the index is made (creation, an HNSW
+build, a load), and a downgrade to Flat keeps the store.  The
 sharded VECDB_TPU_MESH mirror is not ported yet (ROADMAP.md queue 1,
 item 14).
 """
@@ -13,18 +17,26 @@ from __future__ import annotations
 import numpy as np
 
 from ..models import FlatIndex, FlatIndexU8, HNSWIndex
+from ..models.store import ScanMode
 from ..utils.config import HNSWConfig
 
 
 class DynamicIndex:
-    def __init__(self, dim: int, dist: str, data_type: str = "float32", device="cuda"):
+    def __init__(self, dim: int, dist: str, data_type: str = "float32", device="cuda",
+                 scan_mode: ScanMode = ScanMode()):
+        self.scan_mode = scan_mode
         if data_type == "uint8":
             self.inner: FlatIndex | FlatIndexU8 | HNSWIndex = FlatIndexU8(dim, dist, device=device)
         elif data_type == "float32":
-            self.inner = FlatIndex(dim, dist, device=device)
+            self._set_f32(FlatIndex(dim, dist, device=device))
         else:
             raise ValueError(f"Unsupported data_type: {data_type!r}")
         self.data_type = data_type
+
+    def _set_f32(self, index: FlatIndex | HNSWIndex) -> None:
+        """Hold a float32 index, searching in the table's scan mode."""
+        index.store.scan_mode = self.scan_mode
+        self.inner = index
 
     @property
     def dim(self) -> int:
@@ -62,9 +74,9 @@ class DynamicIndex:
             cfg.ef_construction = ef_construction
         vectors = flat.store.numpy().astype(np.float32, copy=True)
         if len(vectors):
-            self.inner = HNSWIndex.build(vectors, flat.dist, cfg, seed=seed, device=flat.device)
+            self._set_f32(HNSWIndex.build(vectors, flat.dist, cfg, seed=seed, device=flat.device))
         else:
-            self.inner = HNSWIndex(flat.dim, flat.dist, cfg, seed, device=flat.device)
+            self._set_f32(HNSWIndex(flat.dim, flat.dist, cfg, seed, device=flat.device))
 
     def clear_hnsw(self) -> None:
         """Downgrade HNSW -> Flat keeping the vec set
@@ -99,14 +111,16 @@ class DynamicIndex:
         return self.inner.state(include_vectors=True)
 
     @classmethod
-    def from_state(cls, arrays: dict, meta: dict, device="cuda") -> "DynamicIndex":
+    def from_state(cls, arrays: dict, meta: dict, device="cuda",
+                   scan_mode: ScanMode = ScanMode()) -> "DynamicIndex":
         self = cls.__new__(cls)
         self.data_type = "float32"
+        self.scan_mode = scan_mode
         if meta["algorithm"] == "HNSW":
-            self.inner = HNSWIndex.from_state(arrays, meta, device=device)
+            self._set_f32(HNSWIndex.from_state(arrays, meta, device=device))
         elif meta["algorithm"] == "FlatU8":
             self.inner = FlatIndexU8.from_state(arrays, meta, device=device)
             self.data_type = "uint8"
         else:
-            self.inner = FlatIndex.from_state(arrays, meta, device=device)
+            self._set_f32(FlatIndex.from_state(arrays, meta, device=device))
         return self

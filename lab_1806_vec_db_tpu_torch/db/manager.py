@@ -22,6 +22,7 @@ import weakref
 from .table import MetadataVecTable
 from .thread_save import ThreadSavingManager
 from ..ops.distance import check_dist
+from ..models.store import ScanMode
 from ..utils.device import resolve
 
 TABLE_SAVE_INTERVAL = 60.0  # mod.rs:161-163
@@ -118,10 +119,12 @@ def _acquire_lock(lock_path: str):
 
 
 class VecDBManager:
-    def __init__(self, dir: str, device="cuda", seed: int | None = None):
+    def __init__(self, dir: str, device="cuda", seed: int | None = None,
+                 scan_mode: ScanMode = ScanMode()):
         # fail before touching the directory when the device is unavailable
         self.device = resolve(device)
         self.seed = seed
+        self.scan_mode = scan_mode
         self.dir = os.path.abspath(dir)
         os.makedirs(self.dir, exist_ok=True)
         self._lock_file = _acquire_lock(os.path.join(self.dir, "db.lock"))
@@ -152,7 +155,8 @@ class VecDBManager:
                     raise KeyError(f"Table {key} not found")
                 if key not in self._tables:
                     path = os.path.join(self.dir, self._brief.tables[key])
-                    table = MetadataVecTable.load(path, device=self.device, seed=self.seed)
+                    table = MetadataVecTable.load(path, device=self.device, seed=self.seed,
+                                                  scan_mode=self.scan_mode)
                     self._tables[key] = ThreadSavingManager(
                         table, path, TABLE_SAVE_INTERVAL, False
                     )
@@ -191,7 +195,8 @@ class VecDBManager:
                     return False
                 filename = brief.insert(key)
                 path = os.path.join(self.dir, filename)
-                table = MetadataVecTable(dim, dist, self.seed, data_type=data_type, device=self.device)
+                table = MetadataVecTable(dim, dist, self.seed, data_type=data_type, device=self.device,
+                                         scan_mode=self.scan_mode)
                 mgr = ThreadSavingManager(table, path, TABLE_SAVE_INTERVAL, True)
                 self._tables[key] = mgr
                 return True

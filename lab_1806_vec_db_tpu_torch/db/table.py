@@ -19,15 +19,16 @@ import numpy as np
 
 from .dynamic_index import DynamicIndex
 from ..models.pq_table import PQTable
+from ..models.store import ScanMode
 from ..utils import serde
 from ..utils.config import PQConfig
 
 
 class MetadataVecTable:
     def __init__(self, dim: int, dist: str, seed: int | None = None,
-                 data_type: str = "float32", device="cuda"):
+                 data_type: str = "float32", device="cuda", scan_mode: ScanMode = ScanMode()):
         self.metadata: list[dict[str, str]] = []
-        self.inner = DynamicIndex(dim, dist, data_type, device=device)
+        self.inner = DynamicIndex(dim, dist, data_type, device=device, scan_mode=scan_mode)
         self.pq = None
         self._seed = seed
 
@@ -190,10 +191,11 @@ class MetadataVecTable:
         serde.save_arrays(path, arrays, meta)
 
     @classmethod
-    def load(cls, path, device="cuda", seed: int | None = None) -> "MetadataVecTable":
+    def load(cls, path, device="cuda", seed: int | None = None,
+             scan_mode: ScanMode = ScanMode()) -> "MetadataVecTable":
         arrays, meta = serde.load_arrays(path)
         self = cls.__new__(cls)
-        self.inner = DynamicIndex.from_state(arrays, meta, device=device)
+        self.inner = DynamicIndex.from_state(arrays, meta, device=device, scan_mode=scan_mode)
         self.metadata = [dict(m) for m in meta.get("metadata", [])]
         self.pq = PQTable.from_state(arrays, meta, device=device) if "pq" in meta else None
         self._seed = seed

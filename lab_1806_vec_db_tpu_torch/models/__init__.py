@@ -1,4 +1,4 @@
-from .store import VecStore
+from .store import ScanMode, VecStore
 from .flat import FlatIndex
 from .hnsw import HNSWIndex
 from .ivf import IVFIndex
@@ -7,7 +7,7 @@ from .kmeans import KMeans
 from .pq_table import PQTable
 from .pq_codes import PQCodesIndex
 from .u8 import FlatIndexU8, U8VecSet
-from . import base
+from . import base, native
 
-__all__ = ["VecStore", "FlatIndex", "HNSWIndex", "IVFIndex", "IVFPQIndex", "KMeans", "PQTable",
-           "PQCodesIndex", "FlatIndexU8", "U8VecSet", "base"]
+__all__ = ["ScanMode", "VecStore", "FlatIndex", "HNSWIndex", "IVFIndex", "IVFPQIndex", "KMeans", "PQTable",
+           "PQCodesIndex", "FlatIndexU8", "U8VecSet", "base", "native"]

@@ -1,11 +1,25 @@
 """Flat (brute-force) index (port of models/flat.py).
 
-The planner is the reference's:
-- the exact f32 scan (`topk.knn_scan`) at n <= 65,536 rows, or when the
-  int8 ordering self-test fails;
-- otherwise two stages: K1, the packed int8 chunk-min scan over the permuted
-  mirror, then an exact top-r over its survivors, `decode_perm`, and K2, the
-  exact rerank gather, with a top-k.
+The planner is the reference's, in the store's scan mode
+(`VecStore.scan_mode`, a `ScanMode`: the reference's `VECDB_TPU_SCAN` and
+`VECDB_TPU_PCA_DIM`, set by `FlatIndex(..., scan=, pca_dim=)` or by the DB
+layer):
+- the exact f32 scan (`topk.knn_scan`) at n <= 65,536 rows, in the "exact"
+  mode, or when the int8 ordering self-test fails ("int8" / "pca" modes);
+- "int8" (the default): K1, the packed int8 chunk-min scan over the
+  permuted mirror, then an exact top-r over its survivors, `decode_perm`,
+  and K2, the exact rerank gather, with a top-k;
+- "pca" (where pca_dim < dim; else it is "int8", as in the reference): K1
+  over the store's PCA-projected mirror (`ops/project.py`, row order, so no
+  `decode_perm`) with projected queries, a deeper top-r, then K2;
+- "bf16" (the reference's "2stage" too): the reference's XLA candidate pass
+  (`topk.scan_candidates`, a bf16 product and an exact top-r over the bf16
+  traversal copy), then K2.
+
+`knn` (one query) is the exact scan on the store's device: a batch of one
+on a CUDA store, whose rows stay on the card; on a host store, the native
+engine's serial exact scan (`models/native.py`), as the reference serves
+it.  A lean store takes `knn_batch`.
 
 On a CUDA store both stages launch the hand-written kernels; on a CPU store
 they run the kernels' plain PyTorch versions, the same algorithm (the JAX
@@ -27,8 +41,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .store import VecStore
+from . import native
+from .store import ScanMode, VecStore
 from ..ops import gather as G
+from ..ops import project as PJ
 from ..ops import scan as S
 from ..ops import topk as T
 from ..utils import serde
@@ -41,24 +57,35 @@ _EXACT_BELOW = 65536
 # stage-1 candidates per requested neighbor (floor 32), growing with
 # log2(n / 1M) past 1.5M rows
 _RERANK_MULT = 4
+# the "pca" mode's stage-1 candidates per requested neighbor (floor 128):
+# the reference's VECDB_TPU_RERANK_PCA default
+_RERANK_MULT_PCA = 16
 
 
 class FlatIndex:
     algorithm = "Flat"
 
-    def __init__(self, dim: int, dist: str, capacity: int = 0, device="cuda"):
+    def __init__(self, dim: int, dist: str, capacity: int = 0, device="cuda",
+                 scan: str = "int8", pca_dim: int = 256):
+        """`scan` / `pca_dim` set the new store's `ScanMode` (see the module
+        doc); an unknown mode raises ValueError."""
+        mode = ScanMode(scan, pca_dim)
         self.store = VecStore(dim, dist, capacity, device=device)
+        self.store.scan_mode = mode
 
     # ---- construction ----
     @classmethod
-    def from_numpy(cls, vectors: np.ndarray, dist: str, device="cuda") -> "FlatIndex":
-        idx = cls(vectors.shape[1], dist, capacity=len(vectors), device=device)
+    def from_numpy(cls, vectors: np.ndarray, dist: str, device="cuda", scan: str = "int8",
+                   pca_dim: int = 256) -> "FlatIndex":
+        idx = cls(vectors.shape[1], dist, capacity=len(vectors), device=device, scan=scan,
+                  pca_dim=pca_dim)
         if len(vectors):
             idx.store.batch_push(vectors)
         return idx
 
     @classmethod
     def from_store(cls, store: VecStore) -> "FlatIndex":
+        """The planner over `store`, in the store's scan mode."""
         if store._mirror_layout == "sorted":
             raise ValueError(
                 "store's int8 mirror is cluster-sorted (binned-IVF scale layout); "
@@ -107,9 +134,20 @@ class FlatIndex:
             return self.store.refine_result(self._queries(queries), d, i)
         return d, i
 
+    @property
+    def uses_pca(self) -> bool:
+        """Whether the two-stage plan scans the PCA mirror: the "pca" mode
+        at pca_dim < dim (else "pca" is "int8", as in the reference)."""
+        mode = self.store.scan_mode
+        return mode.scan == "pca" and mode.pca_dim < self.dim
+
     def rerank_depth(self, k: int, rerank_depth: int | None = None) -> int:
         """Stage-1 survivor count r of the two-stage plan."""
         n = len(self.store)
+        if self.uses_pca:
+            if rerank_depth is not None:
+                return min(max(rerank_depth, k, 128), n)
+            return min(max(_RERANK_MULT_PCA * k, 128), n)
         mult = _RERANK_MULT
         if n > 1_500_000:  # log2 depth growth past ~1M rows
             mult = _RERANK_MULT * max(1, int(np.log2(n / 1_000_000)) + 1)
@@ -132,8 +170,12 @@ class FlatIndex:
         q = self._queries(queries)
         n = len(self.store)
         lean = self.store.tier == "lean"
+        scan = self.store.scan_mode.scan
         if exact is None:
-            exact = (not lean and n <= _EXACT_BELOW) or not self.store.int8_reliable()
+            exact = not lean and (scan == "exact" or n <= _EXACT_BELOW)
+            if not exact and scan in ("int8", "pca"):
+                # the int8 ordering self-test (both mirrors are int8)
+                exact = not self.store.int8_reliable()
         if exact:
             if lean:
                 raise RuntimeError(
@@ -143,20 +185,35 @@ class FlatIndex:
             vecs, cache = self.store.device()
             return T.knn_scan(q, vecs, cache, n, k, self.dist)
         r = self.rerank_depth(k, rerank_depth)
-        base_i8, scales, cache8, perm = self.store.device_int8()
-        # validity lives IN the permuted mirror (sentinels), not in a bound
-        _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
-        cand = T.decode_perm(cand, perm, n)
+        if self.uses_pca:
+            proj, mu, p8, pscale, pcache = self.store.device_proj_int8(self.store.scan_mode.pca_dim)
+            # the projected mirror is in row order: its ids are row ids, and
+            # rows >= n carry the losing sentinel
+            _, cand = S.scan_candidates_int8_packed(PJ.project(q, proj, mu), p8, pscale, pcache,
+                                                    r, self.dist)
+            cand = torch.where(cand < n, cand, T.INVALID_ID)
+        elif scan in ("int8", "pca"):
+            base_i8, scales, cache8, perm = self.store.device_int8()
+            # validity lives IN the permuted mirror (sentinels), not in a bound
+            _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
+            cand = T.decode_perm(cand, perm, n)
+        else:  # "bf16" ("exact" took the branch above)
+            scan_vecs, scan_cache = self.store.device_traversal()
+            _, cand = T.scan_candidates(q, scan_vecs, scan_cache, n, r, self.dist)
         return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
 
     def knn(self, query, k: int) -> list[CandidatePair]:
-        """Single-query search through the exact scan on the store's device
-        (the reference serves it with its native exact scan, so the answer
-        stays exact here too); a lean store has no exact scan and takes
-        `knn_batch`'s refined two-stage plan."""
+        """Single-query search through the exact scan on the store's device.
+        A host f32 store takes the native engine's exact serial scan
+        (`native.flat_knn_single`), as the reference serves it; a CUDA store
+        scans on the card, where its rows live.  A lean store has no f32
+        rows and takes `knn_batch`'s refined two-stage plan."""
         if self.store.tier == "lean":
             d, i = self.knn_batch(query, k)
             return pairs_from_arrays(d[0], i[0], k)
+        if self.store.dtype == np.float32 and self.device.type == "cpu":
+            ids, dists = native.flat_knn_single(self.store, np.asarray(query, np.float32), k)
+            return [CandidatePair(int(i_), float(d_)) for i_, d_ in zip(ids, dists)]
         d, i = self._knn_device(query, k, exact=True)
         return pairs_from_arrays(d[0].cpu().numpy(), i[0].cpu().numpy(), k)
 

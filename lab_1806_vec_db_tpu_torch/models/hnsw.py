@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import native
 from .flat import FlatIndex
 from .store import VecStore
 from ..ops import adc as A
@@ -737,8 +738,9 @@ class HNSWIndex:
         f32 rows, so the beam distances are the exact distances.  On the
         CPU it is the classic loop on the bf16 traversal copy, then an exact
         rerank of the ef beam.
-        route="scan": the Flat two-stage plan (K1 + K2) with `ef` as the
-        stage-1 survivor count.
+        route="scan": the Flat two-stage plan in the store's scan mode
+        (`VecStore.scan_mode`; K1 + K2 by default) with `ef` as the stage-1
+        survivor count.
         route="auto": scan on CUDA, graph on the CPU (the CPU tests exercise
         the true traversal), as the reference routes on TPU and CPU."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
@@ -791,9 +793,16 @@ class HNSWIndex:
         return pairs_from_arrays(d[0], i[0], k)
 
     def knn_with_ef(self, query, k: int, ef: int) -> list[CandidatePair]:
-        """Single-query search as a batch of one (the reference's path when
-        its native serial engine is absent; the port has no native engine
-        yet)."""
+        """Single-query search on the store's device.  A host f32 store
+        takes the native engine (`native.hnsw_knn_single`: the serial
+        best-first search over the host rows and links), as the reference
+        serves it; a CUDA store takes the batch path with B = 1 on the card,
+        where its rows live."""
+        if len(self.store) == 0 or self.entry_point is None:
+            return []
+        if self.store.dtype == np.float32 and self.store.torch_device.type == "cpu":
+            ids, dists = native.hnsw_knn_single(self, np.asarray(query, np.float32), k, ef)
+            return [CandidatePair(int(i_), float(d_)) for i_, d_ in zip(ids, dists)]
         d, i = self.knn_with_ef_batch(np.asarray(query, np.float32), k, ef)
         return pairs_from_arrays(d[0], i[0], k)
 

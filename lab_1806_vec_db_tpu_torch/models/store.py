@@ -9,8 +9,11 @@
   sentinels on invalid rows;
 - the rerank rows (`device_rerank`) ARE the f32 device tensor: K2 reads
   rows in place, so the reference's second (cap*SR, 128) slab copy is gone;
-- the bf16 traversal copy (`device_traversal`) serves only the HNSW graph
-  search of the CPU route, built on first use.
+- the bf16 traversal copy (`device_traversal`) serves the HNSW graph
+  search of the CPU route and the "bf16" scan mode, built on first use;
+- the PCA-projected int8 mirror (`device_proj_int8`, `ops/project.py`), in
+  row order (not permuted), feeds K1 in the "pca" scan mode: its projection
+  is fitted once and later row writes are projected through it.
 
 The LEAN tier (`from_device_blocks`) streams f32 blocks from a generator and
 keeps only the int8 mirror (randomly permuted, or any layout the caller
@@ -18,19 +21,19 @@ gives, e.g. IVF's cluster-sorted one) and a bf16 (n, dim) rerank tensor
 indexed by original id: about 3 bytes a lane instead of the full tier's 9.
 Its f32 accessors, mutation and serde raise; exact returned distances come
 from regenerating the blocks that hold the result rows (`refine_distances`).
-
-The PCA projection is not ported yet (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
 
 import sys
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..ops import distance as D
+from ..ops import project as PJ
 from ..ops import topk as T
 from ..ops.scan import _BIG
 from ..utils.device import resolve
@@ -39,6 +42,35 @@ _MIN_CAP = 8
 # rows per block of the on-device mirror build (bounds the f32 gather and
 # quantization transients to one block)
 _BLOCK_ROWS = 65536
+
+
+_SCAN_MODES = ("int8", "pca", "bf16", "exact")
+
+
+@dataclass(frozen=True)
+class ScanMode:
+    """The Flat planner's scan mode (`models/flat.py`).  The store holds it
+    (`VecStore.scan_mode`), so every planner over the store reads the same
+    value: Flat, and HNSW's scan route.
+
+    `scan` is "int8" (the default), "pca", "bf16" or "exact": the
+    reference's VECDB_TPU_SCAN, whose other name for "bf16", "2stage", is
+    accepted and stored as "bf16".  `pca_dim` is the "pca" mode's projected
+    width (the reference's VECDB_TPU_PCA_DIM).  An unknown mode or a
+    pca_dim < 1 raises ValueError."""
+
+    scan: str = "int8"
+    pca_dim: int = 256
+
+    def __post_init__(self):
+        scan = "bf16" if self.scan == "2stage" else self.scan
+        if scan not in _SCAN_MODES:
+            raise ValueError(f"unknown scan mode {self.scan!r} (expected one of {_SCAN_MODES} "
+                             "or '2stage')")
+        if int(self.pca_dim) <= 0:
+            raise ValueError(f"pca_dim must be positive, got {self.pca_dim}")
+        object.__setattr__(self, "scan", scan)
+        object.__setattr__(self, "pca_dim", int(self.pca_dim))
 
 
 def _round_cap(n: int) -> int:
@@ -69,6 +101,8 @@ class VecStore:
     _fill = None
     _fill_block_rows = 0
     _dev_rerank: torch.Tensor | None = None  # the lean tier's bf16 rows
+    # the planners' scan mode (class default; assigned per store)
+    scan_mode = ScanMode()
 
     def __init__(self, dim: int, dist: str, capacity: int = 0, dtype=np.float32,
                  device="cuda"):
@@ -88,6 +122,8 @@ class VecStore:
         self._dev_cache: torch.Tensor | None = None
         self._dev_int8: tuple | None = None  # (q8, scale, cache, perm)
         self._dev_bf16: torch.Tensor | None = None  # traversal copy
+        # (d_red, proj (dim, d_red), mu (dim,), (q8p, scale_p, cache_p))
+        self._dev_proj: tuple | None = None
         self._scan_perm: np.ndarray | None = None  # fixed scan shuffle
         self._scan_inv: np.ndarray | None = None
         self._int8_ok: tuple[bool, int] | None = None  # (verdict, n at test)
@@ -301,26 +337,32 @@ class VecStore:
     def device_bytes(self) -> int:
         """Bytes of this store's live device tensors: the f32 rows (which
         are also the rerank rows on the full tier), the distance cache, the
-        int8 mirror with its channels and permutation, the bf16 traversal
-        copy, and the lean tier's bf16 rerank rows."""
-        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), self._dev_bf16, self._dev_rerank]
+        int8 mirror with its channels and permutation, the PCA mirror with
+        its projection, the bf16 traversal copy, and the lean tier's bf16
+        rerank rows."""
+        proj = (self._dev_proj[1], self._dev_proj[2], *self._dev_proj[3]) if self._dev_proj else ()
+        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), *proj, self._dev_bf16,
+                   self._dev_rerank]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def free_search_caches(self) -> None:
-        """Release every derived device tensor (the int8 mirror, the bf16
-        traversal copy); they rebuild on demand.  No-op on the lean tier,
-        where the mirror and the rerank rows ARE the data."""
+        """Release every derived device tensor (the int8 and PCA mirrors, the
+        bf16 traversal copy); they rebuild on demand (the PCA mirror with a
+        new fit).  No-op on the lean tier, where the mirror and the rerank
+        rows ARE the data."""
         if self._tier == "lean":
             return
         self._dev_int8 = None
+        self._dev_proj = None
         self._dev_bf16 = None
 
     def free_scan_mirrors(self) -> None:
-        """Release the int8 scan mirror (rebuilt on demand).  No-op on the
-        lean tier."""
+        """Release the int8 and PCA scan mirrors (rebuilt on demand).  No-op
+        on the lean tier."""
         if self._tier == "lean":
             return
         self._dev_int8 = None
+        self._dev_proj = None
 
     def set_scan_bound(self, bound: int | None) -> None:
         """Treat rows >= `bound` as INVALID in the int8 scan mirror.  Applied
@@ -371,6 +413,7 @@ class VecStore:
         self._dev = None
         self._dev_cache = None
         self._dev_bf16 = None
+        self._dev_proj = None
         self._dev_full_dirty = True
         self._dirty_rows.clear()
 
@@ -434,6 +477,7 @@ class VecStore:
                 self._dev = torch.from_numpy(host).to(self.torch_device)
                 self._dev_cache = D.dist_cache(self._dev, self.dist)
                 self._dev_int8 = None
+                self._dev_proj = None
                 self._dev_bf16 = None
                 self._int8_ok = None
                 self._dev_full_dirty = False
@@ -446,8 +490,9 @@ class VecStore:
         """Write the dirty rows into every live device tensor in place
         (`index_copy_` instead of the reference's donated functional scatter:
         no second copy of any (cap, ...) buffer).  Rows no longer valid (the
-        vacated tail of a swap_remove) enter the int8 mirror as losing
-        sentinels: scale 0, cache +BIG."""
+        vacated tail of a swap_remove) enter the int8 and PCA mirrors as
+        losing sentinels: scale 0, cache +BIG.  The PCA mirror's rows are
+        projected through its fixed fit."""
         rows = np.array(sorted(self._dirty_rows), dtype=np.int64)
         vals = torch.from_numpy(self._host()[rows].astype(np.float32)).to(self.torch_device)
         rows_t = torch.from_numpy(rows).to(self.torch_device)
@@ -464,6 +509,13 @@ class VecStore:
             q8.index_copy_(0, rows_scan, q8v)
             scale.index_copy_(0, rows_scan, torch.where(valid, scv, 0.0))
             cache_p.index_copy_(0, rows_scan, torch.where(valid, cpv, _BIG))
+        if self._dev_proj is not None:
+            _, proj, mu, (p8, psc, pca) = self._dev_proj
+            p8v, pscv, pcav = PJ.project_quantize(vals, proj, mu, self.dist)
+            validp = torch.from_numpy(rows < self._n).to(self.torch_device)
+            p8.index_copy_(0, rows_t, p8v)
+            psc.index_copy_(0, rows_t, torch.where(validp, pscv, 0.0))
+            pca.index_copy_(0, rows_t, torch.where(validp, pcav, _BIG))
         self._dirty_rows.clear()
 
     def device_rerank(self) -> torch.Tensor:
@@ -530,6 +582,40 @@ class VecStore:
                 ok = perm < b
                 scale, cache_p = torch.where(ok, scale, 0.0), torch.where(ok, cache_p, _BIG)
             return q8, scale, cache_p, perm
+
+    def device_proj_int8(self, d_red: int):
+        """The PCA-projected int8 mirror: (proj (dim, d_red) f32, mu (dim,)
+        f32, q8p (cap, proj_lanes(d_red)) int8, scale_p (cap,) f32, cache_p
+        (cap,) f32), synced and cached, in ROW order (no permutation, so no
+        `decode_perm` follows the scan).
+
+        The projection is fitted once from the rows present at the first
+        call, then held fixed: later row writes are projected through it in
+        the row sync (the mirror only orders stage-1 candidates; the exact
+        rerank does not depend on the fit).  A full rebuild (capacity
+        growth, bulk upload) or a different `d_red` refits.  Rows >= n carry
+        scale 0 and the +BIG cache: K1 has no positional mask."""
+        self._require_full("the PCA mirror")
+        with self._lock:
+            vecs, _ = self.device()  # syncs dirty rows into the mirror too
+            if self._dev_proj is None or self._dev_proj[0] != d_red:
+                proj_h, mu_h = PJ.pca_fit(vecs, self._n, d_red, self.dist)
+                proj = torch.from_numpy(proj_h).to(self.torch_device)
+                mu = torch.from_numpy(mu_h).to(self.torch_device)
+                lanes = PJ.proj_lanes(d_red)
+                q8p = torch.empty((self._cap, lanes), dtype=torch.int8, device=self.torch_device)
+                scale_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                # one block of rows at a time: no (cap, d_red) f32 transient
+                for r0 in range(0, self._cap, _BLOCK_ROWS):
+                    r1 = min(r0 + _BLOCK_ROWS, self._cap)
+                    q8p[r0:r1], scale_p[r0:r1], cache_p[r0:r1] = PJ.project_quantize(
+                        vecs[r0:r1], proj, mu, self.dist)
+                scale_p[self._n :] = 0.0
+                cache_p[self._n :] = _BIG
+                self._dev_proj = (d_red, proj, mu, (q8p, scale_p, cache_p))
+            _, proj, mu, (q8p, scale_p, cache_p) = self._dev_proj
+            return proj, mu, q8p, scale_p, cache_p
 
     def int8_reliable(self) -> bool:
         """Whether per-row int8 quantization preserves neighbor ORDER on this

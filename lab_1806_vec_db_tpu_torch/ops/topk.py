@@ -105,6 +105,41 @@ def knn_scan(
     return _pad_k(best_d, best_i, k)
 
 
+_SCAN_BLOCK = 262144  # rows per block of `scan_candidates` (bounds its (B, block) tiles)
+
+
+def scan_candidates(queries, base_scan, base_cache, n_valid: int, r: int, dist: str,
+                    block: int = _SCAN_BLOCK):
+    """Stage 1 of the bf16 two-stage scan (the reference's XLA
+    `topk.scan_candidates`, the "bf16" / "2stage" scan mode): one bf16
+    product per block of the scan copy, the distance kept in bf16
+    (selection-grade only; the exact rerank follows), and an exact top-r
+    merged across blocks, ties to the lower row id.  The reference takes
+    each block's top-r with `lax.approx_min_k(recall_target=0.99)`.
+
+    queries (B, dim) f32; base_scan (N_pad, dim) bf16 (or f32); base_cache
+    (N_pad,) f32.  Returns ((B, r) f32 approximate distances, (B, r) int32
+    ids), ascending, -1 / +inf padded."""
+    B = queries.shape[0]
+    n = min(int(n_valid), base_scan.shape[0])
+    qs = queries.to(base_scan.dtype)
+    q_cache = D.dist_cache(queries.float(), dist)
+    best_d = torch.full((B, 0), float("inf"), device=queries.device)
+    best_i = torch.full((B, 0), INVALID_ID, dtype=torch.int32, device=queries.device)
+    for start in range(0, n, block):
+        stop = min(start + block, n)
+        dots = (qs @ base_scan[start:stop].T).to(torch.bfloat16)
+        tc = base_cache[start:stop]
+        if dist == "l2sqr":
+            d = (q_cache[:, None] + tc[None, :]).to(torch.bfloat16) - 2.0 * dots
+        else:
+            denom = (q_cache[:, None] * tc[None, :]).clamp_min(1e-10)
+            d = 1.0 - dots / denom.to(torch.bfloat16)
+        td, tp = smallest_positions(d.float(), min(r, stop - start))
+        best_d, best_i = merge_topk(best_d, best_i, td, (tp + start).to(torch.int32), r)
+    return _pad_k(best_d, best_i, r)
+
+
 def quantize_rows_int8(x: torch.Tensor):
     """Per-row symmetric int8 quantization: x ~= q8 * scale[:, None].
     Returns ((N, dim) int8, (N,) f32 scales); zero rows get scale 1.
