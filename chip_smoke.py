@@ -172,6 +172,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
  10. examples — the four examples/*.py against the port, each in a
                subprocess (a copy importing the port's VecDB, in a temporary
                working directory): exit 0 and "Test passed".
+     sharded — the sharded indexes (`parallel/`), every shard on cuda:0
+               (`make_mesh(devices=["cuda:0"] * n)`), run beside the phases
+               whose data they reuse and printed as one JSON line
+               `{"phase": "sharded", ...}` before the kernel line: after
+               phase 5, sharded_hnsw_200k (4 graphs of vecdb_200k's rows, ef
+               120 / 200, recall >= 0.95 at 200, K4 / K5 launches > 0, ids
+               with the kernels = with the plain versions on 128 queries, a
+               4 -> 2 load that rebuilds with its warning),
+               sharded_pq_flat_200k (m 320, B 1000, exact returned
+               distances) and vecdb_mesh (`VecDB(dir, mesh=4)`: batch_search
+               ids = the exact scan's, a pushed row found at distance 0);
+               inside phase 6, sharded_flat_1m (flat_1m's rows viewed in
+               place, 1 / 2 / 4 shards: exact ids = `knn_scan`'s, distances
+               within rtol 1e-5; two-stage recall >= the single-chip "bf16"
+               mode's - 0.01; chained QPS) and sharded_ivf_1m (nlist 256, 2
+               sharded Lloyd steps, one step within 1e-4 of the
+               single-device step, recall at 16 / 32 probes, all probes =
+               the exact scan's ids); inside phase 7, sharded_ivfpq_4m (the
+               codes phase's source cut to its first 4,000,000 rows, which
+               at 10M took the smoke past 420 s; nlist 2048, 48 / 256: K11 /
+               K7 launches > 0, ids with the
+               kernels = with the plain versions on 128 queries, recall >=
+               codes_ivfpq_10m's - 0.05, a 4 -> 2 re-place within 0.01);
+               Flat and IVF re-place 4 -> 2 with equal results; in phase 9,
+               harness_mesh (`mesh = 4` TOMLs: Flat, HNSW on 50,000 rows,
+               IVF + PQ).
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
@@ -182,7 +208,8 @@ K6's `graph_ms` and `library_graph_ms` replayed on its captured classic-loop arg
 K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
 codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
 first search; K12-K14: the resident phase's three entry points, K13 / K14
-with `graph_ms` too),
+with `graph_ms` too; K4 / K5 / K7 / K11 also carry `sharded_launches`, the
+sharded HNSW's at ef 200 and the sharded IVF-PQ's at 48 probes),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
 computes the same function (K6: a stable torch.sort and a gather; else null).
@@ -1778,6 +1805,15 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=300_000, nlist_cos=64, B=1
                                             ch, "l2sqr", "codes_ivfpq_10m overflow segment")
     del idx, lookup, q_norms
     torch.cuda.empty_cache()
+    # the sharded tier on the first SHARDED_IVFPQ_ROWS rows of the same
+    # source: at 10M its cell (49 s) took the smoke past 420 s of script
+    t0 = time.perf_counter()
+    n_s = min(n, SHARDED_IVFPQ_ROWS)
+    gt_s = gt if n_s == n else synth.exact_gt_blocked(fill, n_s, q, k, "l2sqr").cpu().numpy().tolist()
+    sharded = sharded_ivfpq(fill, n_s, dim, q, gt_s, sweep[f"{CODES_GATE_PROBES}/256"]["recall_at_10"],
+                            nlist=nlist, device=device)
+    sharded.update(cut_from_rows=n, cell_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
 
     # ---- codes_pq_10m ----
     torch.cuda.reset_peak_memory_stats()
@@ -1867,8 +1903,8 @@ def phase_codes(card, n=10_000_000, nlist=2048, n_cos=300_000, nlist_cos=64, B=1
     del cos, lookup, q_norms
     torch.cuda.empty_cache()
     out.update(codes_ivfpq_10m=ivf, codes_pq_10m=pqo, cosine_300k=cos_out, phase_s=time.perf_counter() - t_phase)
-    log(f"[codes] phase: {out['phase_s']:.1f} s")
-    return out, k11, k7s0
+    log(f"[codes] phase: {out['phase_s']:.1f} s ({sharded['cell']} {sharded['cell_s']:.1f} s of it)")
+    return out, k11, k7s0, sharded
 
 
 def phase_vecdb(x_host, q_host):
@@ -2412,7 +2448,10 @@ def phase_1m(card):
     pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
     ivf_out, k10 = phase_ivf_1m(store, q, gt.tolist())
     pca = phase_pca(store, q, gt.tolist())
-    return out, resident, pq_out, k7, ivf_out, k10, pca
+    t0 = time.perf_counter()
+    sharded = sharded_flat_ivf_1m(store, q, gt.tolist())
+    log(f"[sharded] flat_1m + ivf_1m: {time.perf_counter() - t0:.1f} s")
+    return out, resident, pq_out, k7, ivf_out, k10, pca, sharded
 
 
 # --------------------------------------------------------------- pca ----
@@ -2743,8 +2782,57 @@ def phase_harness():
         check(out["Flat"]["points"][0]["recall"] >= 0.99, f"harness: Flat recall {out['Flat']['points']}")
         ivf_rec = [p["recall"] for p in out["IVF"]["points"]]
         check(ivf_rec == sorted(ivf_rec), f"harness: IVF recall falls with n_probes {ivf_rec}")
+        out["mesh"] = harness_mesh(d)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+HARNESS_MESH_HNSW_ROWS = 50_000  # the mesh HNSW sweep's base: the first rows of the synth base
+
+
+def harness_mesh(d):
+    """harness_mesh: `mesh = 4` TOMLs through run_bench on harness_200k's
+    synth data (Flat and IVF + PQ on the 200,000 rows; HNSW on the first
+    50,000 with their own ground truth), launches from 0 around each."""
+    from lab_1806_vec_db_tpu_torch.bench import harness
+    from lab_1806_vec_db_tpu_torch.cli import gen_gnd
+    from lab_1806_vec_db_tpu_torch.utils import io
+
+    base = io.load_raw(f"{d}/gist.local.bin", 960)
+    io.save_raw(f"{d}/gist50k.local.bin", base[:HARNESS_MESH_HNSW_ROWS])
+    gen_gnd.main(["--base", f"{d}/gist50k.local.bin", "--test", f"{d}/gist_test.local.bin",
+                  "-o", f"{d}/gnd50k.local.npz"])
+    runs = {"Flat": ("[algorithm.Flat]\n", [10], "gist", "gnd_synth", ()),
+            "HNSW": ("[algorithm.HNSW]\nM = 16\nef_construction = 100\n", [40, 120], "gist50k", "gnd50k",
+                     ("k4", "k5")),
+            "IVF_PQ": ("[algorithm.IVF]\nk = 256\n\n[PQ]\nn_bits = 4\nm = 320\nk_means_size = 10000\n",
+                       [16, 32], "gist", "gnd_synth", ("k11", "k7"))}
+    out = {"shards": SHARDS}
+    for label, (body, efs, base_name, gnd, need) in runs.items():
+        path = os.path.join(d, f"mesh_{label}.toml")
+        with open(path, "w") as f:
+            f.write(f'label = "mesh4-{label}"\ndist = "L2Sqr"\nmesh = {SHARDS}\n'
+                    f'gnd_path = "{d}/{gnd}.local.npz"\nindex_cache = ""\n'
+                    f'bench_output = "{d}/mesh_results.toml"\n\n[ef]\nlist = {efs}\n\n{body}\n'
+                    f'[base]\ndim = 960\ndata_path = "{d}/{base_name}.local.bin"\n\n'
+                    f'[test]\ndim = 960\ndata_path = "{d}/gist_test.local.bin"\n')
+        pq_counts(reset=True)
+        t0 = time.perf_counter()
+        harness.main([path])
+        launches = pq_counts()
+        missing = [kk for kk in need if launches[kk] == 0]
+        check(not missing, f"harness mesh {label}: kernels {missing} launched no time ({launches})")
+        out[label] = {"wall_s": time.perf_counter() - t0, "launches": {kk: v for kk, v in launches.items() if v}}
+    rl = harness.ResultList.load(f"{d}/mesh_results.toml")
+    for label in runs:
+        row = rl.results[f"mesh4-{label}"]
+        out[label]["points"] = [{"ef": ef, "ms_per_query": t, "recall": r}
+                                for ef, t, r in zip(row["ef"], row["search_time"], row["recall"])]
+        out[label]["build_seconds"] = row.get("build_seconds")
+        log(f"[harness] mesh {SHARDS} {label}: " + ", ".join(
+            f"ef {p['ef']} {p['ms_per_query']:.5f} ms/query recall {p['recall']:.4f}" for p in out[label]["points"]))
+    check(out["Flat"]["points"][0]["recall"] >= 0.99, f"harness mesh: Flat recall {out['Flat']['points']}")
     return out
 
 
@@ -2914,6 +3002,354 @@ def phase_examples():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------- sharded ----
+SHARDS = 4  # shards of the sharded cells, every one on cuda:0
+SHARDED_PQ_B = 1000  # queries of sharded_pq_flat_200k (its per-shard ADC scan is plain)
+SHARDED_IVFPQ_ROWS = 4_000_000  # sharded IVF-PQ rows: the codes phase's 10M cut to keep the smoke short
+
+
+def card_mesh(n, device="cuda"):
+    """A mesh of n shards on one device (`make_mesh(devices=[cuda:0] * n)`)."""
+    from lab_1806_vec_db_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0" if device == "cuda" else device] * n)
+
+
+def sync(device="cuda"):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def knn_agree(d, i, d_ref, i_ref, tag, rtol=1e-5) -> int:
+    """Distances within rtol of the reference's, ids equal except a swap
+    between rows whose distances agree within rtol (a tie two computations
+    may order apart, or one at the last rank) -> the swaps."""
+    import numpy as np
+
+    d, i, d_ref, i_ref = (np.asarray(x.cpu()) if hasattr(x, "cpu") else np.asarray(x)
+                          for x in (d, i, d_ref, i_ref))
+    check(d.shape == d_ref.shape and np.allclose(d, d_ref, rtol=rtol, atol=1e-6),
+          f"{tag}: distances differ from the reference's beyond rtol {rtol} (largest relative "
+          f"difference {float(np.max(np.abs(d - d_ref) / np.maximum(np.abs(d_ref), 1e-30)))})")
+    swaps = 0
+    for r, c in zip(*np.nonzero(i != i_ref)):
+        tie = np.isclose(d_ref[r], d[r, c], rtol=rtol, atol=1e-6)
+        check(i[r, c] in i_ref[r][tie] or bool(tie[-1]),
+              f"{tag}: id {i[r, c]} at ({r}, {c}) is no tie of the reference's {i_ref[r].tolist()}")
+        swaps += 1
+    return int(swaps)
+
+
+def sharded_flat_ivf_1m(store, q, gt, nlist=256, device="cuda"):
+    """sharded_flat_1m and sharded_ivf_1m on flat_1m's rows (the store's f32
+    rows, which the shards view in place), with their 4 -> 2 resize."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import kmeans as KM
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+    from lab_1806_vec_db_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, kmeans_step_sharded
+    from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
+
+    n, k, dist = len(store), 10, "l2sqr"
+    vecs, cache = store.device()
+    rows = vecs[:n]
+    d_ref, i_ref = T.knn_scan(q, vecs, cache, n, k, dist)  # the unsharded exact scan
+    with scan_mode(store, "bf16") as flat_bf16:
+        rec_bf16 = recall_at_k(gt, flat_bf16._knn_device(q, k)[1].cpu().numpy().tolist(), k)
+    d_dir = os.path.join(HERE, "tmp", "chip_smoke_sharded")
+    shutil.rmtree(d_dir, ignore_errors=True)
+    os.makedirs(d_dir)
+    flat_out = {"cell": "sharded_flat_1m", "n": n, "batch": q.shape[0], "k": k,
+                "single_chip_bf16_recall_at_10": rec_bf16, "meshes": {}}
+    try:
+        for size in (1, 2, SHARDS):
+            t0 = time.perf_counter()
+            idx = ShardedFlatIndex(card_mesh(size, device), rows, dist)
+            sync(device)
+            m = {"place_s": time.perf_counter() - t0,
+                 "shard_is_view": idx.base[0].untyped_storage().data_ptr() == vecs.untyped_storage().data_ptr()}
+            check(m["shard_is_view"] or device != "cuda", f"sharded_flat_1m {size}: shard 0 is a copy")
+            d, i = idx._knn_device(q, k, exact=True)
+            m["exact_swaps"] = knn_agree(d, i, d_ref, i_ref, f"sharded_flat_1m {size} exact")
+            m["exact"] = chained_qps(lambda qq: idx._knn_device(qq, k, True), q, 3, 3)
+            d2, i2 = idx._knn_device(q, k, exact=False)
+            m["two_stage_recall_at_10"] = recall_at_k(gt, i2.cpu().numpy().tolist(), k)
+            check(m["two_stage_recall_at_10"] >= rec_bf16 - 0.01,
+                  f"sharded_flat_1m {size}: two-stage recall {m['two_stage_recall_at_10']:.4f} < "
+                  f"single-chip bf16 {rec_bf16:.4f} - 0.01")
+            m["two_stage"] = chained_qps(lambda qq: idx._knn_device(qq, k, False), q, 3, 3)
+            m["index_bytes"] = idx.index_bytes()
+            flat_out["meshes"][size] = m
+            log(f"[sharded] flat_1m on {size} shards: exact swaps {m['exact_swaps']}, QPS exact "
+                f"{m['exact']['qps_best']:.0f}, two-stage recall {m['two_stage_recall_at_10']:.4f} "
+                f"(bf16 single {rec_bf16:.4f}) QPS {m['two_stage']['qps_best']:.0f}")
+            if size == SHARDS:
+                # resize: a checkpoint without vectors, loaded on 2 shards over the same rows
+                path = os.path.join(d_dir, "flat.npz")
+                idx.save(path, include_vectors=False)
+                idx2 = ShardedFlatIndex.load(path, card_mesh(2, device), external_base=rows)
+                d4, i4 = idx._knn_device(q, k)
+                flat_out["resize_4_to_2_swaps"] = knn_agree(*idx2._knn_device(q, k), d4, i4,
+                                                             "sharded_flat_1m resize 4 -> 2")
+                del idx2
+            del idx
+            torch.cuda.empty_cache() if device == "cuda" else None
+
+        # ---- sharded_ivf_1m ----
+        mesh = card_mesh(SHARDS, device)
+        t0 = time.perf_counter()
+        ivf = ShardedIVFIndex(mesh, rows, dist, IVFConfig(k=nlist, k_means_max_iter=10), seed=0,
+                              refine_steps=2)
+        sync(device)
+        ivf_out = {"cell": "sharded_ivf_1m", "nlist": nlist, "shards": SHARDS, "refine_steps": 2,
+                   "build_s": time.perf_counter() - t0}
+        # one sharded Lloyd step against the single-device step (the same
+        # assignment blocks, partial sums added on one device)
+        c = ivf.centroids
+        got = kmeans_step_sharded(ivf.base, ivf.n_local, c, dist, mesh)
+        a = torch.cat([KM.find_nearest(rows[r0 : r0 + ivf.shard], c, dist)
+                       for r0 in range(0, n, ivf.shard)]).long()
+        counts = torch.zeros(nlist, device=rows.device).index_add_(0, a, torch.ones(n, device=rows.device))
+        sums = torch.zeros((nlist, rows.shape[1]), device=rows.device).index_add_(0, a, rows)
+        want = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], c)
+        ivf_out["kmeans_step_max_abs_err"] = float((got - want).abs().max())
+        check(ivf_out["kmeans_step_max_abs_err"] <= 1e-4,
+              f"sharded_ivf_1m: kmeans_step_sharded differs from the single-device step by "
+              f"{ivf_out['kmeans_step_max_abs_err']}")
+        lmax = [int(p.shape[1]) for p in ivf.posting]
+        ivf_out["posting_lmax"] = lmax[0]
+        ivf_out["probes"] = {}
+        for p in (16, 32):
+            t0 = time.perf_counter()
+            d, i = ivf._knn_device(q, k, p)
+            sync(device)
+            first_s = time.perf_counter() - t0
+            rec = recall_at_k(gt, i.cpu().numpy().tolist(), k)
+            ivf_out["probes"][p] = {"recall_at_10": rec, "first_call_s": first_s,
+                                    **chained_qps(lambda qq, p=p: ivf._knn_device(qq, k, p), q, 2, 2)}
+        t0 = time.perf_counter()
+        d_all, i_all = ivf._knn_device(q, k, nlist)
+        sync(device)
+        ivf_out["all_probes_s"] = time.perf_counter() - t0
+        # list-by-list products round apart from the scan's 65,536-row blocks
+        # (q^2 + x^2 - 2 q.x cancels): ties and distances at rtol 1e-4
+        ivf_out["all_probes_swaps"] = knn_agree(d_all, i_all, d_ref, i_ref, "sharded_ivf_1m all probes",
+                                                rtol=1e-4)
+        path = os.path.join(d_dir, "ivf.npz")
+        ivf.save(path, include_vectors=False)
+        ivf2 = ShardedIVFIndex.load(path, card_mesh(2, device), external_base=rows)
+        d16, i16 = ivf._knn_device(q, k, 16)
+        ivf_out["resize_4_to_2_swaps"] = knn_agree(*ivf2._knn_device(q, k, 16), d16, i16,
+                                                   "sharded_ivf_1m resize 4 -> 2", rtol=1e-4)
+        ivf_out["index_bytes"] = ivf.index_bytes()
+        log(f"[sharded] ivf_1m: build {ivf_out['build_s']:.1f} s, lmax {lmax}, k-means step err "
+            f"{ivf_out['kmeans_step_max_abs_err']:.2e}, " + ", ".join(
+                f"{p} probes recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f}"
+                for p, v in ivf_out["probes"].items()) + f", all probes exact in {ivf_out['all_probes_s']:.2f} s")
+        del ivf, ivf2
+    finally:
+        shutil.rmtree(d_dir, ignore_errors=True)
+    return flat_out, ivf_out
+
+
+def sharded_200k(x_host, q_host, device="cuda", pq_b=SHARDED_PQ_B, m=320):
+    """sharded_hnsw_200k (with its 4 -> 2 rebuild), sharded_pq_flat_200k and
+    vecdb_mesh on the hnsw phase's 200,000 rows and queries."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch import VecDB
+    from lab_1806_vec_db_tpu_torch.models import PQTable
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import topk as T
+    from lab_1806_vec_db_tpu_torch.parallel import ShardedHNSWIndex, ShardedPQFlatIndex
+    from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig, PQConfig
+
+    n, k, dist = len(x_host), 10, "l2sqr"
+    x = torch.from_numpy(x_host).to(device)
+    q = torch.from_numpy(q_host).to(device)
+    cache = D.dist_cache(x, dist)
+    d_ref, i_ref = T.knn_scan(q, x, cache, n, k, dist)
+    gt = i_ref.cpu().numpy().tolist()
+    d_dir = os.path.join(HERE, "tmp", "chip_smoke_sharded200k")
+    shutil.rmtree(d_dir, ignore_errors=True)
+    os.makedirs(d_dir)
+    out = {}
+    try:
+        # ---- sharded_hnsw_200k ----
+        t0 = time.perf_counter()
+        hnsw = ShardedHNSWIndex(card_mesh(SHARDS, device), x_host, dist, HNSWConfig(M=16, ef_construction=200),
+                                seed=DB_SEED, parallel=True)
+        sync(device)
+        h = {"cell": "sharded_hnsw_200k", "shards": SHARDS, "M": 16, "ef_construction": 200,
+             "build_s": time.perf_counter() - t0, "ef": {}}
+        for ef in (120, 200):
+            pq_counts(reset=True)
+            d, i = hnsw._knn_device(q, k, ef)
+            sync(device)
+            c = pq_counts()
+            rec = recall_at_k(gt, i.cpu().numpy().tolist(), k)
+            h["ef"][ef] = {"recall_at_10": rec, "launches": {"k4": c["k4"], "k5": c["k5"]},
+                           "ids_sha1": ids_hash(i.cpu().numpy()),
+                           **chained_qps(lambda qq, ef=ef: hnsw._knn_device(qq, k, ef), q, 2, 2)}
+            check(device != "cuda" or (c["k4"] > 0 and c["k5"] > 0),
+                  f"sharded_hnsw_200k ef {ef}: K4 / K5 launched {c['k4']} / {c['k5']} times")
+        check(h["ef"][200]["recall_at_10"] >= 0.95,
+              f"sharded_hnsw_200k: recall@10 {h['ef'][200]['recall_at_10']:.4f} < 0.95 at ef 200")
+        q128 = q[:GATE_Q]
+        _, ik = hnsw._knn_device(q128, k, 200)
+        pq_counts(reset=True)
+        with plain_kernels():
+            _, ip = hnsw._knn_device(q128, k, 200)
+        plain_counts = pq_counts()
+        check(plain_counts["k4"] == 0 == plain_counts["k5"], f"sharded_hnsw_200k: plain run launched {plain_counts}")
+        h["kernels_vs_plain_ids_equal"] = bool(torch.equal(ik, ip))
+        check(h["kernels_vs_plain_ids_equal"], "sharded_hnsw_200k: ids with K4 / K5 differ from the plain versions'")
+        h["profile_ef_200"] = profile_call(lambda: hnsw._knn_device(q, k, 200)) if device == "cuda" else {}
+        h["index_bytes"] = hnsw.index_bytes()
+        path = os.path.join(d_dir, "hnsw.npz")
+        hnsw.save(path, include_vectors=False)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            hnsw2 = ShardedHNSWIndex.load(path, card_mesh(2, device), external_base=x)
+        sync(device)
+        check(any("rebuild" in str(w.message) for w in caught), "sharded_hnsw_200k: 4 -> 2 load gave no warning")
+        check(hnsw2.default_ef == hnsw.default_ef, "sharded_hnsw_200k: the rebuild lost default_ef")
+        h["resize_4_to_2"] = {"rebuild_s": time.perf_counter() - t0, "warning": str(caught[0].message),
+                              "recall_at_10_ef_200": recall_at_k(gt, hnsw2.knn_with_ef_batch(q, k, 200)[1].tolist(), k)}
+        log(f"[sharded] hnsw_200k: build {h['build_s']:.1f} s, " + ", ".join(
+            f"ef {ef} recall {v['recall_at_10']:.4f} QPS {v['qps_best']:.0f} K4/K5 {v['launches']}"
+            for ef, v in h["ef"].items()) + f"; 4 -> 2 rebuild {h['resize_4_to_2']['rebuild_s']:.1f} s")
+        out["sharded_hnsw_200k"] = h
+        del hnsw, hnsw2
+
+        # ---- sharded_pq_flat_200k ----
+        t0 = time.perf_counter()
+        pq = PQTable.train(x, PQConfig(n_bits=4, m=m, dist=dist, k_means_size=10_000, k_means_max_iter=20),
+                           seed=DB_SEED)
+        sync(device)
+        p = {"cell": "sharded_pq_flat_200k", "shards": SHARDS, "m": m, "batch": pq_b, "ef": 200,
+             "train_s": time.perf_counter() - t0}
+        pqf = ShardedPQFlatIndex(card_mesh(SHARDS, device), x, pq, dist)
+        t0 = time.perf_counter()
+        d, i = pqf._knn_device(q[:pq_b], k, ef=200)
+        sync(device)
+        p["search_s"] = time.perf_counter() - t0
+        p["recall_at_10"] = recall_at_k(gt[:pq_b], i.cpu().numpy().tolist(), k)
+        true = ((x[i.long()] - q[:pq_b, None, :]) ** 2).sum(-1)
+        check(bool((i >= 0).all()) and torch.allclose(d, true, rtol=1e-4, atol=1e-3),
+              "sharded_pq_flat_200k: returned distances are not the exact ones")
+        log(f"[sharded] pq_flat_200k: B {pq_b}, train {p['train_s']:.1f} s, search {p['search_s']:.2f} s, "
+            f"recall@10 {p['recall_at_10']:.4f}")
+        out["sharded_pq_flat_200k"] = p
+        del pqf, pq
+
+        # ---- vecdb_mesh ----
+        meta = [{"id": str(r)} for r in range(n)]
+        db = VecDB(os.path.join(d_dir, "db"), device=device, seed=DB_SEED, mesh=SHARDS)
+        v = {"cell": "vecdb_mesh", "shards": SHARDS, "mesh": str(db._inner.mesh)}
+        try:
+            db.create_table_if_not_exists("t", x_host.shape[1], dist)
+            db.batch_add("t", x_host, meta)
+            t0 = time.perf_counter()
+            res = db.batch_search("t", q_host, k)
+            v["first_batch_search_s"] = time.perf_counter() - t0
+            calls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                res = db.batch_search("t", q_host, k)
+                calls.append(time.perf_counter() - t0)
+            v["batch_search_ms_median"] = float(np.median(calls)) * 1e3
+            ids = np.array([[int(mm["id"]) for mm, _ in row] for row in res])
+            dists = np.array([[dd for _, dd in row] for row in res], np.float32)
+            v["swaps_vs_exact"] = knn_agree(dists, ids, d_ref, i_ref, "vecdb_mesh batch_search")
+            new = (x_host[7] + 0.5).astype(np.float32)
+            db.add("t", new, {"id": "new"})
+            found = db.search("t", new, 1)
+            check(found == [({"id": "new"}, 0.0)], f"vecdb_mesh: the pushed row came back as {found}")
+            v["pushed_row_found_at_0"] = True
+        finally:
+            db.close()
+        log(f"[sharded] vecdb_mesh: batch_search {v['batch_search_ms_median']:.1f} ms (first "
+            f"{v['first_batch_search_s']:.2f} s), ids as the exact scan's ({v['swaps_vs_exact']} tie swaps)")
+        out["vecdb_mesh"] = v
+    finally:
+        shutil.rmtree(d_dir, ignore_errors=True)
+    return out
+
+
+def sharded_ivfpq(fill, n, dim, q, gt, single_recall, nlist=2048, device="cuda", n_probes=48, ef=256,
+                  sample_rows=25_000, m=320):
+    """sharded_ivfpq on the codes phase's row source and queries (its first
+    n rows, their exact ground truth `gt`): 4 shards, n_probes 48, ef 256;
+    K11 / K7 launches, ids with the kernels = ids with the plain versions
+    (128 queries), recall no lower than codes_ivfpq_10m's - 0.05; a 4 -> 2
+    re-place within 0.01 of its recall."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.parallel import ShardedIVFPQIndex
+    from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
+
+    k = 10
+    t0 = time.perf_counter()
+    idx = ShardedIVFPQIndex.from_fill(card_mesh(SHARDS, device), fill, n, dim, "l2sqr", nlist=nlist,
+                                      pq_config=PQConfig(n_bits=4, m=m, dist="l2sqr", k_means_size=sample_rows),
+                                      sample_rows=sample_rows, seed=0, block_rows=131072, row_gen=fill.row_gen)
+    sync(device)
+    tag = f"sharded_ivfpq_{n // 1_000_000}m"
+    out = {"cell": tag, "n": n, "shards": SHARDS, "nlist": nlist, "n_probes": n_probes,
+           "ef": ef, "build_s": time.perf_counter() - t0, "lpad": idx.lpad, "ov_cap": idx.ov_cap,
+           "ov_valid": [s.ov_valid for s in idx._subs], "index_bytes": idx.index_bytes()}
+    pq_counts(reset=True)
+    _, ids = idx._knn_device(q, k, n_probes, ef)
+    sync(device)
+    c = pq_counts()
+    out["launches"] = {"k11": c["k11"], "k7": c["k7"]}
+    check(device != "cuda" or (c["k11"] > 0 and c["k7"] > 0), f"{tag}: K11 / K7 launched {c}")
+    out.update(codes_point(lambda qq: idx._knn_device(qq, k, n_probes, ef), q, gt, tag,
+                           dropped=lambda: sum(int(x) for x in idx.last_dropped)))
+    out["single_index_recall_at_10"] = single_recall
+    check(out["recall_at_10"] >= single_recall - 0.05,
+          f"{tag}: recall {out['recall_at_10']:.4f} < codes_ivfpq_10m's {single_recall:.4f} - 0.05")
+    q128 = q[:GATE_Q]
+    _, ik = idx._knn_device(q128, k, n_probes, ef)
+    pq_counts(reset=True)
+    with plain_kernels():
+        _, ip = idx._knn_device(q128, k, n_probes, ef)
+    plain_counts = pq_counts()
+    check(plain_counts["k11"] == 0 == plain_counts["k7"], f"{tag}: plain run launched {plain_counts}")
+    out["kernels_vs_plain_ids_equal"] = bool(torch.equal(ik, ip))
+    check(out["kernels_vs_plain_ids_equal"], f"{tag}: ids with K11 / K7 differ from the plain versions'")
+    if device == "cuda":
+        out["profile"] = profile_call(lambda: idx._knn_device(q, k, n_probes, ef))
+    d_dir = os.path.join(HERE, "tmp", "chip_smoke_sharded_ivfpq")
+    shutil.rmtree(d_dir, ignore_errors=True)
+    os.makedirs(d_dir)
+    try:
+        path = os.path.join(d_dir, "ivfpq.npz")
+        idx.save(path)
+        del idx
+        torch.cuda.empty_cache() if device == "cuda" else None
+        t0 = time.perf_counter()
+        idx2 = ShardedIVFPQIndex.load(path, card_mesh(2, device), fill=fill, row_gen=fill.row_gen)
+        sync(device)
+        _, i2 = idx2._knn_device(q, k, n_probes, ef)
+        rec2 = recall_at_k(gt, i2.cpu().numpy().tolist(), k)
+        out["resize_4_to_2"] = {"load_s": time.perf_counter() - t0, "recall_at_10": rec2}
+        check(abs(rec2 - out["recall_at_10"]) <= 0.01,
+              f"{tag}: recall on 2 shards {rec2:.4f} vs 4 shards {out['recall_at_10']:.4f}")
+        del idx2
+    finally:
+        shutil.rmtree(d_dir, ignore_errors=True)
+    log(f"[sharded] {tag}: build {out['build_s']:.1f} s, lpad {out['lpad']}, ov_cap {out['ov_cap']}, "
+        f"recall {out['recall_at_10']:.4f} (single {single_recall:.4f}) QPS {out['qps_best']:.0f}, "
+        f"launches {out['launches']}, 4 -> 2 recall {out['resize_4_to_2']['recall_at_10']:.4f} "
+        f"in {out['resize_4_to_2']['load_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside {os.path.basename(__file__)}: run it from a checkout")
@@ -2946,10 +3382,17 @@ def main() -> None:
     del x, queries
     torch.cuda.empty_cache()
     db_out, launches, hnsw_launches, hm, (pq_out, pq_launches, pm) = phase_vecdb(x_host, q_host)
-    del x_host
     print(json.dumps({"phase": "vecdb", "card": card, **db_out}), flush=True)
     torch.cuda.empty_cache()
-    m, (resident, rm), pq_1m, k7, ivf_1m, k10, (pca, k1_pca) = phase_1m(card)
+    t0 = time.perf_counter()
+    sharded = sharded_200k(x_host, q_host)
+    sharded_s = {"200k": time.perf_counter() - t0}
+    log(f"[sharded] hnsw_200k + pq_flat_200k + vecdb_mesh: {sharded_s['200k']:.1f} s")
+    del x_host
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m, (resident, rm), pq_1m, k7, ivf_1m, k10, (pca, k1_pca), (s_flat, s_ivf) = phase_1m(card)
+    sharded.update(sharded_flat_1m=s_flat, sharded_ivf_1m=s_ivf)
     print(json.dumps(m), flush=True)
     print(json.dumps({"phase": "resident", "card": card, "resident_1m": resident,
                       "kernels_vs_plain": {**rm, "cosine_200k": resident_cos}}, default=str), flush=True)
@@ -2963,15 +3406,26 @@ def main() -> None:
                       "kernels_vs_plain": {"k10_ivf_1m": k10, "k2_bf16_ivf_lean_4m": k2_bf16}},
                      default=str), flush=True)
     torch.cuda.empty_cache()
-    codes, k11, k7s0 = phase_codes(card)
+    codes, k11, k7s0, s_ivfpq = phase_codes(card)
+    sharded[s_ivfpq["cell"]] = s_ivfpq
+    sharded_s["ivfpq"] = s_ivfpq["cell_s"]
     print(json.dumps({"phase": "codes", "card": card, **codes,
                       "kernels_vs_plain": {"k11_codes_ivfpq_10m": k11, "k7_codes_pq_10m_stage0": k7s0}},
                      default=str), flush=True)
     torch.cuda.empty_cache()
     print(json.dumps({"phase": "u8", "card": card, **phase_u8()}, default=str), flush=True)
     torch.cuda.empty_cache()
-    print(json.dumps({"phase": "harness", "card": card, **phase_harness()}, default=str), flush=True)
+    harness_out = phase_harness()
+    sharded["harness_mesh"] = harness_out.pop("mesh")
+    print(json.dumps({"phase": "harness", "card": card, **harness_out}, default=str), flush=True)
     print(json.dumps({"phase": "examples", "card": card, **phase_examples()}, default=str), flush=True)
+    sharded.update(shards=SHARDS, mesh=str(card_mesh(SHARDS)), device_count=torch.cuda.device_count(),
+                   seconds=sharded_s)
+    print(json.dumps({"phase": "sharded", "card": card, **sharded}, default=str), flush=True)
+    # the sharded paths' launches of the kernels they reach (ef 200 / n_probes 48)
+    s_launch = {"k4": sharded["sharded_hnsw_200k"]["ef"][200]["launches"]["k4"],
+                "k5": sharded["sharded_hnsw_200k"]["ef"][200]["launches"]["k5"],
+                "k11": s_ivfpq["launches"]["k11"], "k7": s_ivfpq["launches"]["k7"]}
 
     main_launches = launches["gist_l2"]
     # each error is the largest over every comparison of that kernel with its
@@ -3015,13 +3469,13 @@ def main() -> None:
          "launches": hnsw_launches["k4"], "max_abs_err": hm["k4_err"],
          "ms": hm["k4"][0], "plain_ms": hm["k4"][1], "bound_ms": k4b[0], "bound_by": k4b[1],
          "library_ms": None, "graph_ms": hm["k4_graph_ms"], "pq_graph": pm["k45_graph_k4"],
-         "ptxas": ptxas["k4"]},
+         "ptxas": ptxas["k4"], "sharded_launches": s_launch["k4"]},
         {"name": "beam_post", "route": "cuda", "source": f"{PKG}/csrc/beam_post.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_beam.py:257",
          "launches": hnsw_launches["k5"], "max_abs_err": hm["k5_err"],
          "ms": hm["k5"][0], "plain_ms": hm["k5"][1], "bound_ms": k5b[0], "bound_by": k5b[1],
          "library_ms": None, "graph_ms": hm["k5_graph_ms"], "pq_graph": pm["k45_graph_k5"],
-         "ptxas": ptxas["k5"]},
+         "ptxas": ptxas["k5"], "sharded_launches": s_launch["k5"]},
     ]
 
     def pq_kernel(name, src, replaces, launches, meas, library_ms=None):
@@ -3047,7 +3501,8 @@ def main() -> None:
                   k6["library_ms"]),
         # K7 on flat_pq_1m's first search (ef 100); measured there at 1M rows
         pq_kernel("adc_chunkmin", "adc_scan_chunkmin.cuh", "pallas_adc.py:415",
-                  pq_1m[100]["launches"]["k7"], k7),
+                  pq_1m[100]["launches"]["k7"], {**k7, "extra": {**k7.get("extra", {}),
+                                                                 "sharded_launches": s_launch["k7"]}}),
         # K8 ids inside the fused loop (hnsw_pq_200k graph, ef 180)
         pq_kernel("adc_sums_ids_k16", "adc_sums.cu", "pallas_adc.py:253",
                   pq_launches["graph"]["k8_ids"],
@@ -3074,7 +3529,8 @@ def main() -> None:
         # timed there on every list (the error also over the cosine index)
         pq_kernel("adc_chunkmin_binned", "adc_chunkmin_binned.cuh", "pallas_adc.py:629",
                   codes["codes_ivfpq_10m"]["launches"]["k11"],
-                  {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_300k"]["k11_max_abs_err"])}),
+                  {**k11, "max_abs_err": max(k11["max_abs_err"], codes["cosine_300k"]["k11_max_abs_err"]),
+                   "extra": {**k11.get("extra", {}), "sharded_launches": s_launch["k11"]}}),
         # K7 at stage 0 of codes_pq_10m's first knn_batch (10M coarse rows,
         # m 32); the error also over the overflow segment and the cosine codes
         pq_kernel("adc_chunkmin_codes_stage0", "adc_scan_chunkmin.cuh", "pallas_adc.py:415",

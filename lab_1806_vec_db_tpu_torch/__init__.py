@@ -37,11 +37,14 @@ Ported so far, over float32 tables:
   reference's C++ source in `csrc/hnsw_native.cpp`, built with g++ at first
   use) behind `FlatIndex.knn` and `HNSWIndex.knn_with_ef` on host stores (a
   CUDA store answers one query on the card);
-- the tools: `bench/harness.py` (TOML ef sweeps, `ResultList`),
+- the tools: `bench/harness.py` (TOML ef sweeps, `ResultList`, `mesh = N`),
   `bench/synth.py`'s CLI, `cli/gen_gnd.py`, `cli/convert_fvecs.py`,
-  `utils/io.py` (raw and fvecs files) and `utils/profiling.py`.
-
-Not ported yet: the sharded indexes (`parallel/sharded.py`).
+  `utils/io.py` (raw and fvecs files) and `utils/profiling.py`;
+- the sharded indexes (`parallel/`): a `Mesh` is one process and a tuple of
+  devices (`make_mesh`); Flat, PQFlat, IVF, HNSW (K4 / K5 on a CUDA shard)
+  and IVF-PQ (K11, K7) shard their rows over it and merge the shards' bests
+  on the lead device; `VecDB(dir, mesh=...)` serves every search from a
+  sharded exact scan; `dryrun_multichip` checks every path on tiny shapes.
 """
 
 import torch

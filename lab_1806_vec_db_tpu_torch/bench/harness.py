@@ -16,8 +16,13 @@ conversion included), averaged over `repeat` runs.  With `chained = true`
 (TOML or `--chained`) the device-resident search step runs in chained
 batches, linked through a scalar data dependency, and the row carries the
 best of 4 rounds with the median beside it and the flag `chained = true`.
-The mesh path (`mesh > 0`) is the sharded indexes', which are not ported
-yet (ROADMAP queue 1, item 14): it raises NotImplementedError.
+
+`mesh = N` (N > 0) runs the sweep on the sharded indexes
+(`parallel/sharded.py`) over `make_mesh(N, device=device)`: Flat, HNSW
+and IVF, Flat + PQ (`ShardedPQFlatIndex`) and IVF + PQ (the sharded codes
+tier, `ShardedIVFPQIndex`, ef as n_probes); the cache holds the sharded
+checkpoint, which loads on any mesh size.  The mesh path times the wall
+clock (no chained mode).
 """
 
 from __future__ import annotations
@@ -40,13 +45,6 @@ from ..utils.serde import atomic_write_bytes
 def _fmt_floats(xs) -> str:
     inner = ",\n    ".join(repr(float(x)) for x in xs)
     return "[\n    " + inner + ",\n]"
-
-
-def _no_mesh(config: BenchConfig) -> None:
-    if config.mesh > 0:
-        raise NotImplementedError(
-            f"mesh = {config.mesh}: the sharded indexes (parallel/sharded.py) are not ported "
-            "yet (ROADMAP queue 1, item 14)")
 
 
 class ResultList:
@@ -154,7 +152,6 @@ class ResultList:
 def load_or_build_index(config: BenchConfig, base: np.ndarray, seed: int = 42, device="cuda"):
     """Disk-cached index build with timing (bench.rs:208-266) -> (index,
     build seconds or None when loaded).  Flat has no cache: it is the rows."""
-    _no_mesh(config)
     algo = config.algorithm.name
     cache = config.index_cache
     if cache and os.path.exists(cache):
@@ -199,6 +196,64 @@ def load_or_build_pq(config: BenchConfig, base: np.ndarray, seed: int = 42, devi
     if cache:
         pq.save(cache)
     return pq, build_s
+
+
+def load_or_build_sharded(config: BenchConfig, base: np.ndarray, seed: int = 42, device="cuda"):
+    """The `mesh = N` counterpart of `load_or_build_index` (the JAX
+    harness's load_or_build_sharded): the sharded class of the algorithm
+    (with PQ: ShardedPQFlatIndex on Flat, ShardedIVFPQIndex on IVF), built
+    or loaded from the cache -> (index, build seconds or None when loaded)."""
+    from ..parallel import sharded as S
+
+    mesh = S.make_mesh(config.mesh, device=device)
+    algo = config.algorithm.name
+    cache = config.index_cache
+    cls = {"Flat": S.ShardedFlatIndex, "HNSW": S.ShardedHNSWIndex, "IVF": S.ShardedIVFIndex}[algo]
+    if config.pq is not None:
+        if algo == "IVF":
+            cls = S.ShardedIVFPQIndex
+        elif algo == "Flat":
+            cls = S.ShardedPQFlatIndex
+        else:
+            raise ValueError("mesh sweeps support PQ on Flat or IVF")
+    if cache and os.path.exists(cache):
+        t0 = time.perf_counter()
+        index = cls.load(cache, mesh, external_base=base)
+        print(f"Loaded sharded {cls.__name__} from {cache} onto {mesh} in "
+              f"{time.perf_counter()-t0:.2f}s")
+        return index, None
+    t0 = time.perf_counter()
+    if cls is S.ShardedIVFPQIndex:
+        nlist = config.algorithm.ivf.k if config.algorithm.ivf else 64
+        index = cls(mesh, base, config.dist, nlist=nlist, pq_config=config.pq, seed=seed)
+    elif cls is S.ShardedPQFlatIndex:
+        pq, _ = load_or_build_pq(config, base, seed, device=mesh.lead)
+        index = cls(mesh, base, pq, config.dist)
+    elif algo == "Flat":
+        index = cls(mesh, base, config.dist)
+    elif algo == "HNSW":
+        index = cls(mesh, base, config.dist, config.algorithm.hnsw, seed=seed)
+    else:
+        index = cls(mesh, base, config.dist, config.algorithm.ivf, seed=seed)
+    build_s = time.perf_counter() - t0
+    print(f"Built sharded {cls.__name__} over {mesh} in {build_s:.2f}s")
+    if cache:
+        index.save(cache, include_vectors=False)
+    return index, build_s
+
+
+def _sharded_search(index, q, k: int, ef: int):
+    """One batch of the mesh sweep: ef is HNSW's ef, the IVF tiers'
+    n_probes, PQFlat's ADC pool; the exact Flat scan ignores it."""
+    from ..parallel import sharded as S
+
+    if isinstance(index, S.ShardedHNSWIndex):
+        return index.knn_with_ef_batch(q, k, ef)
+    if isinstance(index, (S.ShardedIVFPQIndex, S.ShardedIVFIndex)):
+        return index.knn_batch(q, k, n_probes=ef)
+    if isinstance(index, S.ShardedPQFlatIndex):
+        return index.knn_batch(q, k, ef=ef)
+    return index.knn_batch(q, k)
 
 
 def _device_step(index, pq, k: int):
@@ -256,7 +311,6 @@ def run_bench(config: BenchConfig, repeat: int = 1, batch: int = 0, out_title: s
               device="cuda") -> dict:
     """Run one sweep of `config` on `device`; merge its row into
     `config.bench_output` (and its `.html`) when set.  Returns the row."""
-    _no_mesh(config)
     base = io.load_raw(config.base.data_path, config.base.dim, config.base.data_type,
                        config.base.limit).astype(np.float32)
     test = io.load_raw(config.test.data_path, config.test.dim, config.test.data_type,
@@ -265,17 +319,23 @@ def run_bench(config: BenchConfig, repeat: int = 1, batch: int = 0, out_title: s
     gt = GroundTruth.load(config.gnd_path)
     k = gt.k
 
-    index, build_s = load_or_build_index(config, base, device=device)
-    pq, pq_build_s = load_or_build_pq(config, base, device=device)
-    if pq_build_s is not None:
-        build_s = (build_s or 0.0) + pq_build_s
+    if config.mesh > 0:
+        index, build_s = load_or_build_sharded(config, base, device=device)
+        pq = None  # the sharded PQ classes carry their tables
+    else:
+        index, build_s = load_or_build_index(config, base, device=device)
+        pq, pq_build_s = load_or_build_pq(config, base, device=device)
+        if pq_build_s is not None:
+            build_s = (build_s or 0.0) + pq_build_s
 
     def search_all(ef: int) -> np.ndarray:
         B = batch or len(test)
         out = []
         for s in range(0, len(test), B):
             q = test[s : s + B]
-            if pq is not None:
+            if config.mesh > 0:
+                _, ids = _sharded_search(index, q, k, ef)
+            elif pq is not None:
                 _, ids = index.knn_pq_batch(q, k, ef, pq)
             elif isinstance(index, HNSWIndex):
                 _, ids = index.knn_with_ef_batch(q, k, ef)
@@ -287,7 +347,7 @@ def run_bench(config: BenchConfig, repeat: int = 1, batch: int = 0, out_title: s
         return np.concatenate(out, axis=0)
 
     step = None
-    if config.chained:
+    if config.chained and config.mesh == 0:
         step = _device_step(index, pq, k)
         if step is None:
             print("chained = true requested but no device-resident step exists for this "

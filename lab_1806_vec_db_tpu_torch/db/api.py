@@ -14,7 +14,9 @@ float32 Flat and HNSW tables, with or without a PQ table, and uint8 Flat
 tables (exact integer distances) on the given device, and raises
 RuntimeError when that device is unavailable.  `VecDB(dir, seed=s)` makes
 its tables' HNSW builds and PQ training reproducible, and `VecDB(dir,
-scan="pca", pca_dim=256)` picks the Flat planner's scan mode (see `VecDB`).
+scan="pca", pca_dim=256)` picks the Flat planner's scan mode and
+`VecDB(dir, mesh=4)` serves every search from an exact scan sharded over a
+mesh of 4 shards (see `VecDB`).
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ class VecDB:
     """
 
     def __init__(self, dir: str, device="cuda", seed: int | None = None, scan: str = "int8",
-                 pca_dim: int = 256) -> None:
+                 pca_dim: int = 256, mesh=None) -> None:
         """Extension over the reference stub: `device` places the tables;
         `seed`, when given, seeds every table this VecDB creates or opens,
         so an HNSW build draws the same levels (and builds the same graph)
@@ -70,9 +72,14 @@ class VecDB:
         mode ("int8", the default, "pca", "bf16" / "2stage" or "exact"; the
         reference's VECDB_TPU_SCAN) and `pca_dim` the "pca" mode's
         projected width (its VECDB_TPU_PCA_DIM); an unknown mode raises
-        ValueError before the directory is touched."""
+        ValueError before the directory is touched.  `mesh` (the reference's
+        VECDB_TPU_MESH), None by default, is an int or a
+        `parallel.sharded.Mesh`: with it every table mirrors its rows as a
+        `ShardedFlatIndex` over the mesh (an int n: `make_mesh(n,
+        device=device)`, n shards), and every search is that mirror's exact
+        sharded scan; any write drops the mirror until the next search."""
         self._inner = VecDBManager(dir, device=device, seed=seed,
-                                   scan_mode=ScanMode(scan, pca_dim))
+                                   scan_mode=ScanMode(scan, pca_dim), mesh=mesh)
 
     @_runtime_wrap
     def create_table_if_not_exists(

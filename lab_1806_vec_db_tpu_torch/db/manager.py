@@ -120,11 +120,16 @@ def _acquire_lock(lock_path: str):
 
 class VecDBManager:
     def __init__(self, dir: str, device="cuda", seed: int | None = None,
-                 scan_mode: ScanMode = ScanMode()):
+                 scan_mode: ScanMode = ScanMode(), mesh=None):
         # fail before touching the directory when the device is unavailable
         self.device = resolve(device)
         self.seed = seed
         self.scan_mode = scan_mode
+        if isinstance(mesh, int):
+            from ..parallel.sharded import make_mesh
+
+            mesh = make_mesh(mesh, device=self.device)
+        self.mesh = mesh
         self.dir = os.path.abspath(dir)
         os.makedirs(self.dir, exist_ok=True)
         self._lock_file = _acquire_lock(os.path.join(self.dir, "db.lock"))
@@ -156,7 +161,7 @@ class VecDBManager:
                 if key not in self._tables:
                     path = os.path.join(self.dir, self._brief.tables[key])
                     table = MetadataVecTable.load(path, device=self.device, seed=self.seed,
-                                                  scan_mode=self.scan_mode)
+                                                  scan_mode=self.scan_mode, mesh=self.mesh)
                     self._tables[key] = ThreadSavingManager(
                         table, path, TABLE_SAVE_INTERVAL, False
                     )
@@ -196,7 +201,7 @@ class VecDBManager:
                 filename = brief.insert(key)
                 path = os.path.join(self.dir, filename)
                 table = MetadataVecTable(dim, dist, self.seed, data_type=data_type, device=self.device,
-                                         scan_mode=self.scan_mode)
+                                         scan_mode=self.scan_mode, mesh=self.mesh)
                 mgr = ThreadSavingManager(table, path, TABLE_SAVE_INTERVAL, True)
                 self._tables[key] = mgr
                 return True

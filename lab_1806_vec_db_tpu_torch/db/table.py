@@ -26,9 +26,11 @@ from ..utils.config import PQConfig
 
 class MetadataVecTable:
     def __init__(self, dim: int, dist: str, seed: int | None = None,
-                 data_type: str = "float32", device="cuda", scan_mode: ScanMode = ScanMode()):
+                 data_type: str = "float32", device="cuda", scan_mode: ScanMode = ScanMode(),
+                 mesh=None):
         self.metadata: list[dict[str, str]] = []
-        self.inner = DynamicIndex(dim, dist, data_type, device=device, scan_mode=scan_mode)
+        self.inner = DynamicIndex(dim, dist, data_type, device=device, scan_mode=scan_mode,
+                                  mesh=mesh)
         self.pq = None
         self._seed = seed
 
@@ -81,6 +83,7 @@ class MetadataVecTable:
             if all(m.get(k) == v for k, v in pattern.items())
         ]
         flat = self.inner.inner
+        self.inner.note_mutation()
         for i in reversed(matches):
             # swap_remove on metadata + vec store, mirroring the reference
             last = len(self.metadata) - 1
@@ -162,6 +165,7 @@ class MetadataVecTable:
         elif ef is not None and self.inner.is_hnsw:
             d, ids = self.inner.knn_with_ef_batch(queries, k, ef)
         else:
+            # through DynamicIndex, so a mesh mirror serves batches too
             d, ids = self.inner.knn_batch(queries, k)
         ub = float("inf") if upper_bound is None else upper_bound
         out = []
@@ -192,10 +196,11 @@ class MetadataVecTable:
 
     @classmethod
     def load(cls, path, device="cuda", seed: int | None = None,
-             scan_mode: ScanMode = ScanMode()) -> "MetadataVecTable":
+             scan_mode: ScanMode = ScanMode(), mesh=None) -> "MetadataVecTable":
         arrays, meta = serde.load_arrays(path)
         self = cls.__new__(cls)
-        self.inner = DynamicIndex.from_state(arrays, meta, device=device, scan_mode=scan_mode)
+        self.inner = DynamicIndex.from_state(arrays, meta, device=device, scan_mode=scan_mode,
+                                             mesh=mesh)
         self.metadata = [dict(m) for m in meta.get("metadata", [])]
         self.pq = PQTable.from_state(arrays, meta, device=device) if "pq" in meta else None
         self._seed = seed

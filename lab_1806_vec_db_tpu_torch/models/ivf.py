@@ -71,19 +71,24 @@ def _build_posting(assign: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _sorted_layout(posting: np.ndarray, posting_len: np.ndarray, k: int,
-                   cap_quantile: float | None = None) -> tuple[int, np.ndarray, np.ndarray]:
+                   cap_quantile: float | None = None,
+                   force_lpad: int | None = None) -> tuple[int, np.ndarray, np.ndarray]:
     """Cluster-sorted mirror layout for the binned scan -> (lpad, perm_pad,
     ov_ids): list l owns the `lpad`-row segment [l * lpad, (l + 1) * lpad)
     (perm_pad[slot] = original id, -1 on pads).  Lists are capped at the
     `cap_quantile` length (None: `_LCAP_QUANTILE`, read at call time; IVF-PQ
     takes 0.95), padded to `_LPAD_MULT`; the tails spill to the overflow
     segment `ov_ids`, which every query scans, so spilled rows stay findable
-    for any probe set.  (The reference's `force_lpad` serves only the
-    sharded IVF-PQ tier.)"""
+    for any probe set.  `force_lpad` overrides the quantile-derived segment
+    length: the sharded IVF-PQ tier puts every shard on the longest shard's
+    lpad so the shards share one layout."""
     lens = posting_len
-    q = _LCAP_QUANTILE if cap_quantile is None else cap_quantile
-    l_q = int(np.quantile(lens, q)) if len(lens) else 1
-    lpad = max(_LPAD_MULT, -(-l_q // _LPAD_MULT) * _LPAD_MULT)
+    if force_lpad is not None:
+        lpad = int(force_lpad)
+    else:
+        q = _LCAP_QUANTILE if cap_quantile is None else cap_quantile
+        l_q = int(np.quantile(lens, q)) if len(lens) else 1
+        lpad = max(_LPAD_MULT, -(-l_q // _LPAD_MULT) * _LPAD_MULT)
     perm_pad = np.full((k * lpad,), -1, dtype=np.int32)
     ov_ids = []
     for l in range(k):

@@ -30,8 +30,9 @@ No counterpart here: the reference's `_ivfpq_search_jit` (one XLA program
 against per-call dispatch cost; its own test shows it equals the unfused
 path), `_tset_chunk`, `_transpose_split` and the transposed write of
 `_encode_cols_jit` (TPU lane-padding work), and `traced_gen` with its
-block-keyed refine.  `force_lpad` / `ov_pad_min` of `_layout_encode` serve
-only the sharded tier, not ported yet.
+block-keyed refine.  `force_lpad` / `ov_pad_min` of `_layout_encode` and
+`ov_valid` serve the sharded tier (`parallel/sharded.py:ShardedIVFPQIndex`),
+whose shards share one (lpad, overflow capacity).
 """
 
 from __future__ import annotations
@@ -56,10 +57,13 @@ _LCAP_QUANTILE = 0.95  # an overflow row costs every query, a padded list row on
 
 
 def _layout_encode(fill, n: int, pq: PQTable, assign: np.ndarray, nlist: int, seed: int,
-                   block_rows: int, row_gen=None, device="cuda"):
+                   block_rows: int, row_gen=None, device="cuda", force_lpad: int | None = None,
+                   ov_pad_min: int = 0):
     """Cluster-sorted layout + packed-code encode -> (lpad, codes_main
     (nlist * lpad, cw4) uint8, codes_ov (ov_pad, cw4), slot_id (slots,) host
-    int32, lens (nlist,) host, ov_count).
+    int32, lens (nlist,) host, ov_count).  `force_lpad` fixes the segment
+    length and `ov_pad_min` floors the overflow capacity (the sharded
+    tier's common layout).
 
     With `row_gen` the codes are encoded in slot order (the rows owning
     each chunk of slots regenerated, encoded and written as one contiguous
@@ -68,12 +72,13 @@ def _layout_encode(fill, n: int, pq: PQTable, assign: np.ndarray, nlist: int, se
     slots (pad slots stay zero).  Both give the same codes on valid slots."""
     dev = resolve(device)
     posting, counts = _build_posting(assign, nlist)
-    lpad, perm_pad, ov_h = _sorted_layout(posting, counts, nlist, cap_quantile=_LCAP_QUANTILE)
+    lpad, perm_pad, ov_h = _sorted_layout(posting, counts, nlist, cap_quantile=_LCAP_QUANTILE,
+                                          force_lpad=force_lpad)
     kl = nlist * lpad
     # every query scans the overflow rows with a chunk-min: de-cluster them
     ov_h = np.asarray(ov_h, np.int32)
     np.random.default_rng(seed ^ 0x0F10).shuffle(ov_h)
-    ov_pad = -(-max(len(ov_h), 1) // _BLOCKPAD) * _BLOCKPAD
+    ov_pad = max(ov_pad_min, -(-max(len(ov_h), 1) // _BLOCKPAD) * _BLOCKPAD)
     slots_total = kl + ov_pad
     slot_id = np.full(slots_total, -1, np.int32)
     slot_id[:kl] = perm_pad
@@ -113,6 +118,9 @@ class IVFPQIndex:
         self.lpad = int(lpad)
         self.lens = np.asarray(lens, np.int32)  # valid rows per list (<= lpad)
         self.ov_count = int(ov_count)
+        # valid overflow rows: ov_count unless a shard of the sharded tier
+        # plans its overflow scan for the common capacity ov_count
+        self.ov_valid = self.ov_count
         self.torch_device = resolve(device)
         self._fill = fill
         self._row_gen = row_gen
@@ -286,7 +294,7 @@ class IVFPQIndex:
             kl = self.nlist * self.lpad
             ov_slots = kl + torch.arange(self._codes_ov.shape[0], dtype=torch.int32, device=outd.device)
             k_ov, ch = self.overflow_chunk(k)
-            d_ov, s_ov = A.adc_scan_chunkmin(lookup, self._codes_ov, ov_slots, self.ov_count, cb_sq,
+            d_ov, s_ov = A.adc_scan_chunkmin(lookup, self._codes_ov, ov_slots, self.ov_valid, cb_sq,
                                              q_norms, k_ov, self.dist, packed=True, chunk=ch)
             d_cand = torch.cat([d_cand, d_ov], 1)
             slot_cand = torch.cat([slot_cand, s_ov], 1)

@@ -9,7 +9,9 @@ against the JAX package's harness.
 - the chained timing mode flags its rows;
 - the results TOML and the index / PQ caches written by either package load
   in the other (the same index: equal ids from both);
-- the mesh path raises NotImplementedError.
+- the mesh path (`mesh = N`) runs on the sharded indexes over a mesh on
+  the given device, and raises without a card on the default device
+  (tests/test_torch_parallel.py holds it against the JAX package).
 """
 
 import os
@@ -168,10 +170,17 @@ def test_pq_cache_interchange(bench_dir, tmp_path):
     assert t2 is None
 
 
-def test_mesh_path_raises(bench_dir, tmp_path):
+def test_mesh_path_raises(bench_dir, tmp_path, monkeypatch):
+    """`mesh = 4` on the default device raises without a card (no move to
+    the CPU), and on device="cpu" runs the sharded exact scan (recall 1)."""
+    import torch
+
     cfg = BenchConfig.load_from_toml_file(_toml(bench_dir, "Flat", tmp_path / "r.toml", extra="mesh = 4"))
     assert cfg.mesh == 4
-    with pytest.raises(NotImplementedError, match="item 14"):
-        harness.run_bench(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        harness.load_or_build_index(cfg, np.zeros((4, DIM), np.float32), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        harness.run_bench(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        harness.load_or_build_sharded(cfg, np.zeros((4, DIM), np.float32))
+    res = harness.run_bench(cfg, device="cpu")
+    assert res["recall"] == [1.0]
