@@ -51,6 +51,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                all equal element for element), K3 against its
                plain version on the route's B = 1000 queries at every ef,
                index_bytes, and close / reopen as HNSW;
+     lean_graph — inside phase 5, after hnsw: that graph attached to a
+               lean store of the same rows (from_device_blocks: int8
+               mirror + bf16 rows), the graph route at ef 120 / 200 (K2's
+               descent and K3 over the bf16 rows, then the exact refinement
+               of the top k): recall@10 within 0.01 of the full store's on
+               the same graph, returned distances within rtol 1e-5 of
+               float64, QPS and a hash of the ids; K3 on the bf16 rows
+               against its plain version on those queries;
      native  — inside phase 5, on the reopened HNSW table, 200 single
                queries at ef 120 / 200 both ways: VecDB.search on the card
                (the scan route, K1 + K2 once a query, recall@10 >= 0.99) and
@@ -201,7 +209,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 The last line of standard output is `{"ok": true, "device": {...}}`; the
 line before it lists each kernel with its launch count on its path (K1 / K2:
-the VecDB batch_search run; K1 at 256 lanes, `..._pca256`: pca_1m's batch; K3: the graph-route searches; K4 / K5: the
+the VecDB batch_search run; K1 at 256 lanes, `..._pca256`: pca_1m's batch; K3: the graph-route searches;
+K3 on bf16 rows, `traverse_bf16`: lean_graph's route at ef 120; K4 / K5: the
 traversal_stats run, `ms` back to back as every kernel's, `graph_ms`
 replayed from a CUDA graph beside it; K6-K9: the first call of the PQ route that takes each,
 K6's `graph_ms` and `library_graph_ms` replayed on its captured classic-loop arguments;
@@ -484,6 +493,41 @@ def k5_bytes(nd, ef: int) -> int:
     return 4 * (B * (3 * min(ef, W) + 4 * W + 128) + int((nd < float("inf")).sum()))
 
 
+def k3_vs_plain(q, base, links0, cur, dist, efs, tag):
+    """K3 against its plain version on a graph route's own inputs (all B
+    queries from the greedy descent's entries `cur`) at each ef: ids equal on
+    >= 0.99 of the entries, the distances of equal ids within rtol 1e-5 (the
+    two sum in different orders), and K3's distances K2's bits for the same
+    rows (one row_dist, beam_body.cuh).  Returns (per-ef results, the
+    largest error, (kernel ms, plain ms) at the first ef, timed in turns)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    res, err, times = {}, 0.0, None
+    for ef in efs:
+        iters, ring_n = _budgets(ef)
+        kw = dict(E=4, R=min(ring_n, 256), max_iters=iters, dist=dist)
+        k3 = lambda ef=ef, kw=kw: TR.traverse(q, base, links0, cur, ef, links0.shape[1], **kw)
+        k3_ref = lambda ef=ef, kw=kw: TR.traverse_ref(q, base, links0, cur, ef, links0.shape[1], **kw)
+        (dk, ik), (dr, ir) = k3(), k3_ref()
+        torch.cuda.synchronize()
+        same = ik == ir
+        frac = float(same.float().mean())
+        check(frac >= 0.99, f"{tag} ef {ef}: ids equal on {frac:.4f} of entries (< 0.99)")
+        fin = same & (ik >= 0)
+        torch.testing.assert_close(dk[fin], dr[fin], rtol=1e-5, atol=0.0)
+        e = float((dk[fin] - dr[fin]).abs().max())
+        err = max(err, e)
+        d2 = G.gather_dists(q, base, ik, dist)
+        check(torch.equal(d2[ik >= 0], dk[ik >= 0]), f"{tag} ef {ef}: distances differ from K2's for the same rows")
+        res[ef] = {"ids_equal_share": frac, "ids_all_equal": bool(same.all()), "max_abs_err": e}
+        if times is None:
+            times = in_turns(k3, k3_ref, 5, 1)
+    return res, err, times
+
+
 def phase_hnsw(db, db_dir, key, q_host, gt):
     """HNSW on the l2sqr table of phase 5.  Returns (results, launches per
     kernel on its path, per-kernel measurements, the reopened db)."""
@@ -492,7 +536,6 @@ def phase_hnsw(db, db_dir, key, q_host, gt):
     from lab_1806_vec_db_tpu_torch import VecDB
     from lab_1806_vec_db_tpu_torch.bench import beam_states as BS
     from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
-    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets
     from lab_1806_vec_db_tpu_torch.ops import beam as BM
     from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
     from lab_1806_vec_db_tpu_torch.ops import gather as G
@@ -610,37 +653,19 @@ def phase_hnsw(db, db_dir, key, q_host, gt):
         f"(back to back, plain; graph replay) K4 {meas['k4']}; {meas['k4_graph_ms']:.4f}, "
         f"K5 {meas['k5']}; {meas['k5_graph_ms']:.4f} ms")
 
-    # K3 against its plain version on the graph route's own inputs: all B
-    # queries from the greedy descent's entries, at every ef the route ran
+    # K3 against its plain version on the graph route's own inputs, at every
+    # ef the route ran
     q = torch.from_numpy(q_host).to(dev)
     base = index.store.device_rerank()
     links0 = index._links0_device()
     cur = index._descend(q, lambda ids: G.gather_dists(q, base, ids, index.dist))
-    out["k3_vs_plain"], k3_err = {}, 0.0
-    for ef in (120, 200, 360):
-        iters, ring_n = _budgets(ef)
-        kw = dict(E=4, R=min(ring_n, 256), max_iters=iters, dist=index.dist)
-        k3 = lambda ef=ef, kw=kw: TR.traverse(q, base, links0, cur, ef, links0.shape[1], **kw)
-        k3_ref = lambda ef=ef, kw=kw: TR.traverse_ref(q, base, links0, cur, ef, links0.shape[1], **kw)
-        (dk, ik), (dr, ir) = k3(), k3_ref()
-        torch.cuda.synchronize()
-        same = ik == ir
-        frac = float(same.float().mean())
-        check(frac >= 0.99, f"K3 ef {ef}: ids equal on {frac:.4f} of entries (< 0.99)")
-        fin = same & (ik >= 0)
-        torch.testing.assert_close(dk[fin], dr[fin], rtol=1e-5, atol=0.0)
-        err = float((dk[fin] - dr[fin]).abs().max())
-        k3_err = max(k3_err, err)
-        # K3's distances are K2's bits (one row_dist, beam_body.cuh)
-        d2 = G.gather_dists(q, base, ik, index.dist)
-        check(torch.equal(d2[ik >= 0], dk[ik >= 0]), f"K3 ef {ef}: distances differ from K2's for the same rows")
-        out["k3_vs_plain"][ef] = {"ids_equal_share": frac, "max_abs_err": err}
-        if ef == 120:
-            meas["k3"] = in_turns(k3, k3_ref, 5, 1)
-    meas["k3_err"] = k3_err
+    out["k3_vs_plain"], meas["k3_err"], meas["k3"] = k3_vs_plain(q, base, links0, cur, index.dist,
+                                                                 (120, 200, 360), "K3")
     meas["k3_bytes"] = B * out["traversal_stats_ef120"]["rows_scored_mean"] * 4 * index.dim
     log(f"[hnsw] K3 at B = {B} against its plain version: {out['k3_vs_plain']}; "
         f"times (kernel, plain) K3 {meas['k3']}, K4 {meas['k4']}, K5 {meas['k5']} ms")
+
+    out["lean_graph"], meas["k3_bf16"] = lean_graph(index, q_host, gt, out["graph"])
 
     # close and reopen: still HNSW, identical results
     before = db.batch_search(key, q_host, k, ef=200)
@@ -651,6 +676,91 @@ def phase_hnsw(db, db_dir, key, q_host, gt):
     log("[hnsw] close / reopen: still HNSW, identical results")
     launches = {"k3": k3_launches, "k4": k45_launches[0], "k5": k45_launches[1]}
     return out, launches, meas, db
+
+
+def lean_graph(index, q_host, gt, full_graph):
+    """lean_graph: the graph that `phase_hnsw` built (M = 16, K3's route)
+    attached to a lean store of the same 200,000 x 960 rows
+    (`VecStore.from_device_blocks`, filled from the full store's f32 rows on
+    the card, the generator kept), searched through the user's entry point
+    `knn_with_ef_batch(route="graph")` at ef 120 / 200 on the B = 1000
+    queries: K2's descent and K3 over the bf16 rows, then the exact
+    refinement of the top k.  Returns (results, K3-bf16 measurements); the
+    full store is attached again before it returns."""
+    import numpy as np
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import VecStore
+    from lab_1806_vec_db_tpu_torch.models.hnsw import links_rows
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    k, B = 10, len(q_host)
+    full = index.store
+    rows = full.device()[0]
+    n, dim = len(full), full.dim
+    fill = lambda row0, r: rows[row0 : row0 + r]
+    t0 = time.perf_counter()
+    lean = VecStore.from_device_blocks(fill, n, dim, index.dist, device=full.torch_device)
+    out = {"rows": n, "dim": dim, "ingest_s": time.perf_counter() - t0,
+           "slab": [list(lean.device_rerank().shape), str(lean.device_rerank().dtype)],
+           "links0_rows": int(index._links0_device().shape[0]), "ef": {}}
+    check(lean.device_rerank().dtype == torch.bfloat16, "lean_graph: the lean rows are not bf16")
+    q = torch.from_numpy(q_host).to(rows.device)
+    index.store = lean
+    try:
+        # the main path: counters from 0 around the route's first call at each ef
+        for ef in (120, 200):
+            TR.traverse.launches = G.gather_dists.launches = 0
+            d, ids = index.knn_with_ef_batch(q_host, k, ef, route="graph")
+            launched = {"k3": TR.traverse.launches, "k2": G.gather_dists.launches}
+            check(launched["k3"] > 0 and launched["k2"] > 0,
+                  f"lean_graph ef {ef}: launches {launched}: K3 and K2 must both run")
+            rounds = []
+            for _ in range(3):  # rounds of 4 chained (synchronous) batches
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    index.knn_with_ef_batch(q_host, k, ef, route="graph")
+                rounds.append(time.perf_counter() - t0)
+            ids_t = torch.from_numpy(ids).to(rows.device)
+            check(bool((ids_t >= 0).all()), f"lean_graph ef {ef}: short result rows")
+            exact = exact_l2_f64(fill, n, q, ids_t)
+            rel = float(((torch.from_numpy(d).to(rows.device).double() - exact).abs()
+                         / exact.abs().clamp_min(1e-30)).max())
+            check(rel <= 1e-5, f"lean_graph ef {ef}: returned distances off float64 exact by {rel:.3g} (> 1e-5)")
+            check(bool((np.diff(d, axis=1) >= 0).all()), f"lean_graph ef {ef}: distances not ascending")
+            rec = recall_at_k(gt, ids.tolist(), k)
+            full_rec = full_graph[ef]["recall_at_10"]
+            check(abs(rec - full_rec) <= 0.01,
+                  f"lean_graph ef {ef}: recall@10 {rec:.4f} vs the full store's {full_rec:.4f} (> 0.01 apart)")
+            out["ef"][ef] = {"recall_at_10": rec, "full_store_recall_at_10": full_rec,
+                             "ids_sha1": ids_hash(ids), "max_rel_err_vs_f64": rel, "launches": launched,
+                             "qps_best": 4 * B / min(rounds), "qps_median": 4 * B / float(np.median(rounds)),
+                             "ms_per_batch_rounds": [r / 4 * 1e3 for r in rounds],
+                             "full_store_qps_best": full_graph[ef]["qps_best"]}
+        # K3 on the bf16 rows against its plain version on the route's own
+        # inputs: all B queries from the greedy descent's entries
+        base = lean.device_rerank()
+        links0 = links_rows(index._links0_device(), base.shape[0])
+        cur = index._descend(q, lambda i: G.gather_dists(q, base, i, index.dist))
+        meas = {"launches": out["ef"][120]["launches"]["k3"]}
+        meas["k3_vs_plain"], meas["max_abs_err"], (meas["ms"], meas["plain_ms"]) = k3_vs_plain(
+            q, base, links0, cur, index.dist, (120, 200), "K3 bf16")
+        # the rows K3 scores at ef 120 on this data: the same loop, counted
+        _, _, scored = index.traversal_stats(q_host, k, 120)
+        meas["rows_scored_mean"] = float(scored.mean())
+        # each novel row read once as bf16 (2 bytes a lane)
+        meas["bound"] = bound_ms(B * meas["rows_scored_mean"] * 2 * dim)
+    finally:
+        index.store = full
+    del lean
+    torch.cuda.empty_cache()
+    log(f"[lean_graph] ingest {out['ingest_s']:.1f} s; " + ", ".join(
+        f"ef {ef} recall {v['recall_at_10']:.4f} (full {v['full_store_recall_at_10']:.4f}) QPS "
+        f"{v['qps_best']:.0f} rel err {v['max_rel_err_vs_f64']:.2e}" for ef, v in out["ef"].items())
+        + f"; K3 bf16 (kernel, plain) {meas['ms']:.3f} / {meas['plain_ms']:.3f} ms, bound {meas['bound']}, "
+        f"vs plain {meas['k3_vs_plain']}")
+    out["k3_bf16"] = meas
+    return out, meas
 
 
 # ---------------------------------------------------------------- pq ----
@@ -3464,6 +3574,12 @@ def main() -> None:
          "launches": hnsw_launches["k3"], "max_abs_err": hm["k3_err"],
          "ms": hm["k3"][0], "plain_ms": hm["k3"][1], "bound_ms": k3b[0], "bound_by": k3b[1],
          "library_ms": None, "ptxas": ptxas["k3"]},
+        # K3 on the lean tier's bf16 rows: lean_graph's route at ef 120
+        {"name": "traverse_bf16", "route": "cuda", "source": f"{PKG}/csrc/traverse.cu",
+         "replaces": "lab_1806_vec_db_tpu/ops/pallas_traverse.py:251",
+         "launches": hm["k3_bf16"]["launches"], "max_abs_err": hm["k3_bf16"]["max_abs_err"],
+         "ms": hm["k3_bf16"]["ms"], "plain_ms": hm["k3_bf16"]["plain_ms"],
+         "bound_ms": hm["k3_bf16"]["bound"][0], "bound_by": hm["k3_bf16"]["bound"][1], "library_ms": None},
         {"name": "beam_pre", "route": "cuda", "source": f"{PKG}/csrc/beam_pre.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_beam.py:148",
          "launches": hnsw_launches["k4"], "max_abs_err": hm["k4_err"],

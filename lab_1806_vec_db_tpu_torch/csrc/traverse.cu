@@ -25,17 +25,29 @@
 // can no longer change: stopping each query on its own gives the same beam.
 //
 // What bounds it on the H100: latency.  The work is B x (novel rows scored)
-// row reads of 4*dim bytes (the bound PERF.md prices), but each iteration
-// waits on a chain: links read -> dedup -> row reads -> sort.  One CTA per
-// query (B = 1000 CTAs, several per SM) keeps the beam, the rings, the tile,
-// the sort keys and the query row in shared memory for the whole search, so
+// row reads of 4*dim bytes (2*dim for bf16 rows; the bound PERF.md prices),
+// but each iteration waits on a chain: links read -> dedup -> row reads ->
+// sort, so halving the row bytes does not shorten it.  One CTA per query
+// (B = 1000 CTAs, several per SM) keeps the beam, the rings, the tile, the
+// sort keys and the query row in shared memory for the whole search, so
 // nothing but links and rows is read from device memory and only the final
 // beam is written.  The links are read in place from the (cap, L) matrix:
 // the reference's (N, 128) packed table with the node id in lane 0 was a
-// TPU DMA-alignment device.  Each novel row is one warp's float4 loads;
-// 8 warps take the rows in turn.  Overlapping the row reads of one
-// iteration with the sort of the previous (cp.async, prefetch) is later
-// work.
+// TPU DMA-alignment device.  Each novel row is one warp's 4-lane vector
+// loads (16 bytes of f32, 8 of bf16); 8 warps take the rows in turn.
+// Overlapping the row reads of one iteration with the sort of the previous
+// (cp.async, prefetch) is later work.
+//
+// The rows are f32 (the full store's) or bf16 (the lean tier's rerank rows,
+// their raw 16 bits as uint16_t): the kernel is a template on the row type,
+// reads a bf16 row in place (half the bytes) and upcasts each lane to f32
+// before the arithmetic, as the reference's candidate-row scratch takes the
+// slab's dtype and upcasts at its distance epilogue (pallas_traverse.py:
+// 324-327).  row_dist is K2's, so the bits equal K2's on the same rows.
+//
+// flags: bit 0 = cosine, bit 1 = vector path allowed (dim % 4 == 0, the rows
+// 16-byte (f32) / 8-byte (bf16) aligned; the wrapper checks), bit 2 = bf16
+// rows.
 
 #include "beam_body.cuh"
 
@@ -45,8 +57,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 128;  // E * L
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-traverse_kernel(const float* __restrict__ q, const float* __restrict__ base,
+traverse_kernel(const float* __restrict__ q, const T* __restrict__ base,
                 const int* __restrict__ links0, const int* __restrict__ entry,
                 float* __restrict__ out_d, int* __restrict__ out_i, int dim, long long n_rows,
                 int L, int ef, int W, int R, int E, int max_iters, int flags) {
@@ -136,6 +149,22 @@ traverse_kernel(const float* __restrict__ q, const float* __restrict__ base,
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* base, const void* links0, const void* entry, void* out_d,
+           void* out_i, int B, int dim, long long n_rows, int L, int ef, int W, int R, int E,
+           int max_iters, int flags, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        traverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  traverse_kernel<T><<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const T*>(base), static_cast<const int*>(links0),
+      static_cast<const int*>(entry), static_cast<float*>(out_d), static_cast<int*>(out_i), dim,
+      n_rows, L, ef, W, R, E, max_iters, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int vecdb_traverse(const void* q, const void* base, const void* links0,
@@ -146,14 +175,8 @@ extern "C" int vecdb_traverse(const void* q, const void* base, const void* links
   if (E * L != TILE || R > 256 || E > R || ef > W) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (((dim + 3) & ~3) + 6 * static_cast<size_t>(W) + 2 * R +
                                        3 * TILE + vecdb::SEL_LANES + WARPS);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        traverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  traverse_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(base),
-      static_cast<const int*>(links0), static_cast<const int*>(entry), static_cast<float*>(out_d),
-      static_cast<int*>(out_i), dim, n_rows, L, ef, W, R, E, max_iters, flags);
-  return static_cast<int>(cudaGetLastError());
+  return (flags & 4) ? launch<uint16_t>(q, base, links0, entry, out_d, out_i, B, dim, n_rows, L,
+                                         ef, W, R, E, max_iters, flags, smem, stream)
+                     : launch<float>(q, base, links0, entry, out_d, out_i, B, dim, n_rows, L, ef,
+                                     W, R, E, max_iters, flags, smem, stream);
 }

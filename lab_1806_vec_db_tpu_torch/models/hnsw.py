@@ -108,6 +108,16 @@ def _budgets(ef: int) -> tuple[int, int]:
     return (2 * ef + 64 + e - 1) // e + 16, _pow2(min(2 * ef + 64, 4 * ef))
 
 
+def links_rows(links0: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The (cap, L) level-0 links cut or -1 padded to n_rows rows: K3 reads a
+    links row per row of its `base`, and a lean store's bf16 rows are n
+    rounded up to 16,384 where the graph has the full store's capacity.
+    Every link is an id < n, so the cut drops only empty rows."""
+    if links0.shape[0] >= n_rows:
+        return links0[:n_rows]
+    return torch.cat([links0, links0.new_full((n_rows - links0.shape[0], links0.shape[1]), -1)])
+
+
 def _upper_links_fn(links_l, pos_l):
     def lf(ids):
         rows = pos_l[ids.long()]
@@ -712,10 +722,11 @@ class HNSWIndex:
         return cur
 
     def _graph_knn_device(self, q, ef: int):
-        """Tensor-in / tensor-out graph search over the exact f32 rows:
-        greedy upper descent on K2, then the level-0 beam: K3 when
-        E * L == 128 (M = 16 -> L = 32, E = 4), else the fused lock-step
-        loop (K4 -> K2 -> K5).  Returns ((B, ef) exact dists ascending, ids)."""
+        """Tensor-in / tensor-out graph search over the rerank rows (the
+        exact f32 rows, or a lean store's bf16 rows): greedy upper descent
+        on K2, then the level-0 beam: K3 when E * L == 128 (M = 16 -> L =
+        32, E = 4), else the fused lock-step loop (K4 -> K2 -> K5).  Returns
+        ((B, ef) dists over those rows ascending, ids)."""
         expand = BEAM_EXPAND
         iters, ring = _budgets(ef)
         base = self.store.device_rerank()
@@ -724,9 +735,21 @@ class HNSWIndex:
         cur = self._descend(q, nd)
         L0 = links0.shape[1]
         if expand * L0 == TR.EL:
-            return TR.traverse(q, base, links0, cur, ef, L0, E=expand, R=min(ring, 256),
-                               max_iters=iters, dist=self.dist)
+            return TR.traverse(q, base, links_rows(links0, base.shape[0]), cur, ef, L0, E=expand,
+                               R=min(ring, 256), max_iters=iters, dist=self.dist)
         return BM.beam_search(cur, nd, lambda ids: links0[ids.long()], ef, iters, expand, ring)
+
+    def _graph_result(self, q, bd, bi, k: int):
+        """The graph route's (B, k) numpy answer from the beam's (B, ef)
+        (dists, ids).  On a lean store the beam scored the bf16 rows: the
+        reference's lean branch makes the top k's distances exact f32 from
+        the retained generator (`VecStore.refine_result`: exact rows, then a
+        stable sort by the refined distances), and leaves the bf16
+        distances standing when the store kept none (keep_fill=False)."""
+        d, i = bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
+        if self.store.tier == "lean":
+            return self.store.refine_result(q, d, i)
+        return d, i
 
     def knn_with_ef_batch(self, queries, k: int, ef: int, route: str = "auto"):
         """Batched kNN with the reference's contract (hnsw_index.rs:624-633):
@@ -735,7 +758,9 @@ class HNSWIndex:
 
         route="graph": greedy descent + the level-0 beam search.  On CUDA
         the beam runs on the kernels (`_graph_knn_device`) over the exact
-        f32 rows, so the beam distances are the exact distances.  On the
+        f32 rows, so the beam distances are the exact distances; over a
+        lean store's bf16 rows (a graph attached to it), then the top k
+        refined exactly (`_graph_result`).  On the
         CPU it is the classic loop on the bf16 traversal copy, then an exact
         rerank of the ef beam.
         route="scan": the Flat two-stage plan in the store's scan mode
@@ -757,8 +782,7 @@ class HNSWIndex:
             d, i = FlatIndex.from_store(self.store)._knn_device(q, k, rerank_depth=ef)
             return d.cpu().numpy(), i.cpu().numpy()
         if q.is_cuda:
-            bd, bi = self._graph_knn_device(q, ef)
-            return bd[:, :k].cpu().numpy(), bi[:, :k].cpu().numpy()
+            return self._graph_result(q, *self._graph_knn_device(q, ef), k)
         iters, ring = _budgets(ef)
 
         links0 = self._links0_device()

@@ -10,6 +10,13 @@ left unexpanded or `max_iters` is reached.  The three bodies live in one
 header (`csrc/beam_body.cuh`), so K3 is K4 + K5 plus a row gather, with
 the same semantics and the same distance bits as K2.
 
+The rows are the full store's f32 rows or the lean tier's bf16 rerank rows
+(`VecStore.device_rerank()`), read in place: the kernel is a template on the
+row type and upcasts each bf16 lane to f32 before the arithmetic, as the
+reference's candidate-row scratch takes the slab's dtype and upcasts at its
+distance epilogue.  The plain version upcasts the gathered rows the same way
+(`gather_dists_ref`).
+
 The reference packed the links into an (N, 128) table with the node's own
 id in lane 0, a TPU DMA-alignment trick; a CUDA thread reads the (cap, L)
 rows in place, so there is no packed copy.
@@ -47,8 +54,8 @@ def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
              max_iters: int = 92, dist: str = "l2sqr"):
     """Level-0 beam search from per-query entries.
 
-    q (B, dim) f32 queries; base (n_rows, dim) f32 rows (the store's, read
-    in place); links0 (n_rows, L) int32 level-0 links, -1 padded; entry (B,)
+    q (B, dim) f32 queries; base (n_rows, dim) f32 or bf16 rows (the
+    store's, or the lean tier's bf16 rerank rows, read in place); links0 (n_rows, L) int32 level-0 links, -1 padded; entry (B,)
     int32 (-1 = padding query).  E * L must be 128; R <= 256 ring slots.
     Returns ((B, ef) f32 exact distances ascending, (B, ef) int32 ids), -1
     / inf padded.  CUDA tensors launch the kernel and count it in
@@ -60,8 +67,8 @@ def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
                          f"links0 {tuple(links0.shape)}")
     if not 0 < E <= R <= 256 or ef <= 0 or _widths(ef) > BF.MAX_W:
         raise ValueError(f"traverse: need 0 < E <= R <= 256 and 0 < ef <= {BF.MAX_W}")
-    if q.dtype != torch.float32 or base.dtype != torch.float32:
-        raise TypeError("traverse takes f32 queries and rows")
+    if q.dtype != torch.float32 or base.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"traverse takes f32 queries and f32 / bf16 rows, got {q.dtype}/{base.dtype}")
     if links0.dtype != torch.int32 or entry.dtype != torch.int32:
         raise TypeError("links0 and entry must be int32")
     B, dim = q.shape
@@ -80,8 +87,10 @@ def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
     q, entry = q.contiguous(), entry.contiguous()
     out_d = torch.empty((B, ef), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, ef), dtype=torch.int32, device=dev)
-    vec4 = dim % 4 == 0 and base.data_ptr() % 16 == 0
-    flags = (1 if dist == "cosine" else 0) | (2 if vec4 else 0)
+    bf16 = base.dtype == torch.bfloat16
+    # 4 lanes a load: 16 bytes of f32 rows, 8 of bf16 rows
+    vec4 = dim % 4 == 0 and base.data_ptr() % (8 if bf16 else 16) == 0
+    flags = (1 if dist == "cosine" else 0) | (2 if vec4 else 0) | (4 if bf16 else 0)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.vecdb_traverse(

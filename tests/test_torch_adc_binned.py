@@ -22,6 +22,8 @@ from lab_1806_vec_db_tpu.ops import pallas_adc as PA
 from lab_1806_vec_db_tpu.ops import pq as JP
 from lab_1806_vec_db_tpu_torch.ops import adc as A
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

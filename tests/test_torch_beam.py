@@ -19,6 +19,8 @@ from lab_1806_vec_db_tpu_torch.bench.beam_states import edge_state
 from lab_1806_vec_db_tpu_torch.ops import beam as BM
 from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _rand_state(rng, B=40, W=128, R=256, EL=128, E=4, N=5000, ef=100):
     """The inputs of tests/test_pallas_beam.py:_rand_state, with the beam's

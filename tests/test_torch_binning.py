@@ -10,6 +10,8 @@ import torch
 from lab_1806_vec_db_tpu.ops import binning as JB
 from lab_1806_vec_db_tpu_torch.ops import binning as BN
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _both(probe, nlist, qb):
     jb, js = JB.bin_queries(jnp.asarray(probe), nlist, qb)

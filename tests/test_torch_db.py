@@ -13,9 +13,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from lab_1806_vec_db_tpu import VecDB as JVecDB
 from lab_1806_vec_db_tpu_torch import VecDB
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

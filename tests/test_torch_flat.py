@@ -23,6 +23,8 @@ from lab_1806_vec_db_tpu_torch.ops import gather as G
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _untied(d):
     """Mask of result slots whose distance is not tied with a neighbour."""

@@ -15,6 +15,8 @@ import torch
 from lab_1806_vec_db_tpu.ops import pallas_gather as PG
 from lab_1806_vec_db_tpu_torch.ops import gather as G
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _make(n, dim, b, r, seed):
     rng = np.random.default_rng(seed)

@@ -15,6 +15,8 @@ import torch
 from lab_1806_vec_db_tpu.ops import graph as JG
 from lab_1806_vec_db_tpu_torch.ops import graph as GR
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _tied_pool(rng, B=64, C=24, n_ids=500):
     ids = np.stack([rng.choice(n_ids, C, replace=False) for _ in range(B)]).astype(np.int32)

@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from lab_1806_vec_db_tpu.bench import harness as jharness
 from lab_1806_vec_db_tpu.utils.config import BenchConfig as JBenchConfig
@@ -26,6 +27,8 @@ from lab_1806_vec_db_tpu_torch.cli import gen_gnd
 from lab_1806_vec_db_tpu_torch.models import HNSWIndex, IVFIndex
 from lab_1806_vec_db_tpu_torch.utils import io
 from lab_1806_vec_db_tpu_torch.utils.config import BenchConfig
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 DIM = 64
 

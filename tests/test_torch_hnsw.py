@@ -22,6 +22,8 @@ from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
 from lab_1806_vec_db_tpu_torch.ops import traverse as TR
 from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig, PQConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _distinct_rows(x, n):
     """The first n distinct rows of x, in order."""

@@ -21,6 +21,8 @@ from lab_1806_vec_db_tpu_torch.models import FlatIndex
 from lab_1806_vec_db_tpu_torch.utils import io, profiling
 from lab_1806_vec_db_tpu_torch.utils.candidates import GroundTruth
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _write_fvecs(path, vecs):
     with open(path, "wb") as f:

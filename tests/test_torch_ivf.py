@@ -19,6 +19,8 @@ from lab_1806_vec_db_tpu_torch.models import FlatIndex, IVFIndex
 from lab_1806_vec_db_tpu_torch.models import ivf as ivf_mod
 from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _clustered(n, dim, n_queries, seed=0, n_clusters=8):
     rng = np.random.default_rng(seed)

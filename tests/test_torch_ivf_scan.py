@@ -19,6 +19,8 @@ from lab_1806_vec_db_tpu.ops import topk as JT
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 from lab_1806_vec_db_tpu_torch.ops import scan_binned as SB
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _inputs(nlist, lpad, extra, dim, B_pad, dist, seed):
     """A cluster-sorted-like mirror of nlist * lpad + extra rows (10% pad

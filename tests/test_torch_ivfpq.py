@@ -27,6 +27,8 @@ from lab_1806_vec_db_tpu_torch.models import ivf as ivf_mod
 from lab_1806_vec_db_tpu_torch.models import ivfpq as ivfpq_mod
 from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 N, DIM, BR, NQ, NLIST = 20000, 64, 4096, 32, 32
 SEARCH = dict(n_probes=8, ef=160, qb=32, chunk=8)
 

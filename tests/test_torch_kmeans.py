@@ -19,6 +19,8 @@ from lab_1806_vec_db_tpu_torch.models import KMeans
 from lab_1806_vec_db_tpu_torch.ops import kmeans as KM
 from lab_1806_vec_db_tpu_torch.utils.config import KMeansConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 @pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
 @pytest.mark.parametrize("n_valid", [512, 400])

@@ -20,6 +20,8 @@ from lab_1806_vec_db_tpu_torch.models import FlatIndex, HNSWIndex, IVFIndex, Vec
 from lab_1806_vec_db_tpu_torch.models import ivf as ivf_mod
 from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _clustered(n, dim, n_q, seed=0):
     rng = np.random.default_rng(seed)
@@ -233,3 +235,52 @@ def test_lean_exact_rows_and_refinement():
             true = 1 - (v * qs[:, None]).sum(-1) / (np.linalg.norm(v, axis=-1) * np.linalg.norm(qs, axis=-1)[:, None])
         assert np.isinf(refined[0, -1])
         np.testing.assert_allclose(refined[knn >= 0], true[knn >= 0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_lean_hnsw_graph_route(dist):
+    """The lean branch of HNSW's graph route (the reference's
+    knn_with_ef_batch on a lean store): a graph built on a full store,
+    attached to a lean store of the same rows, searched by the same code the
+    card runs (`_graph_knn_device`: K2's descent and K3 over the bf16 rows,
+    their plain versions here), then `_graph_result`.  With the generator
+    kept the top k's distances are the JAX package's `refine_distances` of
+    the same ids (exact f32, rtol 1e-5, sorted ascending); with
+    keep_fill=False the bf16 beam's distances stand.  Neither package builds
+    HNSW on a lean store: tests/test_lean_tier.py emulates the route the
+    same way."""
+    N, dim, k, ef = 800, 48, 10, 40
+    base, qs = _clustered(N, dim, 16, seed=11)
+    index = HNSWIndex.build(base, dist, seed=5, device="cpu")
+    assert index.links0.shape[1] == 32  # M = 16: K3's route (E * L == 128)
+    full_bd, full_bi = index._graph_knn_device(torch.from_numpy(qs), ef)
+    lean = VecStore.from_device_blocks(_fill(base), N, dim, dist, block_rows=640, device="cpu")
+    index.store = lean
+    assert lean.device_rerank().shape[0] != index.links0.shape[0]  # the route fits links0
+    q = index._queries(qs)
+    bd, bi = index._graph_knn_device(q, ef)
+    d, ids = index._graph_result(q, bd, bi, k)
+    assert sorted(ids.ravel().tolist()) == sorted(bi[:, :k].numpy().ravel().tolist())
+    jstore = JVecStore.from_device_blocks(_jfill(base), N, dim, dist, block_rows=640)
+    ref = jstore.refine_distances(qs, bi[:, :k].numpy())
+    order = np.argsort(ref, axis=1, kind="stable")
+    np.testing.assert_array_equal(ids, np.take_along_axis(bi[:, :k].numpy(), order, 1))
+    np.testing.assert_allclose(d, np.take_along_axis(ref, order, 1), rtol=1e-5, atol=1e-6)
+    v, q64 = base[ids].astype(np.float64), qs.astype(np.float64)[:, None, :]
+    if dist == "l2sqr":
+        true = ((v - q64) ** 2).sum(-1)
+    else:
+        true = 1 - (v * q64).sum(-1) / (np.linalg.norm(v, axis=-1) * np.linalg.norm(q64, axis=-1))
+    np.testing.assert_allclose(d, true, rtol=1e-5, atol=1e-6)
+    assert (np.diff(d, axis=1) >= 0).all()
+    # the bf16 beam finds what the f32 beam finds on the same graph
+    _, gt = FlatIndex.from_numpy(base, dist, device="cpu").knn_batch(qs, k, exact=True)
+    assert abs(_recall(gt, ids, k) - _recall(gt, full_bi[:, :k].numpy(), k)) <= 0.02
+
+    index.store = VecStore.from_device_blocks(_fill(base), N, dim, dist, block_rows=640,
+                                              keep_fill=False, device="cpu")
+    bd2, bi2 = index._graph_knn_device(q, ef)
+    assert torch.equal(bi2, bi) and torch.equal(bd2, bd)
+    d2, ids2 = index._graph_result(q, bd2, bi2, k)
+    np.testing.assert_array_equal(d2, bd[:, :k].numpy())
+    np.testing.assert_array_equal(ids2, bi[:, :k].numpy())

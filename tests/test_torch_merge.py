@@ -18,6 +18,8 @@ from lab_1806_vec_db_tpu_torch.bench import beam_states as BS
 from lab_1806_vec_db_tpu_torch.ops import beam as BM
 from lab_1806_vec_db_tpu_torch.ops import merge as M
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _state(rng, B, ef, EL, live, n=5000):
     """A sorted beam with `live` entries (inf / -1 / False after), random

@@ -25,6 +25,8 @@ from lab_1806_vec_db_tpu_torch.ops import distance as D
 from lab_1806_vec_db_tpu_torch.ops import topk as T
 from lab_1806_vec_db_tpu_torch.utils import config as C
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -21,6 +21,8 @@ from lab_1806_vec_db_tpu_torch.models import PQTable
 from lab_1806_vec_db_tpu_torch.ops import pq as P
 from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -23,6 +23,8 @@ from lab_1806_vec_db_tpu_torch.models import PQCodesIndex
 from lab_1806_vec_db_tpu_torch.models.pq_codes import refine_blocked
 from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 N, DIM, BR, NQ = 20000, 64, 4096, 32
 SEARCH = dict(ef=128, c0=1024)
 

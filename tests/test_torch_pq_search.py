@@ -30,6 +30,8 @@ from lab_1806_vec_db_tpu_torch.ops import adc as A
 from lab_1806_vec_db_tpu_torch.ops.distance import calc_dist_host
 from lab_1806_vec_db_tpu_torch.ops import merge as M
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 N, DIM, K = 4096, 32, 10
 N_GRAPH = 800  # rows of the carried graphs (the JAX build stays small)
 

@@ -37,6 +37,8 @@ from lab_1806_vec_db_tpu_torch.ops import project as PJ
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _lowrank(n, dim, n_queries, rank, seed=0):
     """tests/test_project.py's generator: spectral decay in a random

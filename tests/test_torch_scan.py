@@ -21,6 +21,8 @@ from lab_1806_vec_db_tpu.ops import topk as JT
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 from lab_1806_vec_db_tpu_torch.ops import topk as T
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _make(n, dim, b, seed=0):
     rng = np.random.default_rng(seed)

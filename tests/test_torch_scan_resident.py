@@ -30,6 +30,8 @@ from lab_1806_vec_db_tpu_torch.ops import distance as D
 from lab_1806_vec_db_tpu_torch.ops import scan_resident as SR
 from lab_1806_vec_db_tpu_torch.ops import topk as T
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 N, B, N_VALID = 3000, 8, 2800
 
 

@@ -14,6 +14,8 @@ from lab_1806_vec_db_tpu.models.store import VecStore as JVecStore
 from lab_1806_vec_db_tpu_torch.models.store import VecStore
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _rows(n=300, dim=70, seed=0):
     return np.random.default_rng(seed).standard_normal((n, dim)).astype(np.float32)

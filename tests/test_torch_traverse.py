@@ -6,7 +6,9 @@ lock-step loop on the plain K4, K5 and K2 versions); the CUDA kernel is held
 against it on the card by `chip_smoke.py`.  The semantics are identical;
 the distances are f32 sums in different orders, so a tie at the tail of a
 beam may flip: id overlap >= 0.97 and the first 8 distances within rtol /
-atol 1e-5, the reference's own tolerance for its kernel."""
+atol 1e-5, the reference's own tolerance for its kernel.  Over the lean
+tier's bf16 rows (a few hundred rows, no near ties) the ids are equal and
+every distance within rtol 1e-5."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,6 +21,8 @@ from lab_1806_vec_db_tpu_torch.ops import beam as BM
 from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
 from lab_1806_vec_db_tpu_torch.ops import gather as G
 from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 def _inputs(N=2000, dim=64, L=32, B=16, seed=0):
@@ -49,6 +53,33 @@ def test_traverse_ref_matches_pallas(dist):
     np.testing.assert_allclose(d2.numpy()[:, :8], np.asarray(d1)[:, :8], rtol=1e-5, atol=1e-5)
     # a padding query comes back empty from both
     assert (i1n[~live] == -1).all() and (i2n[~live] == -1).all()
+
+
+@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
+def test_traverse_bf16_rows_match_pallas(dist):
+    """K3 over the lean tier's bf16 rows (M = 16: L = 32, E = 4): the
+    reference's kernel on its bf16 slab in interpret mode, the port's plain
+    version on the same bf16 rows.  Both upcast each row to f32 before the
+    arithmetic: ids equal, distances within rtol 1e-5; and the port's bf16
+    route equals its f32 route on the upcast rows bit for bit."""
+    L, E, ef = 32, 4, 24
+    base, links, q, entry = _inputs(N=400, dim=48, L=L, B=12, seed=3)
+    rows = torch.from_numpy(base).to(torch.bfloat16)
+    d1, i1 = PT.traverse(jnp.asarray(q), PG.prepare_rerank_base(jnp.asarray(base), jnp.bfloat16),
+                         PT.pack_links(jnp.asarray(links)), jnp.asarray(entry), ef, L, E=E,
+                         R=128, max_iters=24, dist=dist, bq=16, interpret=True)
+    qt, lt, et = (torch.from_numpy(a) for a in (q, links, entry))
+    launches = TR.traverse.launches
+    d2, i2 = TR.traverse(qt, rows, lt, et, ef, L, E=E, R=128, max_iters=24, dist=dist)
+    assert TR.traverse.launches == launches
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(i1))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(d1), rtol=1e-5, atol=1e-6)
+    d3, i3 = TR.traverse(qt, rows.float(), lt, et, ef, L, E=E, R=128, max_iters=24, dist=dist)
+    assert torch.equal(i2, i3) and torch.equal(d2, d3)
+    # the beam's distances are the bf16 rows' exact f32 distances
+    exact = G.gather_dists_ref(qt, rows, i2, dist).numpy()
+    fin = i2.numpy() >= 0
+    np.testing.assert_array_equal(d2.numpy()[fin], exact[fin])
 
 
 def test_traverse_wrapper_on_cpu_is_the_plain_version():
@@ -88,5 +119,10 @@ def test_traverse_rejects_what_the_kernel_does_not_take():
         TR.traverse(q, base, links, entry, 10, 16, E=8, R=512)
     with pytest.raises(TypeError):
         TR.traverse(q, base, links.long(), entry, 10, 16, E=8)
+    with pytest.raises(TypeError):
+        TR.traverse(q, base.half(), links, entry, 10, 16, E=8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        # a links row per row of the (bf16) base, on the CPU as on the card
+        TR.traverse(q, base.to(torch.bfloat16), links[:64].contiguous(), entry, 10, 16, E=8)
     with pytest.raises(ValueError):
         TR.traverse(q, base, links, entry, 10, 16, E=8, dist="dot")

@@ -27,6 +27,8 @@ from lab_1806_vec_db_tpu_torch.models import FlatIndexU8, U8VecSet
 from lab_1806_vec_db_tpu_torch.ops import u8 as U8
 from lab_1806_vec_db_tpu_torch.utils import io as IO
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _rows(seed, n, dim, lo=0):
     return np.random.default_rng(seed).integers(lo, 256, size=(n, dim)).astype(np.uint8)
