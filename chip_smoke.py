@@ -9,7 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   2. build   — build the CUDA kernels of `lab_1806_vec_db_tpu_torch/csrc/`;
                read ptxas's registers and spills of the K1, K3-K5, K8, K10
                and K12-K14 kernels from the build's report (none found, or a
-               spill outside K3, fails);
+               spill, fails); K3's CTAs per SM and waves at B = 1000 from
+               CUDA's occupancy calculator at ef 120 / 200 / 360, both row
+               types (more than one wave fails);
   3. K1      — the packed int8 scan kernel against its plain PyTorch version
                at the main path's shapes (dim 960 -> 1024, B = 1000, a ragged
                mirror with sentinel rows), at B = 1 and 16 (one partial
@@ -49,8 +51,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                finite tile lanes with id -1 and past lane 128, empty tiles,
                dup-heavy tiles, ring holes, E 1 / 4 / 8, ef < W and ef = W;
                all equal element for element), K3 against its
-               plain version on the route's B = 1000 queries at every ef,
-               index_bytes, and close / reopen as HNSW;
+               plain version on the route's B = 1000 queries at every ef
+               (ids, distances, K2's bits, and bit for bit the plain loop
+               on K2's distances), then untimed on random graphs
+               (`time_adc.k3_edge_checks`: both metrics and row types, E /
+               L 1 / 128 to 8 / 16, ef 1 to 4096, R from E to 256,
+               duplicate-heavy and -1 links, padding queries, dims 100
+               and 98), index_bytes, and close / reopen as HNSW;
      lean_graph — inside phase 5, after hnsw: that graph attached to a
                lean store of the same rows (from_device_blocks: int8
                mirror + bf16 rows), the graph route at ef 120 / 200 (K2's
@@ -495,37 +502,46 @@ def k5_bytes(nd, ef: int) -> int:
 
 def k3_vs_plain(q, base, links0, cur, dist, efs, tag):
     """K3 against its plain version on a graph route's own inputs (all B
-    queries from the greedy descent's entries `cur`) at each ef: ids equal on
-    >= 0.99 of the entries, the distances of equal ids within rtol 1e-5 (the
-    two sum in different orders), and K3's distances K2's bits for the same
-    rows (one row_dist, beam_body.cuh).  Returns (per-ef results, the
-    largest error, (kernel ms, plain ms) at the first ef, timed in turns)."""
-    import torch
-    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets
-    from lab_1806_vec_db_tpu_torch.ops import gather as G
-    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+    queries from the greedy descent's entries `cur`) at each ef
+    (`time_adc.k3_check`): ids equal on >= 0.99 of the entries, the
+    distances of equal ids within rtol 1e-5 (the two sum in different
+    orders), K3's distances K2's bits for the same rows (one row distance,
+    beam_body.cuh), and K3 equal bit for bit to the plain loop run on K2's
+    distances.  Returns (per-ef results, the largest error, (kernel ms,
+    plain ms) at the first ef, timed in turns)."""
+    from lab_1806_vec_db_tpu_torch.bench import time_adc as TA
 
     res, err, times = {}, 0.0, None
     for ef in efs:
-        iters, ring_n = _budgets(ef)
-        kw = dict(E=4, R=min(ring_n, 256), max_iters=iters, dist=dist)
-        k3 = lambda ef=ef, kw=kw: TR.traverse(q, base, links0, cur, ef, links0.shape[1], **kw)
-        k3_ref = lambda ef=ef, kw=kw: TR.traverse_ref(q, base, links0, cur, ef, links0.shape[1], **kw)
-        (dk, ik), (dr, ir) = k3(), k3_ref()
-        torch.cuda.synchronize()
-        same = ik == ir
-        frac = float(same.float().mean())
-        check(frac >= 0.99, f"{tag} ef {ef}: ids equal on {frac:.4f} of entries (< 0.99)")
-        fin = same & (ik >= 0)
-        torch.testing.assert_close(dk[fin], dr[fin], rtol=1e-5, atol=0.0)
-        e = float((dk[fin] - dr[fin]).abs().max())
-        err = max(err, e)
-        d2 = G.gather_dists(q, base, ik, dist)
-        check(torch.equal(d2[ik >= 0], dk[ik >= 0]), f"{tag} ef {ef}: distances differ from K2's for the same rows")
-        res[ef] = {"ids_equal_share": frac, "ids_all_equal": bool(same.all()), "max_abs_err": e}
+        r, k3, k3_ref = TA.k3_check(q, base, links0, cur, ef, dist)
+        check(r["ids_equal_share"] >= 0.99, f"{tag} ef {ef}: ids equal on {r['ids_equal_share']:.4f} of entries (< 0.99)")
+        check(r["rtol_1e-5"], f"{tag} ef {ef}: equal ids' distances apart by {r['max_rel_err']:.3g} (> rtol 1e-5)")
+        check(r["k2_bits"], f"{tag} ef {ef}: distances differ from K2's for the same rows")
+        check(r["equal_to_loop_on_k2"], f"{tag} ef {ef}: K3 differs from the plain loop on K2's distances")
+        res[ef] = r
+        err = max(err, r["max_abs_err"])
         if times is None:
             times = in_turns(k3, k3_ref, 5, 1)
     return res, err, times
+
+
+def k3_occupancy(B=1000):
+    """K3's CTAs per SM (CUDA's occupancy calculator at `k3_plan`'s shared
+    memory, R 256, dim 960) and waves at B queries, at the graph routes'
+    ef 120 / 200 / 360 on both row types; more than one wave fails."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for rows in ("f32", "bf16"):
+        for ef in (120, 200, 360):
+            smem = TR.k3_plan(ef, 256, 960)[1]
+            ctas = TR.ctas_per_sm(smem, rows == "bf16")
+            out[f"{rows}_ef{ef}"] = {"smem_bytes": smem, "ctas_per_sm": ctas, "waves": -(-B // max(ctas * sms, 1))}
+    log(f"[2/6] K3 occupancy at B = {B} on {sms} SMs: {out}")
+    check(all(v["waves"] == 1 for v in out.values()), f"K3: B = {B} takes more than one wave: {out}")
+    return out
 
 
 def phase_hnsw(db, db_dir, key, q_host, gt):
@@ -662,6 +678,14 @@ def phase_hnsw(db, db_dir, key, q_host, gt):
     out["k3_vs_plain"], meas["k3_err"], meas["k3"] = k3_vs_plain(q, base, links0, cur, index.dist,
                                                                  (120, 200, 360), "K3")
     meas["k3_bytes"] = B * out["traversal_stats_ef120"]["rows_scored_mean"] * 4 * index.dim
+    t0 = time.perf_counter()
+    edge = TA.k3_edge_checks()
+    out["k3_edge_cases"] = {"s": time.perf_counter() - t0, **edge}
+    bad = {name: r for name, r in edge.items() if not r["ok"]}
+    check(not bad, f"K3 differs from its plain version on random graphs: {bad}")
+    log(f"[hnsw] K3 on {len(edge)} random graphs (time_adc.k3_edge_checks) equal to the plain loop on K2's "
+        f"distances in {out['k3_edge_cases']['s']:.1f} s; ids equal to the plain version's on "
+        f"{min(r['ids_equal_share'] for r in edge.values()):.4f}-1 of entries")
     log(f"[hnsw] K3 at B = {B} against its plain version: {out['k3_vs_plain']}; "
         f"times (kernel, plain) K3 {meas['k3']}, K4 {meas['k4']}, K5 {meas['k5']} ms")
 
@@ -3152,6 +3176,15 @@ def knn_agree(d, i, d_ref, i_ref, tag, rtol=1e-5) -> int:
     return int(swaps)
 
 
+def rel_err_f64(rows, q, ids, d) -> float:
+    """Largest relative error of returned l2sqr distances d (B, k) against
+    the float64 exact distances of q[b] to rows[ids[b, j]] (ids >= 0)."""
+    ok = ids >= 0
+    v = rows[ids.clamp_min(0).long()].double()
+    exact = ((v - q.double()[:, None, :]) ** 2).sum(-1)
+    return float(((d.double() - exact).abs() / exact.abs().clamp_min(1e-30))[ok].max())
+
+
 def sharded_flat_ivf_1m(store, q, gt, nlist=256, device="cuda"):
     """sharded_flat_1m and sharded_ivf_1m on flat_1m's rows (the store's f32
     rows, which the shards view in place), with their 4 -> 2 resize."""
@@ -3242,6 +3275,14 @@ def sharded_flat_ivf_1m(store, q, gt, nlist=256, device="cuda"):
         d_all, i_all = ivf._knn_device(q, k, nlist)
         sync(device)
         ivf_out["all_probes_s"] = time.perf_counter() - t0
+        # both sides against float64 exact on the card: the all-probes
+        # distances (list by list), the exact scan's (65,536-row blocks), and
+        # the reference's cached-norm formula (`knn_gathered`) on the scan's ids
+        d_g, i_g = T.knn_gathered(q, vecs, i_ref, k, dist, cache)
+        f64 = {"all_probes": rel_err_f64(rows, q, i_all, d_all), "exact_scan": rel_err_f64(rows, q, i_ref, d_ref),
+               "knn_gathered": rel_err_f64(rows, q, i_g, d_g)}
+        ivf_out["max_rel_err_vs_f64"] = f64
+        log(f"[sharded] ivf_1m: largest relative error against float64 exact: {f64}")
         # list-by-list products round apart from the scan's 65,536-row blocks
         # (q^2 + x^2 - 2 q.x cancels): ties and distances at rtol 1e-4
         ivf_out["all_probes_swaps"] = knn_agree(d_all, i_all, d_ref, i_ref, "sharded_ivf_1m all probes",
@@ -3476,10 +3517,10 @@ def main() -> None:
         ("k10", "scan_int8_binned_kernel"), ("k12", "scan_bf16_chunkmin_kernel"),
         ("k13", "scan_int8_bf16_kernelILb0E"), ("k14", "scan_int8_bf16_kernelILb1E"),
         ("k3", "traverse_kernel"), ("k4", "beam_pre_kernel"), ("k5", "beam_post_kernel"))}
-    for key, rep in ptxas.items():  # K3's figures are recorded, not gated
+    for key, rep in ptxas.items():
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
-        check(key == "k3" or rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"],
-              f"ptxas: {key} spills: {rep}")
+        check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
+    k3_occ = k3_occupancy()
 
     from lab_1806_vec_db_tpu_torch.bench import synth
 
@@ -3573,13 +3614,15 @@ def main() -> None:
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_traverse.py:251",
          "launches": hnsw_launches["k3"], "max_abs_err": hm["k3_err"],
          "ms": hm["k3"][0], "plain_ms": hm["k3"][1], "bound_ms": k3b[0], "bound_by": k3b[1],
-         "library_ms": None, "ptxas": ptxas["k3"]},
+         "library_ms": None, "ptxas": ptxas["k3"],
+         "occupancy": {k: v for k, v in k3_occ.items() if k.startswith("f32")}},
         # K3 on the lean tier's bf16 rows: lean_graph's route at ef 120
         {"name": "traverse_bf16", "route": "cuda", "source": f"{PKG}/csrc/traverse.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_traverse.py:251",
          "launches": hm["k3_bf16"]["launches"], "max_abs_err": hm["k3_bf16"]["max_abs_err"],
          "ms": hm["k3_bf16"]["ms"], "plain_ms": hm["k3_bf16"]["plain_ms"],
-         "bound_ms": hm["k3_bf16"]["bound"][0], "bound_by": hm["k3_bf16"]["bound"][1], "library_ms": None},
+         "bound_ms": hm["k3_bf16"]["bound"][0], "bound_by": hm["k3_bf16"]["bound"][1], "library_ms": None,
+         "ptxas": ptxas["k3"], "occupancy": {k: v for k, v in k3_occ.items() if k.startswith("bf16")}},
         {"name": "beam_pre", "route": "cuda", "source": f"{PKG}/csrc/beam_pre.cu",
          "replaces": "lab_1806_vec_db_tpu/ops/pallas_beam.py:148",
          "launches": hnsw_launches["k4"], "max_abs_err": hm["k4_err"],

@@ -1,8 +1,8 @@
 """Time the ADC kernels at the smoke's shapes on one NVIDIA GPU.
 
-    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k4] [k5] [k6] [k7] [k8] [k9] [k10] [k11] [k12] [k13] [k14]
+    python3 lab_1806_vec_db_tpu_torch/bench/time_adc.py [label] [k1] [k2] [k3] [k4] [k5] [k6] [k7] [k8] [k9] [k10] [k11] [k12] [k13] [k14]
 
-(the named kernels only; all twelve without a name).
+(the named kernels only; all fourteen without a name).
 
 Run from the root of a checkout (it imports the package found there, so a
 second checkout, such as a parent commit unpacked with `git archive`, is
@@ -54,6 +54,16 @@ LUTs it times, with CUDA events (three means of five launches each):
   128, on `beam_states.merge_state`, with its library line (stable
   torch.sort + gather) replayed from a CUDA graph too, and untimed on
   `beam_states`' edge cases and at ef + EL = 8,192 (`k6_edge_checks`);
+- K3 (the whole level-0 search) on one seeded HNSW graph of hnsw_200k's
+  shape (`k3_graph`: 200,000 x 960 Gist-spectrum rows, M 16,
+  ef_construction 200, the smoke's seeds; 1000 queries from the greedy
+  descent's entries) at ef 120 / 200 / 360 over the f32 rows and over the
+  lean tier's bf16 rows of the same graph, each with its byte bound (the
+  novel rows `traversal_stats` counts), its ptxas registers and CTAs per
+  SM, held to its plain version (`k3_check`); then untimed on random
+  graphs (`k3_edge_checks`, which the smoke runs too);
+- K2 (the rerank gather) at the smoke's shape, 1000 x 40 ids (10% -1) of
+  those 200,000 rows, f32 and bf16, back to back and replayed;
 
 each K1 / K4 / K5 / K6 / K8 / K9 / K10 result against its plain version (torch.equal,
 the plain version timed beside it), and prints each kernel's registers from the
@@ -68,6 +78,7 @@ from __future__ import annotations
 import inspect
 import os
 import sys
+import time
 
 
 def _ms(fn, reps: int = 5) -> float:
@@ -119,14 +130,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_adc: no CUDA device")
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    which = set(sys.argv[2:]) or {"k1", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k11", "k12", "k13", "k14"}
+    which = set(sys.argv[2:]) or {"k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k9", "k10", "k11", "k12",
+                                  "k13", "k14"}
     _build.library()
     print(label, "build s", round(_build.build_info["seconds"], 1))
     log = _build.build_info["log"].splitlines()
     for i, ln in enumerate(log[:-1]):
         if "Function properties for" in ln and any(f in ln for f in ("chunkmin", "adc_sums", "k9", "k8",
                                                                        "scan_int8_packed", "binned", "beam_p",
-                                                                       "scan_int8_bf16", "merge_sorted")):
+                                                                       "scan_int8_bf16", "merge_sorted", "gather_dists")):
             print("  ", ln.split("for ")[-1][:90], "|", log[i + 1].strip()[:60], "|",
                   log[i + 2].strip()[:70] if i + 2 < len(log) else "")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -152,6 +164,8 @@ def main() -> None:
         del codes
     if "k1" in which:
         _time_k1(label, g)
+    if which & {"k2", "k3"}:
+        _time_k23(label, which)
     if which & {"k4", "k5"}:
         _time_k45(label, which)
     if "k10" in which:
@@ -209,6 +223,182 @@ def _time_k1(label, g, B=1000, D=1024):
               f"equal {equal}", flush=True)
         del args
         torch.cuda.empty_cache()
+
+
+def k3_graph(n=200_000, dim=960, B=1000):
+    """The seeded HNSW graph of hnsw_200k's shape: `synth.make_device`
+    Gist-spectrum rows (seed 2, the smoke's table) and queries (seed 3), M
+    16, ef_construction 200, levels from seed 0 -> (index, queries)."""
+    from lab_1806_vec_db_tpu_torch.bench import synth
+    from lab_1806_vec_db_tpu_torch.models import VecStore
+    from lab_1806_vec_db_tpu_torch.models.hnsw import HNSWIndex
+    from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig
+
+    x = synth.make_device(n, dim, 2, "cuda")
+    q = synth.make_device(B, dim, 3, "cuda")
+    index = HNSWIndex.build_from_store(VecStore.from_device(x, "l2sqr"),
+                                       HNSWConfig(M=16, ef_construction=200), seed=0)
+    return index, q
+
+
+def k3_check(q, base, links0, cur, ef, dist, E=4, R=None, iters=None):
+    """K3 against its plain version on one set of inputs, at the graph
+    route's budgets for ef unless R / iters are given -> (results, K3 call,
+    plain call).  The results: the share of ids equal to the plain
+    version's, the distances of equal ids within rtol 1e-5 (the plain
+    version sums in another order), K3's distances K2's bits for the same
+    rows, and K3 equal bit for bit to the plain loop (K4 / K5's plain
+    versions) run on K2's distances."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets
+    from lab_1806_vec_db_tpu_torch.ops import beam as BM
+    from lab_1806_vec_db_tpu_torch.ops import beam_fused as BF
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    L = links0.shape[1]
+    iters = _budgets(ef)[0] if iters is None else iters
+    R = min(_budgets(ef)[1], 256) if R is None else R
+    kw = dict(E=E, R=R, max_iters=iters, dist=dist)
+    k3 = lambda: TR.traverse(q, base, links0, cur, ef, L, **kw)
+    k3_ref = lambda: TR.traverse_ref(q, base, links0, cur, ef, L, **kw)
+    (dk, ik), (dr, ir) = k3(), k3_ref()
+    nd = lambda ids: G.gather_dists(q, base, ids, dist)
+    dl, il = BM.lockstep(cur, nd, lambda ids: links0[ids.long()], ef, iters, E, R, BF.beam_pre_ref,
+                         BF.beam_post_ref)
+    torch.cuda.synchronize()
+    same = ik == ir
+    fin = same & (ik >= 0)
+    a, r = dk[fin].double(), dr[fin].double()
+    res = {"ids_equal_share": float(same.float().mean()), "ids_all_equal": bool(same.all()),
+           "max_abs_err": float((a - r).abs().max()) if a.numel() else 0.0,
+           "max_rel_err": float(((a - r).abs() / r.abs().clamp_min(1e-30)).max()) if a.numel() else 0.0,
+           "rtol_1e-5": bool(torch.allclose(dk[fin], dr[fin], rtol=1e-5, atol=0.0)),
+           "k2_bits": bool(torch.equal(G.gather_dists(q, base, ik, dist)[ik >= 0], dk[ik >= 0])),
+           "equal_to_loop_on_k2": bool(torch.equal(ik, il) and torch.equal(dk.view(torch.int32),
+                                                                          dl.view(torch.int32)))}
+    return res, k3, k3_ref
+
+
+# the random graphs of `k3_edge_checks`: (name, dim, rows dtype, dist, E,
+# ef, R, links "dup" / "neg" / "dupneg" / "", padding queries)
+K3_EDGE_CASES = (
+    [(f"E{E}_{dist}_{dt}", 960, dt, dist, E, 128, 256, "dupneg", True)
+     for dist in ("l2sqr", "cosine") for dt in ("f32", "bf16") for E in (1, 2, 4, 8)]
+    + [(f"ef{ef}_{dt}", 960, dt, "l2sqr", 4, ef, 256, "", False)
+       for ef in (1, 129, 1000, 4096) for dt in ("f32", "bf16")]
+    + [(f"R{R}", 960, "bf16", "l2sqr", 4, 200, R, "dup", True) for R in (4, 5, 100, 256)]
+    + [(f"dim{dim}_{dist}_{dt}", dim, dt, dist, 4, 200, 256, "neg", True)
+       for dim in (100, 98) for dist in ("l2sqr", "cosine") for dt in ("f32", "bf16")])
+
+
+def k3_edge_checks(n=20_000, B=64) -> dict:
+    """K3 against its plain version (`k3_check`) on random graphs of n
+    rows, one per `K3_EDGE_CASES` entry: every E / L the kernel takes, ef
+    1 to 4096 (W = MAX_W), R from E to 256, duplicate-heavy and -1 links,
+    padding queries, and dims 100 (the 4-lane loads' partial last step)
+    and 98 (the scalar path), both metrics, f32 and bf16 rows ->
+    {name: results}.  A case is "ok" when K3 equals the plain loop on K2's
+    distances bit for bit, its distances are K2's bits, and equal ids'
+    distances are within rtol 1e-5 of the plain version's; the share of
+    ids equal to the plain version's is reported: on Gaussian rows of dim
+    960 a deep beam (ef 1000) holds rows whose distances two summation
+    orders put in either order."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k, (name, dim, dt, dist, E, ef, R, links, pad) in enumerate(K3_EDGE_CASES):
+        rng = np.random.default_rng(100 + k)
+        L = 128 // E
+        x = rng.standard_normal((n, dim)).astype(np.float32) + (0.5 if dist == "cosine" else 0.0)
+        lk = rng.integers(0, n // 200 if "dup" in links else n, (n, L)).astype(np.int32)
+        if "neg" in links:
+            lk[rng.random((n, L)) < 0.25] = -1
+        cur = rng.integers(0, n, B).astype(np.int32)
+        if pad:
+            cur[::9] = -1
+        q = torch.from_numpy(rng.standard_normal((B, dim)).astype(np.float32)).cuda()
+        base = torch.from_numpy(x).cuda()
+        base = base.to(torch.bfloat16) if dt == "bf16" else base
+        r, _, _ = k3_check(q, base, torch.from_numpy(lk).cuda(), torch.from_numpy(cur).cuda(), ef, dist, E, R)
+        r["ok"] = r["equal_to_loop_on_k2"] and r["k2_bits"] and r["rtol_1e-5"]
+        out[name] = r
+    return out
+
+
+def _time_k23(label, which, B=1000):
+    """K3 on `k3_graph` at ef 120 / 200 / 360 over its f32 rows and over
+    the lean tier's bf16 rows of the same graph (timed and held to its
+    plain version, the plain version timed once), with its byte bound and
+    CTAs per SM, and the graph route's wall QPS (`knn_with_ef_batch`,
+    host clock); `k3_edge_checks`; K2 at the smoke's shape on both row
+    types."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.models import VecStore
+    from lab_1806_vec_db_tpu_torch.models.hnsw import _budgets, links_rows
+    from lab_1806_vec_db_tpu_torch.ops import _build
+    from lab_1806_vec_db_tpu_torch.ops import gather as G
+    from lab_1806_vec_db_tpu_torch.ops import traverse as TR
+
+    index, q = k3_graph(B=B)
+    full = index.store
+    x = full.device()[0][: len(full)]
+    lean = VecStore.from_device_blocks(lambda r0, r: x[r0 : r0 + r], len(full), full.dim, "l2sqr",
+                                       device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = _build.build_info["log"].splitlines()
+    for i, ln in enumerate(log[:-2]):
+        if "Function properties for" in ln and "traverse_kernel" in ln:
+            print(label, "K3 ptxas", "bf16" if "It" in ln.split("traverse_kernel")[-1][:3] else "f32", "|",
+                  log[i + 1].strip(), "|", log[i + 2].strip(), flush=True)
+    for tag, store in (("f32", full), ("bf16", lean)):
+        base = store.device_rerank()
+        links0 = links_rows(index._links0_device(), base.shape[0])
+        cur = index._descend(q, lambda ids: G.gather_dists(q, base, ids, "l2sqr"))
+        index.store = store
+        try:
+            for ef in (120, 200, 360) if "k3" in which else ():
+                res, k3, k3_ref = k3_check(q, base, links0, cur, ef, "l2sqr")
+                rows = float(index.traversal_stats(q.cpu().numpy(), 10, ef)[2].mean())
+                bound = B * rows * base.element_size() * base.shape[1] / 3.35e12 * 1e3
+                times = [round(_ms(k3, 5), 4) for _ in range(3)]
+                occ = ""
+                if hasattr(TR, "k3_plan"):
+                    smem = TR.k3_plan(ef, min(_budgets(ef)[1], 256), base.shape[1])[1]
+                    ctas = TR.ctas_per_sm(smem, tag == "bf16")
+                    occ = f"smem {smem} CTAs/SM {ctas} waves {-(-B // (ctas * sms))} "
+                print(label, f"K3 {tag} ef {ef} B {B}: ms {times} plain {_ms(k3_ref, 1):.2f} bound {bound:.4f} "
+                      f"(rows/query {rows:.1f}) {occ}check {res}", flush=True)
+                # the graph route's wall QPS (host clock, synchronous batches): a report
+                q_host = q.cpu().numpy()
+                index.knn_with_ef_batch(q_host, 10, ef, route="graph")
+                rounds = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(4):
+                        index.knn_with_ef_batch(q_host, 10, ef, route="graph")
+                    rounds.append(time.perf_counter() - t0)
+                print(label, f"graph route ({tag} rows) ef {ef}: QPS best {4 * B / min(rounds):.0f} "
+                      f"median {4 * B / sorted(rounds)[1]:.0f}", flush=True)
+        finally:
+            index.store = full
+        if "k2" in which:
+            g = torch.Generator(device="cuda").manual_seed(7)
+            ids = torch.randint(0, len(full), (B, 40), generator=g, device="cuda", dtype=torch.int32)
+            ids[torch.rand((B, 40), generator=g, device="cuda") < 0.1] = -1
+            k2 = lambda: G.gather_dists(q, base, ids, "l2sqr")
+            d, ref = k2(), G.gather_dists_ref(q, base, ids, "l2sqr")
+            ok = bool(torch.allclose(d[ids >= 0], ref[ids >= 0], rtol=1e-5, atol=1e-6))
+            print(label, f"K2 {tag} {B} x 40: ms {[round(_ms(k2, 20), 4) for _ in range(3)]} graph ms "
+                  f"{[round(graph_ms(k2, 50), 4) for _ in range(3)]} close {ok}", flush=True)
+    if "k3" in which:
+        edge = k3_edge_checks()
+        print(label, "K3 edge cases ok:", {k: v["ok"] for k, v in edge.items()}, "ids equal shares:",
+              {k: round(v["ids_equal_share"], 4) for k, v in edge.items()}, flush=True)
+        bad = {k: v for k, v in edge.items() if not v["ok"]}
+        if bad:
+            print(label, "K3 edge cases failing:", bad, flush=True)
 
 
 def _time_k45(label, which, B=1000, E=4, EL=128, R=256, N=200_000):

@@ -1,18 +1,17 @@
 // Device code shared by the graph-search kernels, for Hopper (sm_90a):
 //
 //   row_dist / query_norm   the exact per-row distance (K2, K3; f32 or bf16 rows)
-//   block_rank              block-wide ballot prefix count (K3, K4)
-//   dedup_compact           K3's tile dedup + novel-first compaction
-//   bitonic_sort            K3's merge: sort of the 2W (d, rank<<1|e) keys
-//   remask_select           K3's epilogue: ef re-mask + expansion select
-//   order_key / count_below the merge by rank of K5 and K6: a float's u32
+//   row_dists               row_dist of NR rows at once, the same bits (K3)
+//   block_rank              block-wide ballot prefix count (K4)
+//   set_insert / set_has    the open-addressing id set of the dedup (K3, K4)
+//   order_key / count_below the merge by rank of K3, K5 and K6: a float's u32
 //                           order key, the co-rank of a key in a sorted run
 //   copy_lanes              K5's and K6's vector lane copies
 //
-// K3 (csrc/traverse.cu) is one CTA's whole loop on these and gives the same
-// bits as K2 (csrc/gather_dists.cu).  K4 and K5 (csrc/beam_pre.cu,
-// csrc/beam_post.cu) have bodies of their own, a hash-set dedup and a merge
-// by rank, with the same semantics: those of
+// K3 (csrc/traverse.cu) is one CTA's whole loop, with K4's dedup and K5's
+// merge by rank on shared memory, and gives the same bits as K2
+// (csrc/gather_dists.cu).  K4 and K5 (csrc/beam_pre.cu, csrc/beam_post.cu)
+// are one iteration's halves, with the semantics of
 // lab_1806_vec_db_tpu/ops/pallas_beam.py (_dedup_compact, _ring_shift,
 // _merge_select), whose plain PyTorch versions are in ops/beam_fused.py and
 // against which all three kernels are tested.
@@ -100,6 +99,82 @@ __device__ __forceinline__ float row_dist(const T* __restrict__ v, const float* 
   return 1.f - dot / fmaxf(vn * qn, 1e-10f);
 }
 
+// row_dist of NR rows at once (v[r] == nullptr: no row, out[r] untouched),
+// for more bytes in flight: each step issues the loads of U steps of the
+// lane's stride for every row before it adds any of them.  Each lane adds
+// its elements in row_dist's order and the warp sums as row_dist does, so
+// every distance has row_dist's bits.  One loop nest a metric, so l2sqr
+// holds no |v| sums.
+template <bool COSINE, int NR, int U, typename T>
+__device__ __forceinline__ void row_dists_metric(const T* const (&v)[NR], const float* qb, int dim,
+                                                 int dim4, float qn, int lane, float (&out)[NR]) {
+  const float4* qb4 = reinterpret_cast<const float4*>(qb);
+  float acc[NR], vv[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) acc[r] = vv[r] = 0.f;
+#pragma unroll 1
+  for (int i0 = lane; i0 < dim4; i0 += 32 * U) {
+    float4 a[U][NR];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        if (v[r] && i0 + 32 * u < dim4) a[u][r] = load4(v[r], i0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + 32 * u >= dim4) break;
+      const float4 c = qb4[i0 + 32 * u];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        if (!v[r]) continue;
+        const float4 x = a[u][r];
+        if (COSINE) {
+          acc[r] += x.x * c.x + x.y * c.y + x.z * c.z + x.w * c.w;
+          vv[r] += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+        } else {
+          const float dx = x.x - c.x, dy = x.y - c.y, dz = x.z - c.z, dw = x.w - c.w;
+          acc[r] += dx * dx + dy * dy + dz * dz + dw * dw;
+        }
+      }
+    }
+  }
+  for (int i = dim4 * 4 + lane; i < dim; i += 32) {
+    const float c = qb[i];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (!v[r]) continue;
+      const float x = load1(v[r], i);
+      if (COSINE) {
+        acc[r] += x * c;
+        vv[r] += x * x;
+      } else {
+        const float dx = x - c;
+        acc[r] += dx * dx;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    if (!v[r]) continue;
+    if (COSINE) {
+      const float dot = warp_sum(acc[r]);
+      const float vn = sqrtf(warp_sum(vv[r]));
+      out[r] = 1.f - dot / fmaxf(vn * qn, 1e-10f);
+    } else {
+      out[r] = warp_sum(acc[r]);
+    }
+  }
+}
+
+template <int NR, int U, typename T>
+__device__ __forceinline__ void row_dists(const T* const (&v)[NR], const float* qb, int dim, int dim4,
+                                          bool cosine, float qn, int lane, float (&out)[NR]) {
+  if (cosine)
+    row_dists_metric<true, NR, U>(v, qb, dim, dim4, qn, lane, out);
+  else
+    row_dists_metric<false, NR, U>(v, qb, dim, dim4, qn, lane, out);
+}
+
 // Block-wide inclusive count of `flag` in thread order: a flagged thread
 // gets its 1-based rank, and `total` the number of flagged threads.
 // warp_tot: blockDim.x / 32 ints of shared memory.
@@ -120,30 +195,30 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_tot, int& total) 
   return off + r;
 }
 
-// K3's dedup.  Thread t < EL holds tile lane t (needs blockDim.x >= EL).  A
-// lane is fresh when its id is >= 0, not in beam_i[0, W) or ring[0, R), and
-// in no earlier lane.  Fresh ids are compacted to comp[0, count) in lane
-// order, -1 fills comp[count, comp_w) (comp_w >= EL).  Returns count on every
-// thread.
-__device__ __forceinline__ int dedup_compact(const int* nbrs, int EL, const int* beam_i, int W,
-                                             const int* ring, int R, int* comp, int comp_w,
-                                             int* warp_tot) {
-  const int t = threadIdx.x;
-  int id = -1;
-  bool fresh = false;
-  if (t < EL) {
-    id = nbrs[t];
-    fresh = id >= 0;
-    for (int j = 0; fresh && j < t; ++j) fresh = nbrs[j] != id;
-    for (int j = 0; fresh && j < W; ++j) fresh = beam_i[j] != id;
-    for (int j = 0; fresh && j < R; ++j) fresh = ring[j] != id;
+// The dedup's id sets: open addressing with linear probing in shared
+// memory, 2^log2_slots slots, -1 = empty; never full (the callers size them
+// to at least twice their ids).  Membership does not depend on the order of
+// insertion or probing.
+__device__ __forceinline__ unsigned hash_slot(int id, int log2_slots) {
+  return (static_cast<unsigned>(id) * 0x9e3779b1u) >> (32 - log2_slots);
+}
+
+// Put id (>= 0) into the set unless it is there; returns its slot.
+__device__ __forceinline__ int set_insert(int* table, int log2_slots, int id) {
+  const unsigned mask = (1u << log2_slots) - 1u;
+  for (unsigned s = hash_slot(id, log2_slots);; s = (s + 1) & mask) {
+    const int prev = atomicCAS(table + s, -1, id);
+    if (prev == -1 || prev == id) return static_cast<int>(s);
   }
-  for (int j = t; j < comp_w; j += blockDim.x) comp[j] = -1;
-  int count;
-  const int rank = block_rank(fresh, warp_tot, count);  // its barrier orders the -1 fill first
-  if (fresh) comp[rank - 1] = id;
-  __syncthreads();
-  return count;
+}
+
+__device__ __forceinline__ bool set_has(const int* table, int log2_slots, int id) {
+  const unsigned mask = (1u << log2_slots) - 1u;
+  for (unsigned s = hash_slot(id, log2_slots);; s = (s + 1) & mask) {
+    const int v = table[s];
+    if (v == id) return true;
+    if (v == -1) return false;
+  }
 }
 
 // u32 image of d, monotone in the float order; -0 and +0 give one key, NaN
@@ -176,85 +251,6 @@ struct alignas(sizeof(T) * V) Lanes {
 template <int V, typename T>
 __device__ __forceinline__ void copy_lanes(T* dst, const T* src) {
   *reinterpret_cast<Lanes<V, T>*>(dst) = *reinterpret_cast<const Lanes<V, T>*>(src);
-}
-
-// Ascending bitonic sort of n (a power of two) keys (kd, kre) carrying kid.
-// Keys compare as (d, re) lexicographically and must be distinct, so the
-// order is unique: the stable sort of the plain version gives it too.
-__device__ __forceinline__ void bitonic_sort(float* kd, int* kre, int* kid, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
-        const int a = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int b = a + j;
-        const float da = kd[a], db = kd[b];
-        const int ra = kre[a], rb = kre[b];
-        const bool gt = da > db || (da == db && ra > rb);
-        if (gt == ((a & k) == 0)) {
-          kd[a] = db;
-          kd[b] = da;
-          kre[a] = rb;
-          kre[b] = ra;
-          const int t = kid[a];
-          kid[a] = kid[b];
-          kid[b] = t;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// K3's epilogue on the sorted keys' first W lanes: lanes >= ef, non-finite
-// d and id < 0 become (inf, -1, e 0); the E lowest-lane unexpanded entries
-// are marked expanded and written to sel[0, E), -1 after.  Leaves kre[j] = e.
-__device__ __forceinline__ void remask_select(float* kd, int* kre, int* kid, int W, int ef, int E,
-                                              int* sel, int* warp_tot) {
-  for (int j = threadIdx.x; j < SEL_LANES; j += blockDim.x) sel[j] = -1;
-  int offset = 0;
-  for (int base = 0; base < W; base += blockDim.x) {
-    const int j = base + threadIdx.x;
-    bool unexp = false;
-    float d = INFINITY;
-    int id = -1, e = 0;
-    if (j < W) {
-      d = kd[j];
-      id = kid[j];
-      e = kre[j] & 1;
-      if (!(j < ef && isfinite(d) && id >= 0)) {
-        d = INFINITY;
-        id = -1;
-        e = 0;
-      }
-      unexp = e == 0 && id >= 0;
-    }
-    int total;
-    const int rank = offset + block_rank(unexp, warp_tot, total);
-    if (unexp && rank <= E) {
-      e = 1;
-      sel[rank - 1] = id;
-    }
-    if (j < W) {
-      kd[j] = d;
-      kid[j] = id;
-      kre[j] = e;
-    }
-    offset += total;
-  }
-  __syncthreads();
-}
-
-// Load the merge keys: beam lanes [0, W) get re = j<<1 | e (e in kre[j]);
-// the tile goes to [W, 2W) with re = (W+j)<<1 (tile lanes >= T are empty).
-__device__ __forceinline__ void stage_merge(float* kd, int* kre, int* kid, int W, const float* td,
-                                            const int* ti, int T) {
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    kre[j] = (j << 1) + kre[j];
-    kd[W + j] = j < T ? td[j] : INFINITY;
-    kid[W + j] = j < T ? ti[j] : -1;
-    kre[W + j] = (W + j) << 1;
-  }
-  __syncthreads();
 }
 
 }  // namespace vecdb

@@ -19,8 +19,9 @@
 // threads (EL when wider), four barriers, no scan of the beam:
 //
 //   - the beam's and the ring's ids >= 0 go into an open-addressing hash
-//     set in shared memory (linear probing, atomicCAS; a power of two >=
-//     2 (W + R) slots, so probes stay short);
+//     set in shared memory (beam_body.cuh's set_insert, shared with K3:
+//     linear probing, atomicCAS; a power of two >= 2 (W + R) slots, so
+//     probes stay short);
 //   - the tile's ids go into a second small table (>= 2 EL slots) whose
 //     slot also keeps the smallest lane holding the id (atomicMin);
 //   - tile lane t is fresh iff its id is >= 0, missing from the set, and t
@@ -41,29 +42,6 @@ namespace {
 constexpr int MIN_THREADS = 256;
 constexpr int MAX_SET_SLOTS = 32768;  // 128 KB; a wider beam and ring fill it past one half
 constexpr int BATCH = 4;              // ids loaded ahead of their inserts
-
-__device__ __forceinline__ unsigned hash_slot(int id, int log2_slots) {
-  return (static_cast<unsigned>(id) * 0x9e3779b1u) >> (32 - log2_slots);
-}
-
-// Put id (>= 0) into the table of 2^log2_slots slots (-1 = empty) unless it
-// is there; returns its slot.  The table is never full.
-__device__ __forceinline__ int insert(int* table, int log2_slots, int id) {
-  const unsigned mask = (1u << log2_slots) - 1u;
-  for (unsigned s = hash_slot(id, log2_slots);; s = (s + 1) & mask) {
-    const int prev = atomicCAS(table + s, -1, id);
-    if (prev == -1 || prev == id) return static_cast<int>(s);
-  }
-}
-
-__device__ __forceinline__ bool contains(const int* table, int log2_slots, int id) {
-  const unsigned mask = (1u << log2_slots) - 1u;
-  for (unsigned s = hash_slot(id, log2_slots);; s = (s + 1) & mask) {
-    const int v = table[s];
-    if (v == id) return true;
-    if (v == -1) return false;
-  }
-}
 
 int log2_ceil(int n) {
   int l = 0;
@@ -100,15 +78,15 @@ beam_pre_kernel(const int* __restrict__ beam_i, const int* __restrict__ ring,
     }
 #pragma unroll
     for (int u = 0; u < BATCH; ++u)
-      if (v[u] >= 0) insert(s_set, log2_set, v[u]);
+      if (v[u] >= 0) vecdb::set_insert(s_set, log2_set, v[u]);
   }
   int tslot = 0;
   if (id >= 0) {
-    tslot = insert(s_tid, log2_tile, id);
+    tslot = vecdb::set_insert(s_tid, log2_tile, id);
     atomicMin(s_tlane + tslot, t);
   }
   __syncthreads();
-  const bool fresh = id >= 0 && s_tlane[tslot] == t && !contains(s_set, log2_set, id);
+  const bool fresh = id >= 0 && s_tlane[tslot] == t && !vecdb::set_has(s_set, log2_set, id);
   int count;
   const int rank = vecdb::block_rank(fresh, warp_tot, count);
   if (fresh) comp[b * W + rank - 1] = id;

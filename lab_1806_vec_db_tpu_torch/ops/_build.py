@@ -81,8 +81,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_beam_pre.restype = I
     lib.vecdb_beam_post.argtypes = [P] * 9 + [I] * 4 + [P]
     lib.vecdb_beam_post.restype = I
-    lib.vecdb_traverse.argtypes = [P] * 6 + [I, I, L] + [I] * 7 + [P]
+    lib.vecdb_traverse.argtypes = [P] * 6 + [I, I, L] + [I] * 6 + [L, I, P]
     lib.vecdb_traverse.restype = I
+    lib.vecdb_traverse_ctas_per_sm.argtypes = [I, L, P]
+    lib.vecdb_traverse_ctas_per_sm.restype = I
     lib.vecdb_merge_sorted.argtypes = [P] * 8 + [I] * 3 + [P]
     lib.vecdb_merge_sorted.restype = I
     lib.vecdb_adc_chunkmin.argtypes = [P] * 5 + [ctypes.c_float, P, P] + [I] * 8 + [P]

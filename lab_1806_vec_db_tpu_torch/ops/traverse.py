@@ -4,11 +4,12 @@ ops/pallas_traverse.py's `traverse`).
 Per query the kernel (`csrc/traverse.cu`) runs the fused lock-step loop of
 `ops/beam.py` with all of its state in shared memory: each iteration reads
 the level-0 links of the E selected ids straight from the (cap, L) link
-matrix, dedups and compacts them (K4's body), scores the novel rows (K2's
-row distance), and merges and selects (K5's body), until no beam entry is
-left unexpanded or `max_iters` is reached.  The three bodies live in one
-header (`csrc/beam_body.cuh`), so K3 is K4 + K5 plus a row gather, with
-the same semantics and the same distance bits as K2.
+matrix, dedups and compacts them through K4's hash set, scores the novel
+rows (K2's row distance, several rows a warp at once), and merges and
+selects by K5's merge by rank, until no beam entry is left unexpanded or
+`max_iters` is reached: the same semantics as K4 + K2 + K5 and the same
+distance bits as K2.  `k3_plan` sizes a CTA's shared memory, so that B =
+1000 queries are resident in one wave up to ef 360.
 
 The rows are the full store's f32 rows or the lean tier's bf16 rerank rows
 (`VecStore.device_rerank()`), read in place: the kernel is a template on the
@@ -36,10 +37,49 @@ from . import beam_fused as BF
 from . import gather as G
 
 EL = 128  # neighbor-tile lanes: the kernel requires E * L == 128
+THREADS = 128  # a K3 CTA: one thread per tile lane (csrc/traverse.cu)
+SMEM_MAX = 227 * 1024  # the most shared memory an H100 CTA may take
 
 
 def _widths(ef: int) -> int:
     return BF.pow2(max(ef, EL))
+
+
+def k3_plan(ef: int, R: int, dim: int) -> tuple[int, int]:
+    """(log2 of the id set's slots, shared-memory bytes) of one K3 CTA.
+
+    The set holds the beam's and the ring's ids: a power of two of at least
+    2 (W + R) slots (W = pow2(max(ef, 128)), the reference's beam width), so
+    it stays under half full.  The bytes are `csrc/traverse.cu:smem_bytes`'s
+    sum, which the kernel checks: the query row, two beams of ef lanes (d,
+    id, e), the set, the tile's id table (256 slots, ids and smallest
+    lanes), the ring, the compacted tile (ids, distances), sel (128 lanes)
+    and two rows of warp totals, each section rounded up to 4 words."""
+    log2_set = (2 * (_widths(ef) + R) - 1).bit_length()
+    up4 = lambda n: (n + 3) & ~3
+    smem = 4 * (up4(dim) + 6 * up4(ef) + (1 << log2_set) + 2 * 2 * EL + up4(R) + 2 * EL + 128
+                + 2 * (THREADS // 32))
+    return log2_set, smem
+
+
+def ctas_per_sm(smem: int, bf16: bool) -> int:
+    """K3 CTAs resident on one SM of the current CUDA device at this
+    shared-memory size (CUDA's occupancy calculator)."""
+    import ctypes
+
+    n = ctypes.c_int(0)
+    _build.check(_build.library().vecdb_traverse_ctas_per_sm(int(bf16), smem, ctypes.byref(n)),
+                 "traverse occupancy")
+    return n.value
+
+
+def k3_flags(base, dim: int, dist: str) -> int:
+    """The kernel's flags: bit 0 cosine; bit 1 the 4-lane vector loads (16
+    bytes of f32, 8 of bf16: dim % 4 == 0 and the rows aligned to that);
+    bit 2 bf16 rows."""
+    bf16 = base.dtype == torch.bfloat16
+    vec4 = dim % 4 == 0 and base.data_ptr() % (8 if bf16 else 16) == 0
+    return (1 if dist == "cosine" else 0) | (2 if vec4 else 0) | (4 if bf16 else 0)
 
 
 def traverse_ref(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
@@ -67,6 +107,10 @@ def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
                          f"links0 {tuple(links0.shape)}")
     if not 0 < E <= R <= 256 or ef <= 0 or _widths(ef) > BF.MAX_W:
         raise ValueError(f"traverse: need 0 < E <= R <= 256 and 0 < ef <= {BF.MAX_W}")
+    log2_set, smem = k3_plan(ef, R, q.shape[1])
+    if smem > SMEM_MAX:
+        raise ValueError(f"traverse: ef {ef}, R {R}, dim {q.shape[1]} need {smem} bytes of shared "
+                         f"memory a CTA (> {SMEM_MAX})")
     if q.dtype != torch.float32 or base.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"traverse takes f32 queries and f32 / bf16 rows, got {q.dtype}/{base.dtype}")
     if links0.dtype != torch.int32 or entry.dtype != torch.int32:
@@ -87,16 +131,13 @@ def traverse(q, base, links0, entry, ef: int, L: int, E: int = 4, R: int = 256,
     q, entry = q.contiguous(), entry.contiguous()
     out_d = torch.empty((B, ef), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, ef), dtype=torch.int32, device=dev)
-    bf16 = base.dtype == torch.bfloat16
-    # 4 lanes a load: 16 bytes of f32 rows, 8 of bf16 rows
-    vec4 = dim % 4 == 0 and base.data_ptr() % (8 if bf16 else 16) == 0
-    flags = (1 if dist == "cosine" else 0) | (2 if vec4 else 0) | (4 if bf16 else 0)
+    flags = k3_flags(base, dim, dist)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.vecdb_traverse(
             q.data_ptr(), base.data_ptr(), links0.data_ptr(), entry.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), B, dim, base.shape[0], L, ef, _widths(ef), R, E,
-            max_iters, flags, torch.cuda.current_stream(dev).cuda_stream)
+            out_d.data_ptr(), out_i.data_ptr(), B, dim, base.shape[0], L, ef, R, E, max_iters,
+            log2_set, smem, flags, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "traverse")
     traverse.launches += 1
     return out_d, out_i

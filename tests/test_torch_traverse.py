@@ -8,7 +8,11 @@ the distances are f32 sums in different orders, so a tie at the tail of a
 beam may flip: id overlap >= 0.97 and the first 8 distances within rtol /
 atol 1e-5, the reference's own tolerance for its kernel.  Over the lean
 tier's bf16 rows (a few hundred rows, no near ties) the ids are equal and
-every distance within rtol 1e-5."""
+every distance within rtol 1e-5, also at a dim that is not a multiple of 8
+(or of 4: the kernel's scalar path) and at ef 129, one past a beam width.
+The host side of the kernel is tested here too: its shared-memory plan
+(`k3_plan`: one wave of 1000 queries up to ef 360, a launch at MAX_W) and
+its load flags."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -80,6 +84,70 @@ def test_traverse_bf16_rows_match_pallas(dist):
     exact = G.gather_dists_ref(qt, rows, i2, dist).numpy()
     fin = i2.numpy() >= 0
     np.testing.assert_array_equal(d2.numpy()[fin], exact[fin])
+
+
+@pytest.mark.parametrize("dim,ef,dist,iters", [(100, 129, "l2sqr", 8), (98, 24, "cosine", 24)])
+def test_traverse_bf16_rows_match_pallas_at_odd_widths(dim, ef, dist, iters):
+    """bf16 rows at a dim that is no multiple of 8 (100: 4-lane loads with a
+    partial last step; 98: no multiple of 4, the scalar path), the first at
+    ef 129 (W 256, one past the 128-lane beam; 8 iterations, the
+    reference's interpret-mode sort of 512 keys an iteration being the
+    test's cost): the reference in interpret mode and the port's plain
+    version give the same ids, distances within rtol 1e-5."""
+    L, E = 32, 4
+    base, links, q, entry = _inputs(N=400, dim=dim, L=L, B=12, seed=5)
+    d1, i1 = PT.traverse(jnp.asarray(q), PG.prepare_rerank_base(jnp.asarray(base), jnp.bfloat16),
+                         PT.pack_links(jnp.asarray(links)), jnp.asarray(entry), ef, L, E=E,
+                         R=128, max_iters=iters, dist=dist, bq=16, interpret=True)
+    rows = torch.from_numpy(base).to(torch.bfloat16)
+    d2, i2 = TR.traverse(torch.from_numpy(q), rows, torch.from_numpy(links), torch.from_numpy(entry), ef,
+                         L, E=E, R=128, max_iters=iters, dist=dist)
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(i1))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(d1), rtol=1e-5, atol=1e-6)
+    assert (i2.numpy() >= 0).all()  # the beam is full: every lane past the old width is live
+
+
+def test_k3_plan_one_wave_and_max_w():
+    """K3's launch plan: the id set is the smallest power of two of at least
+    2 (W + R) slots (and holds the merge's 384 words of keys); the shared
+    memory is the kernel's layout; up to ef 360 at dim 960 eight CTAs fit an
+    SM (8 x 132 SMs hold B = 1000 in one wave); MAX_W still launches; a plan
+    past the CTA limit is refused before any work."""
+    W = TR._widths
+    for ef in (1, 120, 128, 129, 200, 360, 1000, BF.MAX_W):
+        for R in (4, 100, 256):
+            log2_set, smem = TR.k3_plan(ef, R, 960)
+            n_set = 1 << log2_set
+            assert 2 * (W(ef) + R) <= n_set < 4 * (W(ef) + R) and n_set >= 3 * TR.EL
+            assert smem % 16 == 0
+    # 960 + 6 x 120 + 1024 + 512 + 256 + 256 + 128 + 8 words
+    assert TR.k3_plan(120, 256, 960) == (10, 4 * 3864)
+    for ef in (120, 200, 360):  # an H100 SM has 228 KB, each resident CTA reserving 1 KB
+        smem = TR.k3_plan(ef, 256, 960)[1]
+        assert 228 * 1024 // (smem + 1024) >= 8, (ef, smem)
+    assert TR.k3_plan(BF.MAX_W, 256, 960)[1] <= TR.SMEM_MAX
+    assert TR.k3_plan(BF.MAX_W, 256, 20_000)[1] > TR.SMEM_MAX
+    base, links, q, entry = (torch.from_numpy(a) for a in _inputs(N=50, dim=8, L=32, B=2))
+    wide = torch.zeros((2, 60_000))
+    with pytest.raises(ValueError, match="shared memory"):
+        TR.traverse(wide, torch.zeros((50, 60_000)), links, entry, 10, 32, E=4)
+
+
+def test_k3_flags():
+    """Bit 0 cosine, bit 1 the 4-lane loads (dim % 4 == 0 and rows aligned
+    to 16 bytes of f32 / 8 of bf16), bit 2 bf16 rows."""
+    f = torch.zeros((10, 64))
+    assert TR.k3_flags(f, 64, "l2sqr") == 2 and TR.k3_flags(f, 64, "cosine") == 3
+    assert TR.k3_flags(f.to(torch.bfloat16), 64, "l2sqr") == 6
+    assert TR.k3_flags(torch.zeros((10, 100), dtype=torch.bfloat16), 100, "l2sqr") == 6
+    assert TR.k3_flags(torch.zeros((10, 98)), 98, "l2sqr") == 0
+    assert TR.k3_flags(torch.zeros((10, 98), dtype=torch.bfloat16), 98, "cosine") == 5
+    flat = torch.zeros(10 * 64 + 4)
+    assert TR.k3_flags(flat[4:].view(10, 64), 64, "l2sqr") == 2  # 16 bytes in
+    assert TR.k3_flags(flat[1:641].view(10, 64), 64, "l2sqr") == 0  # 4 bytes in
+    half = torch.zeros(10 * 64 + 4, dtype=torch.bfloat16)
+    assert TR.k3_flags(half[4:].view(10, 64), 64, "l2sqr") == 6  # 8 bytes in
+    assert TR.k3_flags(half[2:642].view(10, 64), 64, "l2sqr") == 4  # 4 bytes in
 
 
 def test_traverse_wrapper_on_cpu_is_the_plain_version():
