@@ -39,7 +39,9 @@ Ported so far, over float32 tables:
   CUDA store answers one query on the card);
 - the tools: `bench/harness.py` (TOML ef sweeps, `ResultList`, `mesh = N`),
   `bench/synth.py`'s CLI, `cli/gen_gnd.py`, `cli/convert_fvecs.py`,
-  `utils/io.py` (raw and fvecs files) and `utils/profiling.py`;
+  `utils/io.py` (raw and fvecs files) and `utils/profiling.py` (the
+  program's spans at each layer boundary of a search, recorded into a
+  `torch.profiler` trace or counted by `collect()`, and `trace(dir)`);
 - the sharded indexes (`parallel/`): a `Mesh` is one process and a tuple of
   devices (`make_mesh`); Flat, PQFlat, IVF, HNSW (K4 / K5 on a CUDA shard)
   and IVF-PQ (K11, K7) shard their rows over it and merge the shards' bests

@@ -24,6 +24,7 @@ from .thread_save import ThreadSavingManager
 from ..ops.distance import check_dist
 from ..models.store import ScanMode
 from ..utils.device import resolve
+from ..utils.profiling import span
 
 TABLE_SAVE_INTERVAL = 60.0  # mod.rs:161-163
 BRIEF_SAVE_INTERVAL = 5.0  # mod.rs:305-310
@@ -303,9 +304,10 @@ class VecDBManager:
         ef: int | None = None,
         upper_bound: float | None = None,
     ) -> list[tuple[dict[str, str], float]]:
-        mgr = self._table_mgr(key)
-        with mgr.read():
-            return mgr.obj.search(query, k, ef, upper_bound)
+        with span("db.search"):
+            mgr = self._table_mgr(key)
+            with mgr.read():
+                return mgr.obj.search(query, k, ef, upper_bound)
 
     def batch_search(
         self,
@@ -315,9 +317,10 @@ class VecDBManager:
         ef: int | None = None,
         upper_bound: float | None = None,
     ):
-        mgr = self._table_mgr(key)
-        with mgr.read():
-            return mgr.obj.batch_search(queries, k, ef, upper_bound)
+        with span("db.batch_search"):
+            mgr = self._table_mgr(key)
+            with mgr.read():
+                return mgr.obj.batch_search(queries, k, ef, upper_bound)
 
     def extract_data(self, key: str):
         mgr = self._table_mgr(key)

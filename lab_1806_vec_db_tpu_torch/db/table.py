@@ -22,6 +22,7 @@ from ..models.pq_table import PQTable
 from ..models.store import ScanMode
 from ..utils import serde
 from ..utils.config import PQConfig
+from ..utils.profiling import span
 
 
 class MetadataVecTable:
@@ -139,25 +140,28 @@ class MetadataVecTable:
                upper_bound: float | None = None) -> list[tuple[dict[str, str], float]]:
         if len(self) == 0:
             return []
-        query = self._cast_rows(query)[0]
+        with span("db.cast"):
+            query = self._cast_rows(query)[0]
         if ef is not None and self.pq is not None:
             results = self.inner.knn_pq(query, k, ef, self.pq)
         elif ef is not None:
             results = self.inner.knn_with_ef(query, k, ef)
         else:
             results = self.inner.knn(query, k)
-        ub = float("inf") if upper_bound is None else upper_bound
-        return [
-            (dict(self.metadata[p.index]), p.distance)
-            for p in results
-            if p.distance <= ub
-        ]
+        with span("db.join"):
+            ub = float("inf") if upper_bound is None else upper_bound
+            return [
+                (dict(self.metadata[p.index]), p.distance)
+                for p in results
+                if p.distance <= ub
+            ]
 
     def batch_search(self, queries, k: int, ef: int | None = None,
                      upper_bound: float | None = None) -> list[list[tuple[dict[str, str], float]]]:
         """Batched search: one device dispatch carries the whole query
         batch.  Routing matches `search`."""
-        queries = self._cast_rows(queries)
+        with span("db.cast"):
+            queries = self._cast_rows(queries)
         if len(self) == 0:
             return [[] for _ in range(len(queries))]
         if ef is not None and self.pq is not None:
@@ -167,15 +171,16 @@ class MetadataVecTable:
         else:
             # through DynamicIndex, so a mesh mirror serves batches too
             d, ids = self.inner.knn_batch(queries, k)
-        ub = float("inf") if upper_bound is None else upper_bound
-        out = []
-        for qi in range(len(queries)):
-            row = []
-            for dist_val, idx in zip(d[qi], ids[qi]):
-                if idx >= 0 and dist_val <= ub:
-                    row.append((dict(self.metadata[int(idx)]), float(dist_val)))
-            out.append(row)
-        return out
+        with span("db.join"):
+            ub = float("inf") if upper_bound is None else upper_bound
+            out = []
+            for qi in range(len(queries)):
+                row = []
+                for dist_val, idx in zip(d[qi], ids[qi]):
+                    if idx >= 0 and dist_val <= ub:
+                        row.append((dict(self.metadata[int(idx)]), float(dist_val)))
+                out.append(row)
+            return out
 
     def extract_data(self) -> list[tuple[list[float], dict[str, str]]]:
         vecs = self.inner.inner.store.numpy()

@@ -49,6 +49,7 @@ from ..ops import scan as S
 from ..ops import topk as T
 from ..utils import serde
 from ..utils.candidates import CandidatePair, pairs_from_arrays
+from ..utils.profiling import span
 
 # Below this row count the planner takes the single-pass exact f32 scan:
 # K1 keeps one survivor per 128 mirror rows, so at small n the candidate
@@ -128,11 +129,13 @@ class FlatIndex:
         the lean tier the rerank reads bf16 rows; the final distances are
         then refined to exact f32 (and re-sorted) when the store kept its
         generator, else they stay bf16-grade (`store.distance_precision`)."""
-        d, i = self._knn_device(queries, k, exact)
-        d, i = d.cpu().numpy(), i.cpu().numpy()
-        if self.store.tier == "lean":
-            return self.store.refine_result(self._queries(queries), d, i)
-        return d, i
+        with span("flat.knn_batch"):
+            d, i = self._knn_device(queries, k, exact)
+            with span("flat.fetch"):
+                d, i = d.cpu().numpy(), i.cpu().numpy()
+            if self.store.tier == "lean":
+                return self.store.refine_result(self._queries(queries), d, i)
+            return d, i
 
     @property
     def uses_pca(self) -> bool:
@@ -156,10 +159,11 @@ class FlatIndex:
         return min(max(mult * k, 32), n)
 
     def _queries(self, queries) -> torch.Tensor:
-        if isinstance(queries, torch.Tensor):
-            return torch.atleast_2d(queries).to(self.device, torch.float32)
-        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        return torch.from_numpy(q).to(self.device)
+        with span("flat.upload"):
+            if isinstance(queries, torch.Tensor):
+                return torch.atleast_2d(queries).to(self.device, torch.float32)
+            q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+            return torch.from_numpy(q).to(self.device)
 
     def _knn_device(self, queries, k: int, exact: bool | None = None,
                     rerank_depth: int | None = None):
@@ -182,25 +186,32 @@ class FlatIndex:
                     "exact f32 scan unavailable on a lean-tier store (no f32 device copy), and "
                     "the int8 self-test failed or exact=True was asked, so the quantized stage 1 "
                     "cannot stand in for it")
-            vecs, cache = self.store.device()
-            return T.knn_scan(q, vecs, cache, n, k, self.dist)
+            with span("flat.exact"):
+                vecs, cache = self.store.device()
+                return T.knn_scan(q, vecs, cache, n, k, self.dist)
         r = self.rerank_depth(k, rerank_depth)
-        if self.uses_pca:
-            proj, mu, p8, pscale, pcache = self.store.device_proj_int8(self.store.scan_mode.pca_dim)
-            # the projected mirror is in row order: its ids are row ids, and
-            # rows >= n carry the losing sentinel
-            _, cand = S.scan_candidates_int8_packed(PJ.project(q, proj, mu), p8, pscale, pcache,
-                                                    r, self.dist)
-            cand = torch.where(cand < n, cand, T.INVALID_ID)
-        elif scan in ("int8", "pca"):
-            base_i8, scales, cache8, perm = self.store.device_int8()
-            # validity lives IN the permuted mirror (sentinels), not in a bound
-            _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
-            cand = T.decode_perm(cand, perm, n)
-        else:  # "bf16" ("exact" took the branch above)
-            scan_vecs, scan_cache = self.store.device_traversal()
-            _, cand = T.scan_candidates(q, scan_vecs, scan_cache, n, r, self.dist)
-        return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
+        route = "flat.pca" if self.uses_pca else "flat.int8" if scan in ("int8", "pca") else "flat.bf16"
+        with span(route):
+            if self.uses_pca:
+                proj, mu, p8, pscale, pcache = self.store.device_proj_int8(self.store.scan_mode.pca_dim)
+                # the projected mirror is in row order: its ids are row ids, and
+                # rows >= n carry the losing sentinel
+                with span("flat.k1"):
+                    _, cand = S.scan_candidates_int8_packed(PJ.project(q, proj, mu), p8, pscale,
+                                                            pcache, r, self.dist)
+                cand = torch.where(cand < n, cand, T.INVALID_ID)
+            elif scan in ("int8", "pca"):
+                base_i8, scales, cache8, perm = self.store.device_int8()
+                # validity lives IN the permuted mirror (sentinels), not in a bound
+                with span("flat.k1"):
+                    _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
+                with span("flat.decode"):
+                    cand = T.decode_perm(cand, perm, n)
+            else:  # "bf16" ("exact" took the branch above)
+                scan_vecs, scan_cache = self.store.device_traversal()
+                _, cand = T.scan_candidates(q, scan_vecs, scan_cache, n, r, self.dist)
+            with span("flat.k2"):
+                return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
 
     def knn(self, query, k: int) -> list[CandidatePair]:
         """Single-query search through the exact scan on the store's device.
@@ -208,14 +219,18 @@ class FlatIndex:
         (`native.flat_knn_single`), as the reference serves it; a CUDA store
         scans on the card, where its rows live.  A lean store has no f32
         rows and takes `knn_batch`'s refined two-stage plan."""
-        if self.store.tier == "lean":
-            d, i = self.knn_batch(query, k)
-            return pairs_from_arrays(d[0], i[0], k)
-        if self.store.dtype == np.float32 and self.device.type == "cpu":
-            ids, dists = native.flat_knn_single(self.store, np.asarray(query, np.float32), k)
-            return [CandidatePair(int(i_), float(d_)) for i_, d_ in zip(ids, dists)]
-        d, i = self._knn_device(query, k, exact=True)
-        return pairs_from_arrays(d[0].cpu().numpy(), i[0].cpu().numpy(), k)
+        with span("flat.knn"):
+            if self.store.tier == "lean":
+                d, i = self.knn_batch(query, k)
+                return pairs_from_arrays(d[0], i[0], k)
+            if self.store.dtype == np.float32 and self.device.type == "cpu":
+                with span("flat.native"):
+                    ids, dists = native.flat_knn_single(self.store, np.asarray(query, np.float32), k)
+                    return [CandidatePair(int(i_), float(d_)) for i_, d_ in zip(ids, dists)]
+            d, i = self._knn_device(query, k, exact=True)
+            with span("flat.fetch"):
+                d, i = d[0].cpu().numpy(), i[0].cpu().numpy()
+            return pairs_from_arrays(d, i, k)
 
     def knn_with_ef(self, query, k: int, ef: int) -> list[CandidatePair]:
         """Flat search ignores ef."""

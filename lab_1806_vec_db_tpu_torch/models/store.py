@@ -37,6 +37,7 @@ from ..ops import project as PJ
 from ..ops import topk as T
 from ..ops.scan import _BIG
 from ..utils.device import resolve
+from ..utils.profiling import span
 
 _MIN_CAP = 8
 # rows per block of the on-device mirror build (bounds the f32 gather and
@@ -554,28 +555,29 @@ class VecStore:
         with self._lock:
             vecs, cache = self.device()
             if self._dev_int8 is None:
-                if self._scan_perm is None or len(self._scan_perm) != self._cap:
-                    rng = np.random.default_rng(self._cap ^ 0x5EED)
-                    self._scan_perm = rng.permutation(self._cap).astype(np.int32)
-                    self._scan_inv = np.empty(self._cap, np.int32)
-                    self._scan_inv[self._scan_perm] = np.arange(self._cap, dtype=np.int32)
-                dim_pad = ((self.dim + 127) // 128) * 128
-                perm = torch.from_numpy(self._scan_perm).to(self.torch_device)
-                q8 = torch.empty((self._cap, dim_pad), dtype=torch.int8, device=self.torch_device)
-                scale = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                # built in permuted order, one block of gathered rows at a time:
-                # no (cap, dim) transient beside the live tensors
-                for s0 in range(0, self._cap, _BLOCK_ROWS):
-                    src = perm[s0 : s0 + _BLOCK_ROWS].long()
-                    q8v, scv, cpv = _mirror_rows(vecs[src], cache[src], dim_pad, self.dist)
-                    q8[s0 : s0 + len(src)] = q8v
-                    scale[s0 : s0 + len(src)] = scv
-                    cache_p[s0 : s0 + len(src)] = cpv
-                valid = perm < self._n
-                scale = torch.where(valid, scale, 0.0)
-                cache_p = torch.where(valid, cache_p, _BIG)
-                self._dev_int8 = (q8, scale, cache_p, perm)
+                with span("store.mirror"):
+                    if self._scan_perm is None or len(self._scan_perm) != self._cap:
+                        rng = np.random.default_rng(self._cap ^ 0x5EED)
+                        self._scan_perm = rng.permutation(self._cap).astype(np.int32)
+                        self._scan_inv = np.empty(self._cap, np.int32)
+                        self._scan_inv[self._scan_perm] = np.arange(self._cap, dtype=np.int32)
+                    dim_pad = ((self.dim + 127) // 128) * 128
+                    perm = torch.from_numpy(self._scan_perm).to(self.torch_device)
+                    q8 = torch.empty((self._cap, dim_pad), dtype=torch.int8, device=self.torch_device)
+                    scale = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                    cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
+                    # built in permuted order, one block of gathered rows at a time:
+                    # no (cap, dim) transient beside the live tensors
+                    for s0 in range(0, self._cap, _BLOCK_ROWS):
+                        src = perm[s0 : s0 + _BLOCK_ROWS].long()
+                        q8v, scv, cpv = _mirror_rows(vecs[src], cache[src], dim_pad, self.dist)
+                        q8[s0 : s0 + len(src)] = q8v
+                        scale[s0 : s0 + len(src)] = scv
+                        cache_p[s0 : s0 + len(src)] = cpv
+                    valid = perm < self._n
+                    scale = torch.where(valid, scale, 0.0)
+                    cache_p = torch.where(valid, cache_p, _BIG)
+                    self._dev_int8 = (q8, scale, cache_p, perm)
             q8, scale, cache_p, perm = self._dev_int8
             b = self._scan_bound
             if b is not None and b < self._n:
@@ -630,7 +632,8 @@ class VecStore:
             self._int8_ok = (True, max(self._n, 1))  # tiny sets: exact path anyway
         else:
             vecs, _ = self.device()
-            score = T.int8_ordering_selftest(vecs, self._n, self.dist)
+            with span("store.selftest"):
+                score = T.int8_ordering_selftest(vecs, self._n, self.dist)
             self._int8_ok = (score >= 0.95, self._n)
             if not self._int8_ok[0]:
                 print(

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import distance as D
+from ..utils.profiling import span
 
 INVALID_ID = -1
 
@@ -87,22 +88,23 @@ def knn_scan(
     base_cache (N_pad,).  Returns (B, k) f32 dists ascending and (B, k) int32
     ids (-1 where fewer than k rows exist).  The product is `torch.matmul`,
     as the reference leaves it to XLA outside any Pallas kernel."""
-    B = queries.shape[0]
-    q = queries.float()
-    q_cache = D.dist_cache(q, dist)
-    n = min(int(n_valid), base.shape[0])
-    best_d = torch.full((B, 0), float("inf"), device=q.device)
-    best_i = torch.full((B, 0), INVALID_ID, dtype=torch.int32, device=q.device)
-    for start in range(0, max(n, 1), block):
-        stop = min(start + block, n)
-        if stop <= start:
-            break
-        d = D.pairwise(q, base[start:stop], dist, q_cache=q_cache,
-                       base_cache=base_cache[start:stop])
-        ids = torch.arange(start, stop, dtype=torch.int32, device=q.device).expand(B, -1)
-        td, ti = select_smallest(d, ids, min(k, stop - start))
-        best_d, best_i = merge_topk(best_d, best_i, td, ti, k)
-    return _pad_k(best_d, best_i, k)
+    with span("scan.knn_scan"):  # on CUDA it only enqueues: nothing in it syncs
+        B = queries.shape[0]
+        q = queries.float()
+        q_cache = D.dist_cache(q, dist)
+        n = min(int(n_valid), base.shape[0])
+        best_d = torch.full((B, 0), float("inf"), device=q.device)
+        best_i = torch.full((B, 0), INVALID_ID, dtype=torch.int32, device=q.device)
+        for start in range(0, max(n, 1), block):
+            stop = min(start + block, n)
+            if stop <= start:
+                break
+            d = D.pairwise(q, base[start:stop], dist, q_cache=q_cache,
+                           base_cache=base_cache[start:stop])
+            ids = torch.arange(start, stop, dtype=torch.int32, device=q.device).expand(B, -1)
+            td, ti = select_smallest(d, ids, min(k, stop - start))
+            best_d, best_i = merge_topk(best_d, best_i, td, ti, k)
+        return _pad_k(best_d, best_i, k)
 
 
 _SCAN_BLOCK = 262144  # rows per block of `scan_candidates` (bounds its (B, block) tiles)
