@@ -21,6 +21,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   4. K2      — the rerank gather kernel against its plain version (B = 1000,
                r = 40, dim 960, some -1 ids), both metrics: rtol 1e-5,
                atol 1e-6, +inf exactly where the id is -1;
+               then the exact small-batch scan (`scan_exact_small.cu`) on
+               the same 200,000 rows, cosine: against its plain version and
+               float64 at B 1 / 4 / 16, k 1 / 10 / 32, timed at one query in
+               turns with the plain version, beside its byte bound and the
+               library's GEMV + `torch.topk`;
                then the cosine columns of K12-K14 on the same 200,000 rows
                against their plain versions (K13 / K14 equal element for
                element, K12 within rtol 1e-5 / atol 1e-6 with ids equal
@@ -106,6 +111,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                the exact scan, QPS of chained batches (best and median of 5
                rounds of 8), a per-stage split timed with CUDA events, each
                kernel against its plain version, and index_device_bytes;
+               the exact small-batch scan at one query, l2sqr, on the same
+               rows (checked and timed as in phase 4); `FlatIndex.knn`'s
+               operations on the card and kernel launches a search;
      resident — on the same rows (l2sqr, B = 1000): the three q-resident
                stage-1 entry points (K12 on the store's bf16 copy, K13 and
                K14 on int8 rows with raw channels) each feeding r = 40
@@ -490,6 +498,72 @@ def phase_k2(x, queries):
         worst = max(worst, err)
         log(f"[4/6] K2 {dist}: (1000, 40) within rtol 1e-5 / atol 1e-6 (max abs err {err:.3g})")
     return worst
+
+
+def exact_small_row(x, n, dist, seed):
+    """The exact small-batch scan (csrc/scan_exact_small.cu) at one query
+    over n rows of x: checked against its plain version and float64 at B
+    1 / 4 / 16 and k 1 / 10 / 32 (distances within 1e-5, cosine against its
+    range; ids equal but for float64 near-ties within 1e-6), then timed at B
+    1, k 10 in turns with the plain version, beside its byte bound and the
+    library's GEMV + `torch.topk`."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import distance as D
+    from lab_1806_vec_db_tpu_torch.ops import scan_small as SS
+
+    dim = x.shape[1]
+    cache = D.dist_cache(x[:n], dist)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    floor = 1.0 if dist == "cosine" else 1e-30
+    worst, ids_differ = 0.0, 0
+    for B in (1, 4, SS.B_MAX):
+        q = torch.randn((B, dim), generator=gen, device="cuda")
+        for k in (1, 10, SS.K_MAX):
+            d, i = SS.exact_scan_small(q, x, cache, n, k, dist)
+            rd, ri = SS.exact_scan_small_ref(q, x, cache, n, k, dist)
+            own, ref = (dist64_rows(x, q, ids, dist) for ids in (i, ri))
+            err = float(((d.double() - own).abs() / own.abs().clamp_min(floor)).max())
+            gap = float(((own.sort(1)[0] - ref.sort(1)[0]).abs() / ref.abs().clamp_min(floor)).max())
+            check(err < 1e-5, f"exact_small {dist} B {B} k {k}: {err:.3g} off float64")
+            check(gap <= 1e-6, f"exact_small {dist} B {B} k {k}: ids differ beyond near-ties ({gap:.3g})")
+            worst, ids_differ = max(worst, err), ids_differ + int((i != ri).sum())
+    q = torch.randn((1, dim), generator=gen, device="cuda")
+    launches = SS.exact_scan_small.launches
+    kern = lambda: SS.exact_scan_small(q, x, cache, n, 10, dist)
+    plain = lambda: SS.exact_scan_small_ref(q, x, cache, n, 10, dist)
+
+    def library():  # one GEMV and torch.topk (no tie order): the yardstick
+        dots = (x[:n] @ q[0])
+        if dist == "l2sqr":
+            dd = cache + (q[0] @ q[0]) - 2 * dots
+        else:
+            dd = 1 - dots / (cache * q[0].norm()).clamp_min(1e-10)
+        return torch.topk(dd, 10, largest=False)
+
+    ms, plain_ms = in_turns(kern, plain, 200, 3)
+    calls = 200 * 2 + 2
+    check(SS.exact_scan_small.launches - launches == calls,
+          f"exact_small: {SS.exact_scan_small.launches - launches} launches for {calls} calls")
+    bound = bound_ms(n * dim * 4 + n * 4 * (dist == "cosine") + dim * 4 + 10 * 8)
+    out = {"n": n, "dim": dim, "dist": dist, "batch": 1, "k": 10, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": cuda_ms(library, 50), "bound": bound, "roofline_pct": 100 * bound[0] / ms,
+           "max_rel_err_f64": worst, "ids_differ_near_ties": ids_differ}
+    log(f"[exact_small] {n} x {dim} {dist}: {ms:.4f} ms (bound {bound[0]:.4f}, {out['roofline_pct']:.1f}%), "
+        f"plain {plain_ms:.3f}, library {out['library_ms']:.4f}; checks at B 1 / 4 / {SS.B_MAX} pass")
+    return out
+
+
+def dist64_rows(x, q, ids, dist):
+    """float64 distances (B, k) of the rows ids names (+inf at -1)."""
+    import torch
+
+    v = x[ids.clamp_min(0).long()].double()
+    qq = q.double()[:, None, :]
+    if dist == "l2sqr":
+        d = ((v - qq) ** 2).sum(-1)
+    else:
+        d = 1 - (v * qq).sum(-1) / (v.norm(dim=-1) * qq.norm(dim=-1)).clamp_min(1e-10)
+    return torch.where(ids >= 0, d, float("inf"))
 
 
 def k5_bytes(nd, ef: int) -> int:
@@ -2578,6 +2652,9 @@ def phase_1m(card):
     }
     log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps['qps_best']:.0f} median {qps['qps_median']:.0f}, "
         f"stages {split}, {times}")
+    vecs, _ = store.device()
+    out["exact_small"] = exact_small_row(vecs, n, dist, 22)
+    out["knn_single"] = knn_single_ops(flat, q, k)
     resident = phase_resident(store, q, gt.tolist())
     pq_out, k7 = phase_pq_1m(store, flat, q, gt.tolist())
     ivf_out, k10 = phase_ivf_1m(store, q, gt.tolist())
@@ -2586,6 +2663,38 @@ def phase_1m(card):
     sharded = sharded_flat_ivf_1m(store, q, gt.tolist())
     log(f"[sharded] flat_1m + ivf_1m: {time.perf_counter() - t0:.1f} s")
     return out, resident, pq_out, k7, ivf_out, k10, pca, sharded
+
+
+def knn_single_ops(flat, q, k, calls=100):
+    """`FlatIndex.knn` (one query, the exact scan) at flat_1m: operations on
+    the card a search (the profiler's device events, by name), the exact
+    small-batch kernel's launches a search, and host ms a search."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lab_1806_vec_db_tpu_torch.ops import scan_small as SS
+
+    qs = q[:calls].cpu().numpy()
+    flat.knn(qs[0], k)
+    torch.cuda.synchronize()
+    launches = SS.exact_scan_small.launches
+    t0 = time.perf_counter()
+    for row in qs:
+        flat.knn(row, k)
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for row in qs:
+            flat.knn(row, k)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = "scan" if "scan_kernel" in e.name else "merge" if "merge_kernel" in e.name else e.name[:40]
+            ops[name] = ops.get(name, 0) + 1
+    out = {"device_ops_per_search": sum(ops.values()) / calls, "device_ops": ops,
+           "exact_small_launches_per_search": (SS.exact_scan_small.launches - launches) / (2 * calls),
+           "host_ms": ms}
+    log(f"[6/6] FlatIndex.knn at 1M: {out}")
+    return out
 
 
 # --------------------------------------------------------------- pca ----
@@ -3528,6 +3637,7 @@ def main() -> None:
     queries = synth.make_device(1000, 960, 3, "cuda")
     k1_err = phase_k1(x, queries)
     k2_err = phase_k2(x, queries)
+    exact_small = {"200k_cosine": exact_small_row(x, x.shape[0], "cosine", 21)}
     resident_cos = phase_resident_cosine(x, queries)
     x_host, q_host = x.cpu().numpy(), queries.cpu().numpy()
     del x, queries
@@ -3636,6 +3746,18 @@ def main() -> None:
          "library_ms": None, "graph_ms": hm["k5_graph_ms"], "pq_graph": pm["k45_graph_k5"],
          "ptxas": ptxas["k5"], "sharded_launches": s_launch["k5"]},
     ]
+
+    es = exact_small["200k_cosine"]
+    kernels.append(
+        # no TPU kernel behind it (the JAX package's knn_scan is plain XLA);
+        # launches: a FlatIndex.knn search at 1M; timed at 200,000 x 960
+        # cosine and (extra) 1M x 960 l2sqr, one query
+        {"name": "scan_exact_small", "route": "cuda", "source": f"{PKG}/csrc/scan_exact_small.cu",
+         "replaces": None, "launches": m["knn_single"]["exact_small_launches_per_search"],
+         "max_abs_err": max(es["max_rel_err_f64"], m["exact_small"]["max_rel_err_f64"]),
+         "ms": es["ms"], "plain_ms": es["plain_ms"], "bound_ms": es["bound"][0], "bound_by": es["bound"][1],
+         "library_ms": es["library_ms"], "ptxas": ptxas_of(build_log, "11scan_kernelI"),
+         "flat_1m_l2sqr": m["exact_small"], "knn_single_1m": m["knn_single"]})
 
     def pq_kernel(name, src, replaces, launches, meas, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",

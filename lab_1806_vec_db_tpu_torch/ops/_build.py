@@ -95,6 +95,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_adc_sums_dense.restype = I
     lib.vecdb_adc_sums_ids.argtypes = [P] * 4 + [I] * 6 + [L] + [I] * 4 + [P]
     lib.vecdb_adc_sums_ids.restype = I
+    lib.vecdb_scan_exact_small.argtypes = [P] * 7 + [I] * 7 + [P]
+    lib.vecdb_scan_exact_small.restype = I
+    lib.vecdb_scan_exact_small_ctas_per_sm.argtypes = [I] * 4 + [P]
+    lib.vecdb_scan_exact_small_ctas_per_sm.restype = I
     lib.vecdb_error_string.argtypes = [I]
     lib.vecdb_error_string.restype = ctypes.c_char_p
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import distance as D
+from . import scan_small as SS
 from ..utils.profiling import span
 
 INVALID_ID = -1
@@ -87,8 +88,15 @@ def knn_scan(
     queries (B, dim); base (N_pad, dim) with rows >= n_valid as padding;
     base_cache (N_pad,).  Returns (B, k) f32 dists ascending and (B, k) int32
     ids (-1 where fewer than k rows exist).  The product is `torch.matmul`,
-    as the reference leaves it to XLA outside any Pallas kernel."""
+    as the reference leaves it to XLA outside any Pallas kernel.
+
+    A small batch on the card (`scan_small.takes_kernel`: B <= B_MAX, k <=
+    K_MAX, f32 rows) is one hand-written kernel instead, the span
+    `scan.exact_small`; every other call, and every CPU call, is the chain."""
     with span("scan.knn_scan"):  # on CUDA it only enqueues: nothing in it syncs
+        if SS.takes_kernel(queries, base, k):
+            with span("scan.exact_small"):
+                return SS.exact_scan_small(queries, base, base_cache, n_valid, k, dist)
         B = queries.shape[0]
         q = queries.float()
         q_cache = D.dist_cache(q, dist)
