@@ -13,7 +13,14 @@ reference (`reference.py`), from the rows and queries the benchmark made:
   program read and what the TF32 control reads (`cells/<cell>.json`).
 - `recall`: recall@k of the kept answers against the exact top-k, at least
   the cell's `recall_min` (`cells/<cell>.json`), set from sound runs'
-  readings.
+  readings.  Ties count, as far as the exact top-k has them: a valid
+  returned row is a hit if it is in the exact top-k, or if it lies outside
+  it at a distance equal to the exact k-th row's (both by
+  `reference.distances`) and stands in for a top-k row at that distance
+  that was not returned.  Integer distances (uint8 rows) tie at the k-th
+  place, and the reference's top-k keeps the tied rows in no defined order;
+  a set that drops a nearer row for a second tied one still loses a hit
+  (ANN-Benchmarks' `knn` recall at an epsilon of 0 would count it).
 - `failed`: queries whose call raised.  Limit 0.
 """
 
@@ -30,8 +37,9 @@ def judge(ids: np.ndarray, dists: np.ndarray, bad: np.ndarray, q_of: np.ndarray,
     """Numbers of the comparison for kept answers: ids (A, k) int64 (-1
     where absent), dists (A, k) float64, bad (A,) bool (the entry found the
     answer malformed, e.g. its metadata), q_of (A,) int64 indexes into the
-    (Q, dim) float32 `queries`; rows (n, dim) float32 on the reference's
-    device.  Returns {"malformed", "dist_gap", "recall", "answers"}."""
+    (Q, dim) `queries`; rows (n, dim) on the reference's device, float32 or
+    uint8 as the queries.  Returns {"malformed", "dist_gap", "recall",
+    "answers"}."""
     dev = rows.device
     n = rows.shape[0]
     A = ids.shape[0]
@@ -55,7 +63,13 @@ def judge(ids: np.ndarray, dists: np.ndarray, bad: np.ndarray, q_of: np.ndarray,
     gap = torch.where(valid, (prog - d64).abs() / kth[:, None], 0.0)
     gap = torch.nan_to_num(gap, nan=float("inf"))
     truth = exact_i[q_idx_t]
-    hits = ((ids_t[:, :, None] == truth[:, None, :]) & valid[:, :, None]).any(2).sum(1)
+    ex64 = reference.distances(rows, q_dev, torch.arange(len(used), device=dev), exact_i, dist)[q_idx_t]
+    kth_row = ex64[:, kk - 1 :]
+    in_truth = (ids_t[:, :, None] == truth[:, None, :]).any(2) & valid
+    returned = ((truth[:, :, None] == ids_t[:, None, :]) & valid[:, None, :]).any(2)
+    untaken = ((ex64 == kth_row) & ~returned).sum(1)  # tied top-k rows not returned
+    stand_in = (valid & ~in_truth & (d64 == kth_row)).sum(1)  # returned rows tied with them
+    hits = in_truth.sum(1) + torch.minimum(stand_in, untaken)
     return {
         "malformed": int(bad_t.sum()),
         "dist_gap": float(gap.max()) if A else float("inf"),

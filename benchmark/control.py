@@ -1,6 +1,10 @@
-"""The control of a cell's check: the reference, with its products in TF32,
-put in the program's place and judged by the same harness.  A sound check
-comes out not correct on it.
+"""The control of a cell's check: the reference one precision below the
+configuration's, put in the program's place and judged by the same harness.
+A sound check comes out not correct on it.  For float32 rows the reference's
+products are in TF32 (`reference.control_topk`).  For uint8 rows (TF32 is
+exact on 8-bit integers, so it would pass any uint8 check) it answers with the
+reference's exact formula over rows and queries whose lowest bit is cleared:
+7-bit values.
 
     python3 benchmark/control.py --workload <cell> --seeds 11,12,13 --seconds 4
 
@@ -17,26 +21,36 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from benchmark import reference  # noqa: E402
+
 
 class Control:
-    """Answers a cell's calls with `reference.control_topk` on the card."""
+    """Answers a cell's calls with `reference.control_topk` on the card, or
+    for uint8 rows with `reference.exact_topk` of the values & `U8_MASK`."""
+
+    U8_MASK = 0xFE  # the lowest bit cleared
 
     def __init__(self, ctx):
-        from benchmark import reference
+        import torch
 
         rows = ctx.make_rows()
-        sq = (rows * rows).sum(-1)
-        self.norm = sq if ctx.config["dist"] == "l2sqr" else sq.sqrt()
-        self.rows = reference.tf32(rows)
-        del rows
         self.dist, self.k, self.device = ctx.config["dist"], ctx.traffic["k"], ctx.device
-        self.topk = reference.control_topk
+        self.u8 = rows.dtype == torch.uint8
+        if self.u8:
+            self.rows, self.norm = rows & self.U8_MASK, None
+            return
+        sq = (rows * rows).sum(-1)
+        self.norm = sq if self.dist == "l2sqr" else sq.sqrt()
+        self.rows = reference.tf32(rows)
 
     def call(self, q):
         import torch
 
         qd = torch.from_numpy(q.reshape(-1, q.shape[-1])).to(self.device)
-        d, i = self.topk(self.rows, self.norm, qd, self.k, self.dist)
+        if self.u8:
+            d, i = reference.exact_topk(self.rows, qd & self.U8_MASK, self.k, self.dist)
+        else:
+            d, i = reference.control_topk(self.rows, self.norm, qd, self.k, self.dist)
         return d.cpu().numpy(), i.cpu().numpy()
 
     def answers(self, raw, k):

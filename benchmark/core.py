@@ -3,8 +3,8 @@
 Everything that belongs to one configuration, traffic mix, cell or metric is
 a file of its own, found by the names in `BENCHMARK.json`:
 
-- `configs/<config>.json`: the deployment (rows, width, distance, the entry
-  that serves it, what was assumed or cut);
+- `configs/<config>.json`: the deployment (rows, width, distance, `dtype`
+  "float32" or "uint8", the entry that serves it, what was assumed or cut);
 - `entries/<entry>.py`: how the program under test is built and called
   (`setup(ctx) -> system` with `call(q)`, `answers(raw, k)`, `close()`, and
   optionally `ready()` at the end of set-up);
@@ -44,7 +44,7 @@ import time
 
 import numpy as np
 
-from . import check, synth
+from . import check, synth, synth_u8
 from .trace import CALL_SPAN, WINDOW_SPAN, Trace
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -117,16 +117,22 @@ class Context:
         self.cell, self.seed, self.device = cell, seed, device
         self.config, self.traffic = cell.config, cell.traffic
 
-    def make_rows(self):
-        """The configuration's rows on the device, (rows, dim) float32: the
-        same bits every time for one seed."""
+    def _make(self, n: int, tag: str):
         c = self.config
-        return synth.make_device(c["rows"], c["dim"], synth.sub_seed(self.seed, "rows"), self.device)
+        seed = synth.sub_seed(self.seed, tag)
+        if c["dtype"] == "uint8":
+            return synth_u8.make_device(n, c["dim"], seed, self.device)
+        return synth.make_device(n, c["dim"], seed, self.device)
+
+    def make_rows(self):
+        """The configuration's rows on the device, (rows, dim) of its dtype
+        (float32 or uint8): the same bits every time for one seed."""
+        return self._make(self.config["rows"], "rows")
 
     def make_pool(self) -> np.ndarray:
-        """The traffic's pool of queries, (pool, dim) float32 on the host."""
-        return synth.make_device(self.traffic["pool"], self.config["dim"],
-                                 synth.sub_seed(self.seed, "queries"), self.device).cpu().numpy()
+        """The traffic's pool of queries, (pool, dim) of the configuration's
+        dtype on the host."""
+        return self._make(self.traffic["pool"], "queries").cpu().numpy()
 
     def batches(self, pool: np.ndarray):
         """The pool cut into calls in an order shuffled from the seed ->

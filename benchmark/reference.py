@@ -14,6 +14,12 @@ smallest; `distances` gives the float64 distance of given (query, row) pairs
 by the direct formula.  Both work in blocks of rows and queries, so they fit
 beside nothing else on the device once the program's state is freed.
 
+Both take uint8 rows and queries too (a configuration of dtype "uint8"),
+which stay uint8 on the device; a block is cast when it is used.  Their
+products and sums are integers, so the answers are exact: in float64, and
+for l2sqr at dim <= 129 in float32 (`_exact_in_f32`), where every term and
+partial sum stays below 2^24.
+
 `control_topk` is the reference computed one precision below the float32 the
 configurations state: the query-row products in TF32 (each operand rounded to
 a 10-bit mantissa, products summed in float32, as a tensor core does with TF32
@@ -35,12 +41,50 @@ def _sq_norms64(x: torch.Tensor) -> torch.Tensor:
     return (x * x).sum(-1)
 
 
+def _exact_in_f32(rows: torch.Tensor, queries: torch.Tensor, dist: str) -> bool:
+    """uint8 l2sqr is exact in float32 while |q|^2 + |x|^2 <= 2 dim 255^2
+    stays below 2^24: every product, partial sum and distance is then an
+    integer that float32 holds, in any order of summation, TF32 or not (a
+    uint8 operand needs 8 of its 11 bits)."""
+    return (rows.dtype == torch.uint8 and queries.dtype == torch.uint8 and dist == "l2sqr"
+            and 2 * rows.shape[1] * 255**2 < 2**24)
+
+
+def _merge(best_d, best_i, d, r0: int, kk: int):
+    """The k smallest of the running (best_d, best_i) and a block's
+    distances `d`, whose columns are rows r0 onward."""
+    td, tp = torch.topk(d, min(kk, d.shape[1]), dim=1, largest=False)
+    d_all = torch.cat([best_d, td], 1)
+    i_all = torch.cat([best_i, tp + r0], 1)
+    sel_d, sel = torch.topk(d_all, min(kk, d_all.shape[1]), dim=1, largest=False)
+    return sel_d, torch.gather(i_all, 1, sel)
+
+
+def _exact_topk_f32(rows: torch.Tensor, queries: torch.Tensor, kk: int):
+    """`exact_topk` for uint8 l2sqr where `_exact_in_f32`: rows ranked by
+    |x|^2 - 2 q.x (one product a block), |q|^2 added to the k kept."""
+    out_d, out_i = [], []
+    for q0 in range(0, queries.shape[0], _QUERY_BLOCK):
+        q = queries[q0 : q0 + _QUERY_BLOCK].float()
+        best_d = torch.empty((q.shape[0], 0), device=q.device)
+        best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+        for r0 in range(0, rows.shape[0], _ROW_BLOCK):
+            x = rows[r0 : r0 + _ROW_BLOCK].float()
+            key = torch.addmm((x * x).sum(-1), q, x.T, alpha=-2.0)
+            best_d, best_i = _merge(best_d, best_i, key, r0, kk)
+        out_d.append((best_d + (q * q).sum(-1)[:, None]).double())
+        out_i.append(best_i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def exact_topk(rows: torch.Tensor, queries: torch.Tensor, k: int, dist: str):
     """Exact top-k of each query over `rows` in float64 -> ((Q, k) float64
     distances ascending, (Q, k) int64 row ids).  rows (n, dim) and queries
-    (Q, dim) on one device."""
+    (Q, dim) on one device, both float32 or both uint8."""
     n = rows.shape[0]
     kk = min(k, n)
+    if _exact_in_f32(rows, queries, dist):
+        return _exact_topk_f32(rows, queries, kk)
     out_d, out_i = [], []
     for q0 in range(0, queries.shape[0], _QUERY_BLOCK):
         q = queries[q0 : q0 + _QUERY_BLOCK].double()
@@ -56,11 +100,7 @@ def exact_topk(rows: torch.Tensor, queries: torch.Tensor, k: int, dist: str):
             else:
                 den = (q_sq.sqrt()[:, None] * x_sq.sqrt()[None, :])
                 d = 1.0 - torch.where(den > 0, dots / den.clamp_min(1e-300), 0.0)
-            td, tp = torch.topk(d, min(kk, d.shape[1]), dim=1, largest=False)
-            d_all = torch.cat([best_d, td], 1)
-            i_all = torch.cat([best_i, tp + r0], 1)
-            sel_d, sel = torch.topk(d_all, min(kk, d_all.shape[1]), dim=1, largest=False)
-            best_d, best_i = sel_d, torch.gather(i_all, 1, sel)
+            best_d, best_i = _merge(best_d, best_i, d, r0, kk)
         out_d.append(best_d)
         out_i.append(best_i)
     return torch.cat(out_d), torch.cat(out_i)

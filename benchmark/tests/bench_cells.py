@@ -1,4 +1,5 @@
-"""Cells of BENCHMARK.json cut to a size a CPU test run holds."""
+"""Cells of BENCHMARK.json cut to a size a CPU test run holds, and a uint8
+cell at BIGANN's width built the same way."""
 
 import os
 
@@ -17,4 +18,20 @@ def small_cell(name: str, rows: int = 3000) -> core.Cell:
     single = cell.traffic["call"] == "single"
     cell.traffic["batch"] = 1 if single else min(cell.traffic["batch"], 16)
     cell.traffic["pool"] = 48 if single else 4 * cell.traffic["batch"]
+    return cell
+
+
+# uint8 Gist-spectrum rows (`synth_u8.py`) at BIGANN's width and distance
+# (128, l2)
+U8_CONFIG = {"rows": 3000, "dim": 128, "dist": "l2sqr", "dtype": "uint8", "reduced": []}
+# what an exact program is held to: no gap and, ties counted, every hit
+U8_LIMITS = {"dist_gap": 0.0, "recall_min": 1.0}
+
+
+def u8_cell(rows: int = 3000) -> core.Cell:
+    """`gist1m_flat.b1000` cut as `small_cell` cuts it, with a uint8
+    configuration and an exact program's limits in place of its own."""
+    cell = small_cell("gist1m_flat.b1000", rows)
+    cell.config = dict(U8_CONFIG, rows=rows)
+    cell.limits = dict(U8_LIMITS)
     return cell

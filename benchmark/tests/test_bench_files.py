@@ -8,7 +8,7 @@ import re
 import pytest
 
 from benchmark import core
-from bench_cells import BENCH, CELLS, ROOT
+from bench_cells import BENCH, CELLS, ROOT, U8_CONFIG
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -35,14 +35,30 @@ def test_metric_reader_loads(metric):
     assert callable(core.load_reader(metric).read)
 
 
+# the published width of each dtype's source, which a configuration never
+# cuts: Gist's for float32, BIGANN's for uint8
+PUBLISHED_DIM = {"float32": 960, "uint8": 128}
+
+
+def config_rules_hold(cfg: dict) -> bool:
+    """A configuration's distance and dtype are ones the harness draws and
+    checks, and its width is its dtype's published one."""
+    return (cfg["dist"] in ("l2sqr", "cosine") and all(k in cfg for k in cfg["reduced"])
+            and cfg["dim"] == PUBLISHED_DIM.get(cfg["dtype"]))
+
+
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file(config):
     cfg = core.load_json(os.path.join(ROOT, config["file"]))
     assert config["file"].startswith("benchmark/")
     assert cfg["reduced"] == config["reduced"]
-    assert all(k in cfg for k in config["reduced"])
-    assert cfg["dist"] in ("l2sqr", "cosine") and cfg["dtype"] == "float32"
-    assert cfg["dim"] == 960  # Gist's published width, never cut
+    assert config_rules_hold(cfg)
+
+
+@pytest.mark.parametrize("change,holds", [({}, True), ({"dim": 96}, False), ({"dist": "ip"}, False),
+                                          ({"dtype": "int8"}, False), ({"dtype": "float32"}, False)])
+def test_config_rules_for_uint8(change, holds):
+    assert config_rules_hold(dict(U8_CONFIG, **change)) == holds
 
 
 def test_benchmark_json_shape():

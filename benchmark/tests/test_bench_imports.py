@@ -34,7 +34,7 @@ def test_harness_and_program_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = _loaded_after("from benchmark import reference, check, synth")
+    loaded = _loaded_after("from benchmark import reference, check, synth, synth_u8")
     assert not loaded & (FORBIDDEN | {PROGRAM})
 
 
