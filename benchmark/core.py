@@ -7,7 +7,10 @@ a file of its own, found by the names in `BENCHMARK.json`:
   "float32" or "uint8", the entry that serves it, what was assumed or cut);
 - `entries/<entry>.py`: how the program under test is built and called
   (`setup(ctx) -> system` with `call(q)`, `answers(raw, k)`, `close()`, and
-  optionally `ready()` at the end of set-up);
+  optionally `ready()` at the end of set-up), and `target(traffic) ->
+  (class, method name)`, the program's method that every `call` of that
+  traffic goes through (the benchmark's tests plant their faults there);
+  an entry serves both calls, and imports the program only when called;
 - `traffic/<traffic>.json`: the mix (`call` "batch" or "single", `batch`,
   `k`, `pool` queries, its `source`); `loop` "closed" and `callers` 1 are the
   only driver there is, and any other mix is refused;

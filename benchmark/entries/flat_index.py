@@ -42,3 +42,11 @@ class System:
 
 def setup(ctx) -> System:
     return System(ctx)
+
+
+def target(traffic) -> tuple:
+    """(class, method name) that `System.call` goes through for `traffic`:
+    `FlatIndex.knn_batch` ("batch") or `FlatIndex.knn` ("single")."""
+    from lab_1806_vec_db_tpu_torch.models import FlatIndex
+
+    return FlatIndex, "knn" if traffic["call"] == "single" else "knn_batch"

@@ -65,3 +65,11 @@ class System:
 
 def setup(ctx) -> System:
     return System(ctx)
+
+
+def target(traffic) -> tuple:
+    """(class, method name) that `System.call` goes through for `traffic`:
+    `VecDB.batch_search` ("batch") or `VecDB.search` ("single")."""
+    from lab_1806_vec_db_tpu_torch import VecDB
+
+    return VecDB, "search" if traffic["call"] == "single" else "batch_search"

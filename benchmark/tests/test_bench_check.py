@@ -2,12 +2,12 @@
 whole runs on the CPU at a cut size (the harness's look for a card is
 skipped: `core.run_cell` is called with device "cpu")."""
 
-import numpy as np
 import pytest
 
 from benchmark import core
 from benchmark.control import Control
-from bench_cells import CELLS, small_cell
+import faults
+from bench_cells import CELLS, ENTRIES, entry_cell, small_cell
 
 SECONDS = 0.3
 SEED = 2**33 + 17  # larger than 32 bits hold
@@ -45,66 +45,30 @@ def test_control_is_not_correct(name):
     assert out["numbers"]["dist_gap"] > cell.limits["dist_gap"]
 
 
-def _entry_target(cell):
-    from lab_1806_vec_db_tpu_torch import VecDB
-    from lab_1806_vec_db_tpu_torch.models import FlatIndex
-
-    single = cell.traffic["call"] == "single"
-    if cell.config["entry"] == "vecdb":
-        return VecDB, "search" if single else "batch_search", single
-    return FlatIndex, "knn" if single else "knn_batch", single
+CELL_FAULTS = [(name, fault) for name in CELLS for fault in faults.faults_of(small_cell(name).traffic)]
 
 
-def _alter_first(res, entry, single, n):
-    """The first hit of the first answer names another row."""
-    if entry == "vecdb":
-        hits = res if single else res[0]
-        meta, d = hits[0]
-        hits[0] = ({"id": str((int(meta["id"]) + 1) % n)}, d)
-        return res
-    if single:
-        p = res[0]
-        res[0] = type(p)((p.index + 1) % n, p.distance)
-        return res
-    d, i = res
-    i = i.copy()
-    i[0, 0] = (i[0, 0] + 1) % n
-    return d, i
-
-
-def _halve(res, entry):
-    if entry == "vecdb":
-        return res[: len(res) // 2]
-    d, i = res
-    return d[: len(d) // 2], i[: len(i) // 2]
-
-
-# the faults each cell can have (a single-query call has no half batch; one
-# card, no exchange between chips)
-FAULTS = [(name, fault) for name in CELLS for fault in ("state_unchanged", "half_batch_left_out", "answer_altered")
-          if not (fault == "half_batch_left_out" and small_cell(name).traffic["call"] == "single")]
-
-
-@pytest.mark.parametrize("name,fault", FAULTS)
+@pytest.mark.parametrize("name,fault", CELL_FAULTS)
 def test_fault_makes_run_not_correct(name, fault, monkeypatch):
+    """A fault planted in the method that the cell's entry names as its
+    target makes the run not correct."""
     cell = small_cell(name)
-    cls, method, single = _entry_target(cell)
-    entry, n = cell.config["entry"], cell.config["rows"]
-    real = getattr(cls, method)
-    last = []
-
-    def broken(self, *a, **kw):
-        res = real(self, *a, **kw)
-        if fault == "state_unchanged":  # every call returns the first call's answers
-            last.append(res)
-            return last[0]
-        if fault == "half_batch_left_out":
-            return _halve(res, entry)
-        return _alter_first(res, entry, single, n)
-
-    monkeypatch.setattr(cls, method, broken)
+    target = core.load_entry(cell.config["entry"]).target(cell.traffic)
+    faults.plant(monkeypatch, target, fault, cell.config["rows"])
     out = run(cell)
     assert not out["result"]["correct"], (fault, out["numbers"])
+
+
+@pytest.mark.parametrize("call", ["batch", "single"])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_every_call_goes_through_the_entrys_target(entry, call, monkeypatch):
+    """Every call a run of the entry makes, warm-up and window, goes through
+    the method its `target` names, so the faults above reach the system."""
+    cell = entry_cell(entry, call)
+    calls = faults.count_calls(monkeypatch, core.load_entry(entry).target(cell.traffic))
+    out = run(cell)
+    assert out["result"]["correct"], out["numbers"]
+    assert len(calls) == faults.expected_calls(cell, out) > core.WARM_CALLS
 
 
 @pytest.mark.chip

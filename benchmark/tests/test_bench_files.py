@@ -22,12 +22,34 @@ def test_cell_loads_with_its_files(name):
     assert cell.traffic["loop"] == "closed" and cell.traffic["callers"] == 1
     assert cell.traffic["call"] in ("batch", "single")
     assert cell.traffic["pool"] % cell.traffic["batch"] == 0
-    assert 0 < cell.limits["dist_gap"] < 1
+    assert dist_gap_limit_holds(cell.config, cell.limits["dist_gap"])
     assert 0 < cell.limits["recall_min"] <= 1
     assert any(m["name"] == "setup_s" for m in cell.end_to_end)
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     moved = {m["name"] for m in cell.end_to_end}
     assert all(m["moves"] in moved for m in cell.per_layer)
+
+
+def exact_by_construction(cfg: dict) -> bool:
+    """uint8 rows under l2sqr at width <= 129: every distance an integer
+    below 2^24, which float32 holds (`reference._exact_in_f32`'s condition),
+    so an exact program returns the reference's distances to the bit."""
+    return cfg["dtype"] == "uint8" and cfg["dist"] == "l2sqr" and 2 * cfg["dim"] * 255**2 < 2**24
+
+
+def dist_gap_limit_holds(cfg: dict, limit: float) -> bool:
+    """A cell's `dist_gap` limit lies between 0 and 1, or is 0 where its
+    configuration is exact by construction."""
+    return 0 < limit < 1 or (limit == 0 and exact_by_construction(cfg))
+
+
+@pytest.mark.parametrize("change,limit,holds", [({}, 0.0, True), ({"dim": 129}, 0.0, True),
+                                                ({"dtype": "float32", "dim": 960}, 0.0, False),
+                                                ({"dist": "cosine"}, 0.0, False), ({"dim": 130}, 0.0, False),
+                                                ({}, 1e-4, True), ({"dtype": "float32", "dim": 960}, 1e-4, True),
+                                                ({}, 1.0, False), ({}, -1e-4, False)])
+def test_dist_gap_limit_rules(change, limit, holds):
+    assert dist_gap_limit_holds(dict(U8_CONFIG, **change), limit) == holds
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in METRICS])

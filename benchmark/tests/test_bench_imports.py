@@ -22,11 +22,12 @@ def _loaded_after(code: str) -> set:
 def test_harness_and_program_load_no_jax():
     code = ("import sys; sys.argv = ['run.py']\nsys.path.insert(0, 'benchmark')\nimport run\n"
             "from benchmark import core, check, reference, trace, roofline, control\n"
-            "from benchmark.entries import flat_index, vecdb\n"
             "import lab_1806_vec_db_tpu_torch, lab_1806_vec_db_tpu_torch.models\n"
             "from lab_1806_vec_db_tpu_torch import VecDB\n"
             "import glob, os\n"
             "[core.load_reader(os.path.basename(p)[:-3]) for p in glob.glob('benchmark/metrics/*.py')"
+            " if not p.endswith('__init__.py')]\n"
+            "[core.load_entry(os.path.basename(p)[:-3]) for p in glob.glob('benchmark/entries/*.py')"
             " if not p.endswith('__init__.py')]")
     loaded = _loaded_after(code)
     assert PROGRAM in loaded

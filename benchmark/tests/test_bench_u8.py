@@ -1,6 +1,8 @@
 """The harness on a uint8 configuration: the maker, the exact reference with
 ties at the k-th place, the tie-aware recall, and whole runs on the CPU with
-the reference and the 7-bit control in the program's place."""
+the reference, the 7-bit control and the port's uint8 Flat index (served by
+the test-only entry `flat_u8_system`, with planted faults) in the program's
+place."""
 
 import numpy as np
 import pytest
@@ -8,6 +10,8 @@ import torch
 
 from benchmark import check, core, reference, synth, synth_u8
 from benchmark.control import Control
+import faults
+import flat_u8_system
 from bench_cells import small_cell, u8_cell
 
 SEED = 2**33 + 17  # larger than 32 bits hold
@@ -155,3 +159,20 @@ def test_uint8_cell_is_not_correct_with_the_7_bit_control():
     out = run(u8_cell(), Control)
     assert not out["result"]["correct"]
     assert out["numbers"]["dist_gap"] > 1e-3, out["numbers"]
+
+
+def test_uint8_system_is_exact_and_every_call_goes_through_its_target(monkeypatch):
+    cell = u8_cell()
+    calls = faults.count_calls(monkeypatch, flat_u8_system.target(cell.traffic))
+    out = run(cell, flat_u8_system.setup)
+    assert out["result"]["correct"], out["numbers"]
+    assert out["numbers"]["dist_gap"] == 0.0 and out["numbers"]["recall"] == 1.0
+    assert len(calls) == faults.expected_calls(cell, out)
+
+
+@pytest.mark.parametrize("fault", faults.faults_of(u8_cell().traffic))
+def test_fault_makes_the_uint8_system_not_correct(fault, monkeypatch):
+    cell = u8_cell()
+    faults.plant(monkeypatch, flat_u8_system.target(cell.traffic), fault, cell.config["rows"])
+    out = run(cell, flat_u8_system.setup)
+    assert not out["result"]["correct"], (fault, out["numbers"])
