@@ -7,17 +7,18 @@ the port still starts on the card).
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. device  — require CUDA; print the card's name and power limit;
   2. build   — build the CUDA kernels of `lab_1806_vec_db_tpu_torch/csrc/`;
-               read ptxas's registers and spills of the K1, K3-K5, K8, K10
-               and K12-K14 kernels from the build's report (none found, or a
-               spill, fails); K3's CTAs per SM and waves at B = 1000 from
+               read ptxas's registers, spills and wgmma serialization notes
+               of the K1, K3-K5, K8, K10 and K12-K14 kernels from the
+               build's report (none found, a spill, or a note on K1, K13 or
+               K14 fails; K10's is recorded); K3's CTAs per SM and waves at B = 1000 from
                CUDA's occupancy calculator at ef 120 / 200 / 360, both row
                types (more than one wave fails);
   3. K1      — the packed int8 scan kernel against its plain PyTorch version
-               at the main path's shapes (dim 960 -> 1024, B = 1000, a ragged
-               mirror with sentinel rows), at B = 1 and 16 (one partial
-               query tile, the batch path's), both metrics, and at 1152
-               lanes (the query tile streamed, not resident): equal element
-               for element;
+               at B = 1000, 16 and 1 (one partial query tile), both
+               metrics, on ragged mirrors with sentinel rows at the main
+               path's 1024 lanes (dim 960), the "pca" route's 256 and 1152
+               (the query tile streamed, not resident), and on the whole
+               200,000-row mirror: equal element for element;
   4. K2      — the rerank gather kernel against its plain version (B = 1000,
                r = 40, dim 960, some -1 ids), both metrics: rtol 1e-5,
                atol 1e-6, +inf exactly where the id is -1;
@@ -404,11 +405,14 @@ def phase_build():
 def ptxas_of(log: str, fragment: str) -> dict:
     """ptxas's report (-Xptxas -v) for the kernels whose mangled names hold
     `fragment`: the most registers a thread and spill bytes any of them
-    uses, and how many instantiations matched."""
+    uses, how many instantiations matched, and how many of ptxas's notes
+    that it serialized a kernel's wgmma.mma_async instructions name one of
+    them (`serialized`: each wgmma then waits for the one before)."""
     import re
 
     lines = log.splitlines()
     regs, stores, loads, n = 0, 0, 0, 0
+    serialized = sum("wgmma.mma_async instructions are serialized" in ln and fragment in ln for ln in lines)
     for i, ln in enumerate(lines):
         if "Function properties for" in ln and fragment in ln:
             n += 1
@@ -418,64 +422,62 @@ def ptxas_of(log: str, fragment: str) -> dict:
                 if used := re.search(r"Used (\d+) registers", nxt):
                     regs = max(regs, int(used[1]))
     if n == 0:  # no report read (an empty log, or a renamed kernel): no figures
-        return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None, "instantiations": 0}
-    return {"registers": regs, "spill_store_bytes": stores, "spill_load_bytes": loads, "instantiations": n}
+        return {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None, "instantiations": 0,
+                "serialized": None}
+    return {"registers": regs, "spill_store_bytes": stores, "spill_load_bytes": loads, "instantiations": n,
+            "serialized": serialized}
 
 
 def phase_k1(x, queries):
-    """K1 against its plain version on a ragged 67,536-row slice of a real
-    mirror whose last 500 rows are sentinels (B 1000, 16 and 1), and on the
-    whole 200,000-row mirror."""
+    """K1 against its plain version, element for element, on both metrics at
+    B 1000, 16 and 1 (one partial query tile) and three widths, each on a
+    ragged mirror whose last 500 rows are sentinels: the main path's 1024
+    lanes (a 67,536-row slice of the real mirror), the "pca" route's 256
+    (the same rows' first 256 columns) and 1152, where the query tile no
+    longer stays resident and each ring stage streams its query box beside
+    the mirror box (6,100 random rows); then B 1000 on the whole
+    200,000-row mirror (the hnsw_200k scan route's).  Returns the largest
+    packed difference (0 when equal)."""
     import torch
     from lab_1806_vec_db_tpu_torch.models.store import VecStore
     from lab_1806_vec_db_tpu_torch.ops import scan as S
 
+    def ragged(rows, dist):
+        b8, sc, ca, _ = VecStore.from_device(rows, dist).device_int8()
+        n = rows.shape[0]  # the store rounds its capacity up
+        b8, sc, ca = b8[:n], sc[:n].clone(), ca[:n].clone()
+        sc[-500:] = 0.0
+        ca[-500:] = S._BIG
+        return b8, sc, ca
+
+    def equal(q, b8, sc, ca, dist, batches):
+        worst = 0
+        q8, qs2, qc = S.quantize_queries(q, b8.shape[1], dist)
+        padded = S._pad_rows(b8, sc, ca, S._NB)
+        for nb in batches:
+            out = S.scan_chunkmin_int8_packed(q8[:nb], qs2[:nb], qc[:nb], b8, sc, ca)
+            ref = S.scan_chunkmin_int8_packed_ref(q8[:nb], qs2[:nb], qc[:nb], *padded)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape == (padded[0].shape[0] // S._CHUNK, nb), f"K1 shape {tuple(out.shape)}")
+            worst = max(worst, int((out.long() - ref.long()).abs().max()))
+            check(torch.equal(out, ref), f"K1 {dist} D {b8.shape[1]} ({b8.shape[0]} rows) B {nb}: "
+                  f"{int((out != ref).sum())} packed values differ")
+        log(f"[3/6] K1 {dist}: {b8.shape[0]} rows x {b8.shape[1]} lanes, equal to the plain version element "
+            f"for element at B {', '.join(map(str, batches))}")
+        return worst
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xw = torch.randn((6100, 1152), generator=gen, device="cuda")
+    qw = torch.randn((1000, 1152), generator=gen, device="cuda")
     n3 = 65536 + 2000
     worst = 0
     for dist in ("l2sqr", "cosine"):
-        q8b, sc, ca, _ = VecStore.from_device(x[:n3], dist).device_int8()
-        q8b, sc, ca = q8b[:n3], sc[:n3].clone(), ca[:n3].clone()
-        sc[-500:] = 0.0
-        ca[-500:] = S._BIG
-        q8, qs2, qc = S.quantize_queries(queries, q8b.shape[1], dist)
-        out = S.scan_chunkmin_int8_packed(q8, qs2, qc, q8b, sc, ca)
-        ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(q8b, sc, ca, S._NB))
-        torch.cuda.synchronize()
-        check(out.shape == ref.shape == (-(-n3 // S._NB) * S._SB, 1000), f"K1 shape {tuple(out.shape)}")
-        err = int((out.long() - ref.long()).abs().max())
-        worst = max(worst, err)
-        check(torch.equal(out, ref), f"K1 {dist}: {int((out != ref).sum())} packed values differ")
-        log(f"[3/6] K1 {dist}: ({n3} rows -> {out.shape[0]} survivors) x {out.shape[1]} "
-            "queries equal to the plain version element for element")
-        for nb in (1, 16):  # batches below one query tile
-            out = S.scan_chunkmin_int8_packed(q8[:nb], qs2[:nb], qc[:nb], q8b, sc, ca)
-            ref = S.scan_chunkmin_int8_packed_ref(q8[:nb], qs2[:nb], qc[:nb], *S._pad_rows(q8b, sc, ca, S._NB))
-            torch.cuda.synchronize()
-            check(torch.equal(out, ref), f"K1 {dist} B {nb}: {int((out != ref).sum())} packed values differ")
-        log(f"[3/6] K1 {dist}: equal at B = 1 and 16 too")
+        for rows, q in ((x[:n3], queries), (x[:n3, :256].contiguous(), queries[:, :256].contiguous()), (xw, qw)):
+            worst = max(worst, equal(q, *ragged(rows, dist), dist, (1000, 16, 1)))
         # the hnsw_200k scan route's shape: the whole 200,000-row mirror
         f8, fsc, fca, _ = VecStore.from_device(x, dist).device_int8()
-        out = S.scan_chunkmin_int8_packed(q8, qs2, qc, f8, fsc, fca)
-        ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(f8, fsc, fca, S._NB))
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"K1 {dist} ({f8.shape[0]} rows): {int((out != ref).sum())} packed values differ")
-        log(f"[3/6] K1 {dist}: equal on the {f8.shape[0]}-row mirror (the hnsw_200k scan route's)")
-        del f8, fsc, fca, out, ref
-    # past 1024 lanes the query tile no longer stays resident: each ring
-    # stage streams its query box beside the mirror box (6,100 rows of 1152
-    # lanes, padded to 6,144 with sentinels; B 200, a partial second tile)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    xw = torch.randn((6100, 1152), generator=gen, device="cuda")
-    qw = torch.randn((200, 1152), generator=gen, device="cuda")
-    w8, wsc, wca, _ = VecStore.from_device(xw, "l2sqr").device_int8()
-    w8, wsc, wca = w8[:6100], wsc[:6100], wca[:6100]  # the store rounds its capacity up
-    q8, qs2, qc = S.quantize_queries(qw, w8.shape[1], "l2sqr")
-    out = S.scan_chunkmin_int8_packed(q8, qs2, qc, w8, wsc, wca)
-    ref = S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, *S._pad_rows(w8, wsc, wca, S._NB))
-    torch.cuda.synchronize()
-    check(w8.shape[1] > 1024, f"K1: the streamed-query check ran at D {w8.shape[1]}")
-    check(torch.equal(out, ref), f"K1 D {w8.shape[1]}: {int((out != ref).sum())} packed values differ")
-    log(f"[3/6] K1 l2sqr: equal at D {w8.shape[1]} ({w8.shape[0]} rows, B 200; the query tile streamed)")
+        worst = max(worst, equal(queries, f8, fsc, fca, dist, (1000,)))
+        del f8, fsc, fca
     return worst
 
 
@@ -3629,6 +3631,9 @@ def main() -> None:
     for key, rep in ptxas.items():
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
         check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
+    # K1, K13 and K14 keep their wgmmas pipelined; K10's note is recorded only
+    for key in ("k1", "k13", "k14"):
+        check(ptxas[key]["serialized"] == 0, f"ptxas: {key}'s wgmmas serialized: {ptxas[key]}")
     k3_occ = k3_occupancy()
 
     from lab_1806_vec_db_tpu_torch.bench import synth

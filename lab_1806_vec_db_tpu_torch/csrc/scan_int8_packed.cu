@@ -19,7 +19,12 @@
 //
 // What bounds it on the H100: the int8 products, 2 N B D operations (1.9e12
 // at N = 1M, B = 1000, D = 960: 0.97 ms at the card's int8 peak) against
-// ~1 GB of mirror, and behind them the L2 reads that feed the tensor cores.
+// ~1 GB of mirror, and behind them the L2 reads that feed the tensor cores:
+// every query tile reads every row, 8.2 GB at that shape, ~1.25 ms of TMA
+// feed alone.  With the products and the feed overlapping it runs ~1.7 ms
+// there: what is left is the feed's own pace.  Past 1024 lanes each row box
+// brings its query box, three times the bytes, and the feed alone sets the
+// pace.
 // The design:
 //
 // - A CTA is one tile of 128 queries (the wgmma N) and a run of work items
@@ -40,8 +45,17 @@
 //   would have a consumer wait on a slot's phase before the other's earlier
 //   phase had landed).  Each consumer issues `wgmma.mma_async` m64n128k32 s32.s8.s8 with A (mirror rows)
 //   and B (queries) both read from shared memory through descriptors, both
-//   K-major as they lie in device memory.  While one consumer runs its
-//   epilogue the other's products are in flight.
+//   K-major as they lie in device memory.  A consumer keeps one box's
+//   wgmmas in flight while it waits on the next box's full barrier, and
+//   frees a stage once the products that read it have completed; while one
+//   consumer runs its epilogue the other's products are in flight.
+// - The consumer index is broadcast from lane 0 (`__shfl_sync`), so that
+//   ptxas sees it warp-uniform: the tile loop branches on it around the
+//   wgmmas, and on a thread-dependent value there ptxas serializes them
+//   (its note "wgmma.mma_async instructions are serialized due to program
+//   dependence on compiler-inserted WG.AR in divergent path": each wgmma
+//   waits for the one before, and products and feed barely overlap: 2.2 ms
+//   at the shape above, against ~1.7 ms pipelined).
 // - wgmma's accumulator layout is the survivor layout: in a 64-row tile
 //   (16-row aligned), warp w holds rows 16 w + g and 16 w + g + 8 of query
 //   columns 8 nt + 2 t + j, i.e. level tile_row0 / 16 + w, slots g and
@@ -188,7 +202,10 @@ scan_int8_packed_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int ct = tid - 128;
-  const int wg = ct >> 7, warp = (ct >> 5) & 3;
+  // the consumer index, broadcast from lane 0 so that ptxas sees it
+  // warp-uniform: a branch on a thread-dependent value around the wgmmas
+  // makes it serialize them (a wait after each)
+  const int wg = __shfl_sync(0xffffffffu, ct >> 7, 0), warp = (ct >> 5) & 3;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   if (L.resident) mbar_wait(qbar, 0);
 

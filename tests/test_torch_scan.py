@@ -10,6 +10,9 @@ the port's operation-by-operation rounding, so survivors may swap at the
 rank-r boundary (overlap >= (r-1)/r, top-3 identical, rel. distance error
 < 3e-5)."""
 
+import os
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -196,80 +199,183 @@ def test_k1_plan_covers_every_survivor_once(n, B):
     assert (S._NB // plan["parts"]) % (2 * S._K1_BM) == 0  # whole tiles, an even count per item
 
 
-def _k1_emulate(q8, qs2, qc, b8, sc, ca, plan):
-    """K1's kernel, step by step in numpy: each 64-row tile's 128-byte boxes
-    land in shared memory as TMA's 128-byte swizzle writes them
-    (`k1_stage_offset`), the query tile likewise; each k-step's wgmma reads
-    them through its descriptors (rows 128 bytes apart, 8-row groups 1024
-    apart, the address swizzled by the hardware); accumulator register i
-    of lane l in warp w is (row, query) `k1_acc_coords(w, l, i)`; the
-    epilogue rounds every operation in f32 and folds into mins[i]; an item's
-    8 warps (2 consumers x 4) meet in a minimum."""
+def _k1_layout(KT):
+    """`layout()` of csrc/scan_int8_packed.cu -> (resident, ring stages): the
+    query tile stays in shared memory up to 8 boxes (1024 lanes), past that
+    each stage carries its query box beside its row box; the ring takes what
+    232,448 bytes leave after the tile, the reduction, the channels and the
+    alignment pad, at most 16 stages, ring // 2 for each consumer."""
+    resident = KT <= 8
+    stage = 64 * 128 + (0 if resident else 128 * 128)
+    fixed = 1024 + (KT * 128 * 128 if resident else 0) + 16 * 128 * 4 + 2 * 128 * 4 + 8
+    return resident, min((232448 - fixed) // (stage + 16), 16)
+
+
+def _k1_stage(mat, rows):
+    """A box as TMA writes it: rows x 128 bytes with the 128-byte swizzle."""
+    buf = np.zeros(rows * 128, np.int8)
+    buf[S.k1_stage_offset(np.arange(rows)[:, None], np.arange(128)[None, :])] = mat
+    return buf
+
+
+def _k1_read(buf, rows, kk):
+    """What a wgmma descriptor reads of a box for k-step kk: rows 128 bytes
+    apart, 8-row groups 1024 apart, the address swizzled by the hardware."""
+    r = np.arange(rows)[:, None]
+    addr = 32 * kk + (r // 8) * 1024 + (r % 8) * 128 + np.arange(32)[None, :]
+    return buf[addr ^ (((addr >> 7) & 7) << 4)]
+
+
+def _k1_cta(y, plan, KT, load, qbufs, rng):
+    """One CTA's two producers and two consumers under the kernel's mbarrier
+    protocol, interleaved at random (each mbarrier a count of completed
+    phases, a wait on parity P done once the count's parity differs from P,
+    as mbarrier.try_wait.parity has it): producer p loads box it of consumer
+    p's tiles (tile T of the CTA is consumer T % 2's) into slot p * rc + it %
+    rc once that slot's empty phase allows; consumer p waits on the slot's
+    full phase, issues the box's products, and frees the stage of the box
+    before (its products then complete), the tile's last box at the tile's
+    end; at an item's end both consumers meet.  The box must sit in its slot
+    from the consumer's wait until the stage is freed; the products are read
+    when it is freed -> {(item, tile): the 64 x 128 int64 products}."""
+    resident, ring = _k1_layout(KT)
+    rc = ring // 2
+    tiles = S._NB // plan["parts"] // S._K1_BM
+    my_items = range(y, plan["items"], plan["ctas"])
+    boxes = ([], [])
+    for n, item in enumerate(my_items):
+        for tile in range(tiles):
+            boxes[(n * tiles + tile) & 1].extend((item, tile, kt) for kt in range(KT))
+    full, empty, held, met = [0] * ring, [0] * ring, [None] * ring, [0, 0]
+    acc = {}
+
+    def producer(p):
+        for it, box in enumerate(boxes[p]):
+            slot = p * rc + it % rc
+            if it >= rc:
+                yield lambda s=slot, par=((it // rc) - 1) & 1: (empty[s] & 1) != par
+            held[slot] = (box, load(*box))
+            full[slot] += 1
+            yield None
+
+    def free(slot, box):
+        assert held[slot][0] == box, f"stage {slot} was refilled while box {box} was being multiplied"
+        abuf, qbuf = held[slot][1]
+        item, tile, kt = box
+        qb = qbufs[kt] if resident else qbuf
+        prod = acc.setdefault((item, tile), np.zeros((64, 128), np.int64))
+        for kk in range(4):
+            prod += (_k1_read(abuf, 64, kk).astype(np.float64)
+                     @ _k1_read(qb, 128, kk).astype(np.float64).T).astype(np.int64)
+        empty[slot] += 1
+
+    def consumer(p):
+        it = 0
+        for n, item in enumerate(my_items):
+            for tile in range(tiles):
+                if (n * tiles + tile) & 1 != p:
+                    continue
+                prev = None
+                for kt in range(KT):
+                    slot = p * rc + it % rc
+                    yield lambda s=slot, par=(it // rc) & 1: (full[s] & 1) != par
+                    assert held[slot][0] == (item, tile, kt), f"consumer {p} found {held[slot][0]} in stage {slot}"
+                    if prev is not None:
+                        free(*prev)
+                    prev = (slot, (item, tile, kt))
+                    it += 1
+                    yield None
+                free(*prev)
+            met[p] += 1
+            yield lambda: met[1 - p] >= met[p]
+
+    agents = [producer(0), producer(1), consumer(0), consumer(1)]
+    waits = [None] * 4
+    weights = rng.random(4) + 0.05  # producers or consumers ahead, by CTA
+    while agents:
+        ready = [i for i, w in enumerate(waits) if w is None or w()]
+        assert ready, "the protocol deadlocked"
+        i = rng.choice(ready, p=weights[ready] / weights[ready].sum())
+        try:
+            waits[i] = next(agents[i])
+        except StopIteration:
+            del agents[i], waits[i]
+            weights = np.delete(weights, i)
+    assert sum(empty) == len(boxes[0]) + len(boxes[1])  # every stage loaded was freed
+    return acc
+
+
+def _k1_emulate(q8, qs2, qc, b8, sc, ca, plan, seed=0):
+    """K1's kernel, step by step in numpy: the CTAs of the plan, each under
+    its ring protocol (`_k1_cta`); each 64-row tile's 128-byte boxes land in
+    shared memory as TMA's 128-byte swizzle writes them (`k1_stage_offset`),
+    the query tile likewise (resident, or a query box beside each row box
+    past 1024 lanes); each k-step's wgmma reads them through its
+    descriptors; accumulator register i of lane l in warp w is (row,
+    query) `k1_acc_coords(w, l, i)`; the epilogue rounds every operation in
+    f32 and folds into the survivors' minimum."""
     B, D = q8.shape
-    N = b8.shape[0]
     KT = D // 128
-    out = np.full((N // 128, B), 2**31 - 1, np.int64)
-    r = np.arange(128)[:, None]
-    c = np.arange(128)[None, :]
-    k = np.arange(32)[None, :]
-
-    def stage(mat, rows):  # a box as TMA writes it: rows x 128 bytes, swizzled
-        buf = np.zeros(rows * 128, np.int8)
-        buf[S.k1_stage_offset(r[:rows], c)] = mat
-        return buf
-
-    def read(buf, rows, kk):  # what the descriptor reads for k-step kk
-        addr = 32 * kk + (r[:rows] // 8) * 1024 + (r[:rows] % 8) * 128 + k
-        return buf[addr ^ (((addr >> 7) & 7) << 4)]
-
+    resident, _ = _k1_layout(KT)
+    rng = np.random.default_rng(seed)
+    out = np.full((b8.shape[0] // 128, B), 2**31 - 1, np.int64)
     warp, lane, i = np.meshgrid(np.arange(4), np.arange(32), np.arange(64), indexing="ij")
     row, col = S.k1_acc_coords(warp, lane, i)
     part_rows = S._NB // plan["parts"]
     for x in range(plan["qtiles"]):
         qt = np.zeros((128, D), np.int8)
         qt[: min(128, B - 128 * x)] = q8[128 * x : 128 * x + 128]
-        qbufs = [stage(qt[:, kt * 128 : kt * 128 + 128], 128) for kt in range(KT)]
+        qbufs = [_k1_stage(qt[:, kt * 128 : kt * 128 + 128], 128) for kt in range(KT)]
         cols = 128 * x + col
         live = cols < B
         cl = np.minimum(cols, B - 1)
-        for item in range(plan["items"]):
-            chunk, part = divmod(item, plan["parts"])
-            mins = np.full((2, 4, 32, 64), 2**31 - 1, np.int64)
-            for tile in range(part_rows // 64):
-                x0 = chunk * S._NB + part * part_rows + tile * 64
-                acc = np.zeros((64, 128), np.int64)
-                for kt in range(KT):
-                    abuf = stage(b8[x0 : x0 + 64, kt * 128 : kt * 128 + 128], 64)
-                    for kk in range(4):
-                        acc += read(abuf, 64, kk).astype(np.int64) @ read(qbufs[kt], 128, kk).astype(np.int64).T
-                xr = x0 + row
+
+        def load(item, tile, kt):  # the stage a producer fills for this box
+            x0 = (item // plan["parts"]) * S._NB + (item % plan["parts"]) * part_rows + tile * 64
+            abuf = _k1_stage(b8[x0 : x0 + 64, kt * 128 : kt * 128 + 128], 64)
+            return abuf, None if resident else qbufs[kt].copy()
+
+        for y in range(plan["ctas"]):
+            for (item, tile), acc in _k1_cta(y, plan, KT, load, qbufs, rng).items():
+                chunk, part = divmod(item, plan["parts"])
+                xr = chunk * S._NB + part * part_rows + tile * 64 + row
                 ca_q = (ca[xr] + qc[cl]).astype(np.float32)
                 sq = (sc[xr] * qs2[cl]).astype(np.float32)
                 d = (ca_q - (acc[row, col].astype(np.float32) * sq).astype(np.float32)).astype(np.float32)
                 level = (part * part_rows + tile * 64) // 16 + warp
                 packed = (d.view(np.int32).astype(np.int64) & ~127) | level
-                mins[tile % 2] = np.minimum(mins[tile % 2], packed)
-            m = mins.min(axis=0)  # the two consumers, then the 4 warps per (slot, query)
-            slot = row % 16
-            for w in range(4):
-                sel = live[w]
-                idx = (chunk * 16 + slot[w][sel], cols[w][sel])
-                np.minimum.at(out, idx, m[w][sel])
+                np.minimum.at(out, (chunk * 16 + row[live] % 16, cols[live]), packed[live])
     return out.astype(np.int32)
 
 
-@pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
-def test_k1_tiles_emulated(dist):
-    """An emulation of K1's swizzled TMA tiles, its wgmma descriptors and its
-    accumulator-to-(level, slot) map, run on the plan's items (chunks split
-    in parts here), gives `scan_chunkmin_int8_packed_ref`'s output bit for
-    bit, including a partial second query tile."""
-    N, dim, B = 4096, 256, 130
+# id: (dist, lanes, rows, SMs the plan deals to, parts > 1): KT 2 (the "pca"
+# route's 256 lanes), 8 (the resident tile's 1024) and 9 (1152: the query
+# box streamed beside each row box); chunks whole or split in parts, one or
+# several items a CTA
+_K1_EMULATED = {
+    "l2sqr": ("l2sqr", 256, 4096, 132, True),
+    "cosine": ("cosine", 256, 4096, 132, True),
+    "l2sqr-kt2-parts1": ("l2sqr", 256, 8192, 4, False),
+    "cosine-kt8-parts2": ("cosine", 1024, 6144, 4, True),
+    "l2sqr-kt8-parts1": ("l2sqr", 1024, 8192, 4, False),
+    "l2sqr-kt9-parts2": ("l2sqr", 1152, 6144, 4, True),
+    "cosine-kt9-parts1": ("cosine", 1152, 8192, 4, False),
+}
+
+
+@pytest.mark.parametrize("case", list(_K1_EMULATED), ids=list(_K1_EMULATED))
+def test_k1_tiles_emulated(case):
+    """An emulation of K1's ring protocol, its swizzled TMA tiles, its wgmma
+    descriptors and its accumulator-to-(level, slot) map, run on the plan's
+    items, gives `scan_chunkmin_int8_packed_ref`'s output bit for bit,
+    including a partial second query tile."""
+    dist, dim, N, sms, split = _K1_EMULATED[case]
+    B = 130
     base, qs = _make(N, dim, B, seed=11)
     b8, sc, cache = _t(*_channels(base, dist))
     q8, qs2, qc = S.quantize_queries(torch.from_numpy(qs), dim, dist)
-    plan = S.k1_plan(N, B)
-    assert plan["parts"] > 1 and plan["qtiles"] == 2
+    plan = S.k1_plan(N, B, sms)
+    assert (plan["parts"] > 1) == split and plan["qtiles"] == 2
     got = _k1_emulate(q8.numpy(), qs2.numpy(), qc.numpy(), b8.numpy(), sc.numpy(), cache.numpy(), plan)
     np.testing.assert_array_equal(got, S.scan_chunkmin_int8_packed_ref(q8, qs2, qc, b8, sc, cache).numpy())
 
@@ -289,3 +395,55 @@ def test_k1_stage_offset_is_the_swizzle_the_descriptor_reads():
     for kk in range(4):
         addr = 32 * kk + (r // 8) * 1024 + (r % 8) * 128 + np.arange(32)[None, :]
         np.testing.assert_array_equal(buf[addr ^ (((addr >> 7) & 7) << 4)], box[:, 32 * kk : 32 * kk + 32])
+
+
+_K1_NAME = ("_ZN52_GLOBAL__N__a2fa5933_19_scan_int8_packed_cu_e78b269023scan_int8_packed_kernelE14CUtensorMap_stS0_"
+            "PKfS2_S2_S2_Piiiiii")
+_K10_NAME = ("_ZN52_GLOBAL__N__c233d802_19_scan_int8_binned_cu_6d44d4f723scan_int8_binned_kernelE14CUtensorMap_stPKaPKf"
+             "S4_PKiS4_S4_Piiiii")
+
+
+def _ptxas_report(name, serialized, spill=0):
+    """nvcc -Xptxas -v's lines for one kernel, as ptxas prints them for sm_90a."""
+    lines = [f"ptxas info    : (C7519) warpgroup.arrive is injected in around line 1312 by compiler to allow use "
+             f"of registers in GMMA in function '{name}'"]
+    if serialized:
+        lines.append("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized "
+                     f"due to program dependence on compiler-inserted WG.AR in divergent path in the function '{name}'")
+    lines += ["ptxas info    : 0 bytes gmem",
+              f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+              f"ptxas info    : Function properties for {name}",
+              f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+              "ptxas info    : Used 168 registers, used 2 barriers",
+              "ptxas info    : Compile time = 245.382 ms"]
+    return lines
+
+
+def _chip_smoke():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("k1_note", [True, False], ids=["with_note", "without_note"])
+def test_ptxas_of_counts_wgmma_serialization_notes(k1_note):
+    """`chip_smoke.ptxas_of` counts ptxas's notes that a kernel's wgmmas are
+    serialized, for the kernel the note names: K1's with or without its
+    note, beside K10's note, which is K10's alone."""
+    smoke = _chip_smoke()
+    log = "\n".join(_ptxas_report(_K1_NAME, k1_note) + _ptxas_report(_K10_NAME, True, spill=8))
+    assert smoke.ptxas_of(log, "scan_int8_packed_kernel") == {
+        "registers": 168, "spill_store_bytes": 0, "spill_load_bytes": 0, "instantiations": 1,
+        "serialized": int(k1_note)}
+    k10 = smoke.ptxas_of(log, "scan_int8_binned_kernel")
+    assert k10["serialized"] == 1 and k10["spill_store_bytes"] == 8 == k10["spill_load_bytes"]
+
+
+def test_ptxas_of_without_a_report():
+    """A kernel the log does not name has no figures, `serialized` included."""
+    smoke = _chip_smoke()
+    log = "\n".join(_ptxas_report(_K10_NAME, True))
+    assert smoke.ptxas_of(log, "scan_int8_packed_kernel") == {
+        "registers": None, "spill_store_bytes": None, "spill_load_bytes": None, "instantiations": 0,
+        "serialized": None}
