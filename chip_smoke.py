@@ -2756,7 +2756,8 @@ def check_k1_proj(store, q, d_red, tag, n_rows=None, timed=False):
     from lab_1806_vec_db_tpu_torch.ops import project as PJ
     from lab_1806_vec_db_tpu_torch.ops import scan as S
 
-    proj, mu, p8, psc, pca = store.device_proj_int8(d_red)
+    m = store.device_proj_int8(d_red)
+    proj, mu, p8, psc, pca = m.proj, m.mu, m.q8, m.scale, m.cache
     if n_rows is not None:
         p8, psc, pca = p8[:n_rows], psc[:n_rows].clone(), pca[:n_rows].clone()
         psc[-500:] = 0.0
@@ -2787,7 +2788,8 @@ def pca_stage_ms(pflat, q, k, passes=10):
     from lab_1806_vec_db_tpu_torch.ops import scan as S
 
     store = pflat.store
-    proj, mu, p8, psc, pca = store.device_proj_int8(store.scan_mode.pca_dim)
+    m = store.device_proj_int8(store.scan_mode.pca_dim)
+    proj, mu, p8, psc, pca = m.proj, m.mu, m.q8, m.scale, m.cache
     r = pflat.rerank_depth(k)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     split = {"project_quantize_k1": 0.0, "topr": 0.0, "k2_topk": 0.0}
@@ -2845,7 +2847,7 @@ def pca_route_in_mode(pflat, q, gt, tag, timed, gate):
     t0 = time.perf_counter()
     PJ.pca_fit(vecs, n, PCA_DIM, store.dist)
     fit_s = time.perf_counter() - t0
-    store._dev_proj = None  # the mirror below fits again, then builds
+    store._pca_mirror = None  # the mirror below fits again, then builds
     t0 = time.perf_counter()
     store.device_proj_int8(PCA_DIM)
     torch.cuda.synchronize()
@@ -2870,8 +2872,7 @@ def pca_route_in_mode(pflat, q, gt, tag, timed, gate):
         out["pca"] = chained_qps(lambda qq: pflat._knn_device(qq, k), q, 5, 8)
         out["stage_ms"] = pca_stage_ms(pflat, q, k)
         out["index_device_bytes"] = pflat.index_bytes()
-        proj = store._dev_proj
-        out["pca_mirror_bytes"] = sum(t.numel() * t.element_size() for t in (proj[1], proj[2], *proj[3]))
+        out["pca_mirror_bytes"] = store._pca_mirror.nbytes
     return out
 
 
@@ -2900,7 +2901,7 @@ def phase_pca(store, q, gt):
     _, ids_s = T.knn_scan(q, vecs, cache, len(store), k, store.dist)
     check(torch.equal(ids_e, ids_s), "pca: the exact mode's ids differ from knn_scan's")
     res["exact_recall_at_10"] = recall_at_k(gt, ids_e.cpu().numpy().tolist(), k)
-    store._dev_proj = None
+    store._pca_mirror = None
     torch.cuda.empty_cache()
 
     # cosine on the 200,000-row cut; then an incremental write after the fit

@@ -256,6 +256,10 @@ def _sharded_search(index, q, k: int, ef: int):
     return index.knn_batch(q, k)
 
 
+def _on_card(index) -> bool:
+    return index.store.torch_device.type == "cuda"
+
+
 def _device_step(index, pq, k: int):
     """The device-in / device-out search step of the chained timing mode:
     the computation the public batched call runs for this (index, pq) on
@@ -263,21 +267,18 @@ def _device_step(index, pq, k: int):
     `step(q, ef) -> (d, ids)` on tensors, or None where no such step exists
     (the graph routes and the CPU's HNSW routes return host arrays; the
     caller then times the wall clock)."""
-    on_cuda = index.store.torch_device.type == "cuda"
+    on_cuda = _on_card(index)
+    if isinstance(index, HNSWIndex):
+        if on_cuda and index.store.mirror_layout == "scan":
+            # the auto route of knn_with_ef_batch and knn_pq_batch on CUDA:
+            # the Flat two-stage plan with ef as its stage-1 depth
+            flat = FlatIndex.from_store(index.store)
+            return lambda q, ef: flat._knn_device(q, k, rerank_depth=ef)
+        return None
     if pq is not None:
-        if isinstance(index, HNSWIndex):
-            if on_cuda and index.store._mirror_layout == "scan":
-                # knn_pq_batch's auto route on CUDA: the int8 mirror scan
-                return lambda q, ef: index._scan_index()._knn_device(q, k, rerank_depth=ef)
-            return None
         if isinstance(index, FlatIndex):
             # the ADC scan + exact rerank (flat_index.rs:84-104)
             return (lambda q, ef: index._knn_pq_device(q, k, ef, pq)) if on_cuda else None
-        return None
-    if isinstance(index, HNSWIndex):
-        if on_cuda and index.store._mirror_layout == "scan":
-            # knn_with_ef_batch's auto route on CUDA: scan + exact rerank
-            return lambda q, ef: index._scan_index()._knn_device(q, k, rerank_depth=ef)
         return None
     if isinstance(index, IVFIndex):
         return lambda q, ef: index._knn_device_binned(q, k, n_probes=ef)

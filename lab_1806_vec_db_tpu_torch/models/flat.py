@@ -6,12 +6,13 @@ The planner is the reference's, in the store's scan mode
 layer):
 - the exact f32 scan (`topk.knn_scan`) at n <= 65,536 rows, in the "exact"
   mode, or when the int8 ordering self-test fails ("int8" / "pca" modes);
-- "int8" (the default): K1, the packed int8 chunk-min scan over the
-  permuted mirror, then an exact top-r over its survivors, `decode_perm`,
-  and K2, the exact rerank gather, with a top-k;
-- "pca" (where pca_dim < dim; else it is "int8", as in the reference): K1
-  over the store's PCA-projected mirror (`ops/project.py`, row order, so no
-  `decode_perm`) with projected queries, a deeper top-r, then K2;
+- "int8" (the default): the store's permuted int8 mirror's stage 1
+  (`mirror.ScanMirror.survivors`: K1, the packed int8 chunk-min scan, then
+  an exact top-r over its survivors), its `decode`, and K2, the exact rerank
+  gather, with a top-k;
+- "pca" (where pca_dim < dim; else it is "int8", as in the reference): the
+  same over the store's PCA-projected mirror (row order) with projected
+  queries and a deeper top-r;
 - "bf16" (the reference's "2stage" too): the reference's XLA candidate pass
   (`topk.scan_candidates`, a bf16 product and an exact top-r over the bf16
   traversal copy), then K2.
@@ -44,8 +45,6 @@ import torch
 from . import native
 from .store import ScanMode, VecStore
 from ..ops import gather as G
-from ..ops import project as PJ
-from ..ops import scan as S
 from ..ops import topk as T
 from ..utils import serde
 from ..utils.candidates import CandidatePair, pairs_from_arrays
@@ -87,7 +86,7 @@ class FlatIndex:
     @classmethod
     def from_store(cls, store: VecStore) -> "FlatIndex":
         """The planner over `store`, in the store's scan mode."""
-        if store._mirror_layout == "sorted":
+        if store.mirror_layout == "sorted":
             raise ValueError(
                 "store's int8 mirror is cluster-sorted (binned-IVF scale layout); "
                 "FlatIndex requires the randomly-permuted layout")
@@ -130,11 +129,12 @@ class FlatIndex:
         then refined to exact f32 (and re-sorted) when the store kept its
         generator, else they stay bf16-grade (`store.distance_precision`)."""
         with span("flat.knn_batch"):
-            d, i = self._knn_device(queries, k, exact)
+            q = self._queries(queries)
+            d, i = self._knn_device(q, k, exact)
             with span("flat.fetch"):
                 d, i = d.cpu().numpy(), i.cpu().numpy()
             if self.store.tier == "lean":
-                return self.store.refine_result(self._queries(queries), d, i)
+                return self.store.refine_result(q, d, i)
             return d, i
 
     @property
@@ -159,9 +159,11 @@ class FlatIndex:
         return min(max(mult * k, 32), n)
 
     def _queries(self, queries) -> torch.Tensor:
+        """(B, dim) f32 on the store's device.  A host array's upload is the
+        span `flat.upload`; a tensor is taken as already uploaded."""
+        if isinstance(queries, torch.Tensor):
+            return torch.atleast_2d(queries).to(self.device, torch.float32)
         with span("flat.upload"):
-            if isinstance(queries, torch.Tensor):
-                return torch.atleast_2d(queries).to(self.device, torch.float32)
             q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
             return torch.from_numpy(q).to(self.device)
 
@@ -192,21 +194,13 @@ class FlatIndex:
         r = self.rerank_depth(k, rerank_depth)
         route = "flat.pca" if self.uses_pca else "flat.int8" if scan in ("int8", "pca") else "flat.bf16"
         with span(route):
-            if self.uses_pca:
-                proj, mu, p8, pscale, pcache = self.store.device_proj_int8(self.store.scan_mode.pca_dim)
-                # the projected mirror is in row order: its ids are row ids, and
-                # rows >= n carry the losing sentinel
+            if scan in ("int8", "pca"):
+                mirror = (self.store.device_proj_int8(self.store.scan_mode.pca_dim) if self.uses_pca
+                          else self.store.device_int8())
                 with span("flat.k1"):
-                    _, cand = S.scan_candidates_int8_packed(PJ.project(q, proj, mu), p8, pscale,
-                                                            pcache, r, self.dist)
-                cand = torch.where(cand < n, cand, T.INVALID_ID)
-            elif scan in ("int8", "pca"):
-                base_i8, scales, cache8, perm = self.store.device_int8()
-                # validity lives IN the permuted mirror (sentinels), not in a bound
-                with span("flat.k1"):
-                    _, cand = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
+                    _, cand = mirror.survivors(q, r)
                 with span("flat.decode"):
-                    cand = T.decode_perm(cand, perm, n)
+                    cand = mirror.decode(cand, n)
             else:  # "bf16" ("exact" took the branch above)
                 scan_vecs, scan_cache = self.store.device_traversal()
                 _, cand = T.scan_candidates(q, scan_vecs, scan_cache, n, r, self.dist)

@@ -18,7 +18,7 @@ Parity target: `HNSWIndex` (reference: src/index_algorithm/hnsw_index.rs).
 - PQ search (`knn_pq_batch`, with a `PQTable`): routes "mirror" (K1 + K2),
   "scan" (the ADC scan K7 or K8 / K9 + K2) and "graph" (ADC node distances
   K8 / K9 in the fused loop K4 -> K8/K9 -> K5, or the classic loop with K6
-  when `fused=False`); `plan_pq_route` picks "mirror" on CUDA.
+  when `fused=False`); "auto" picks "mirror" on CUDA, "graph" on the CPU.
 - Build: the reference's freeze-and-patch chunks (add_parallel,
   hnsw_index.rs:399-457).  A chunk's level-0 candidate pool is a scan of
   the frozen prefix (K1 over the permuted int8 mirror on CUDA, the exact f32
@@ -51,7 +51,6 @@ from ..ops import beam as BM
 from ..ops import distance as D
 from ..ops import gather as G
 from ..ops import graph as GR
-from ..ops import scan as S
 from ..ops import topk as T
 from ..ops import traverse as TR
 from ..utils import serde
@@ -64,27 +63,6 @@ CHUNK_LADDER = (1, 4, 16, 64, 256, 1024, 4096)
 BULK_LINKS_MIN = 4096  # batch size from which level-0 links go device-canonical
 
 _INF = float("inf")
-
-# The PQ planner's crossover (hnsw.py:55-68 of the reference, chosen from
-# TPU v5e measurements at the Gist1M m = 320 4-bit shape, B = 1000): past
-# this many rows the ADC graph traversal is planned instead of the ADC scan
-# when no int8 mirror is resident.  Its H100 value is not measured yet
-# (ROADMAP queue 1, item 16).
-PQ_SCAN_CROSSOVER = 5_000_000
-
-
-def plan_pq_route(on_cuda: bool, scannable: bool, n: int) -> str:
-    """The knn_pq physical plan: "mirror" (the store's resident int8 scan
-    mirror + exact rerank, a better quantized representation than 4-bit ADC
-    wherever it is resident), "scan" (the full ADC scan + exact rerank) or
-    "graph" (the ADC beam traversal, hnsw_index.rs:672-697).  The CPU always
-    plans "graph", so the tests exercise the reference algorithm."""
-    if not on_cuda:
-        return "graph"
-    if scannable:
-        return "mirror"
-    return "graph" if n > PQ_SCAN_CROSSOVER else "scan"
-
 
 def _pad_ladder(n: int) -> int:
     for c in CHUNK_LADDER:
@@ -504,6 +482,20 @@ class HNSWIndex:
                                           init_cap=2 * expect))
         return self.upper[level - 1]
 
+    def _level0_pool(self, q, vecs, vcache, n_prev: int, r: int):
+        """(c, r) candidate pool of the frozen prefix: on CUDA (past 4r rows,
+        where int8 keeps neighbor order) K1 over the permuted mirror with
+        the whole chunk in one launch, the in-flight chunk masked out (so
+        same-chunk rows do not crowd the prefix out of survivor groups) and
+        the ids decoded; else the exact f32 scan.  The pool only needs
+        approximate ORDER: `_select_links` recomputes exact distances."""
+        if q.is_cuda and n_prev > 4 * r and self.store.int8_reliable():
+            mirror = self.store.device_int8()
+            bd, bi = mirror.survivors(q, r, n_valid=n_prev)
+            bi = mirror.decode(bi, n_prev)
+            return torch.where(bi >= 0, bd, _INF), bi
+        return T.knn_scan(q, vecs, vcache, n_prev, r, self.dist)
+
     def _insert_ids(self, ids: np.ndarray, levels: np.ndarray) -> None:
         """Scan-based chunk insert.  The level-0 pool is a scan of the frozen
         prefix [0, min(ids)) (the reference's inversion of add_parallel's
@@ -511,28 +503,6 @@ class HNSWIndex:
         traversal); upper-level pools are exact member GEMMs.  Only the
         selected links (c x m int32) come back to the host."""
         n_prev = int(ids.min())
-        # keep the in-flight chunk out of the int8 scan mirror, so same-chunk
-        # rows do not crowd the prefix out of survivor groups
-        self.store.set_scan_bound(n_prev)
-        try:
-            self._insert_ids_inner(ids, levels, n_prev)
-        finally:
-            self.store.set_scan_bound(None)
-
-    def _level0_pool(self, q, vecs, vcache, n_prev: int, r: int):
-        """(c, r) candidate pool of the frozen prefix: on CUDA (past 4r rows,
-        where int8 keeps neighbor order) K1 over the permuted mirror with
-        the whole chunk in one launch, its ids decoded and cut to the
-        prefix; else the exact f32 scan.  The pool only needs approximate
-        ORDER: `_select_links` recomputes exact distances."""
-        if q.is_cuda and n_prev > 4 * r and self.store.int8_reliable():
-            base_i8, scales, cache8, perm8 = self.store.device_int8()
-            bd, bi = S.scan_candidates_int8_packed(q, base_i8, scales, cache8, r, self.dist)
-            bi = T.decode_perm(bi, perm8, n_prev)
-            return torch.where(bi >= 0, bd, _INF), bi
-        return T.knn_scan(q, vecs, vcache, n_prev, r, self.dist)
-
-    def _insert_ids_inner(self, ids, levels, n_prev: int) -> None:
         cfg = self.config
         c = len(ids)
         c_pad = _pad_ladder(c)
@@ -846,8 +816,9 @@ class HNSWIndex:
         ef candidates + K2's exact rerank, on either device.
         route="mirror": the Flat two-stage plan (K1 + K2) on the store's
         int8 mirror with ef as the stage-1 depth.
-        route="auto": `plan_pq_route`: "mirror" on CUDA (the full-tier store
-        always holds its mirror), "graph" on the CPU."""
+        route="auto": "mirror" on CUDA (a better quantized representation
+        than 4-bit ADC, and the full-tier store always holds its mirror),
+        "graph" on the CPU, so the tests exercise the reference algorithm."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         B = queries.shape[0]
         if len(self.store) == 0 or self.entry_point is None:
@@ -858,7 +829,7 @@ class HNSWIndex:
         q = self._queries(queries)
         on_cuda = q.is_cuda
         if route == "auto":
-            route = plan_pq_route(on_cuda, True, len(self.store))
+            route = "mirror" if on_cuda else "graph"
         if route == "mirror":
             d, i = FlatIndex.from_store(self.store)._knn_device(q, k, rerank_depth=ef)
             return d.cpu().numpy(), i.cpu().numpy()

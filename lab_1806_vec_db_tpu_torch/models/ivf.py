@@ -165,7 +165,8 @@ class IVFIndex:
         memory (the ingest-sorted lean mirror and its overflow slice, used
         in place) is counted once."""
         total = self.store.device_bytes()
-        seen = {_storage_ptr(t) for t in self.store._dev_int8 or ()}
+        shared = self.store.mirror_layout == "sorted"
+        seen = {_storage_ptr(t) for t in self.store.device_int8().tensors} if shared else set()
         extra = [self._dev_centroids, self._dev_posting]
         if self._dev_binned is not None:
             q8s, sc, ca, perm_pad, _, ov = self._dev_binned
@@ -284,8 +285,9 @@ class IVFIndex:
         lpad, perm_pad, ov_h = _sorted_layout(self.posting, self.posting_len, k)
         dev = self.device
         pp = torch.from_numpy(perm_pad).to(dev)
-        if self.store._mirror_layout == "sorted":
-            q8_all, scales, cache, _ = self.store.device_int8()
+        mirror = self.store.device_int8()
+        if mirror.layout == "sorted":
+            q8_all, scales, cache, _ = mirror
             kl = k * lpad
             if kl + len(ov_h) != self.store.capacity:
                 # the recomputed layout must be the one the ingest used, or
@@ -300,19 +302,10 @@ class IVFIndex:
                 ov = (q8_all[sl], scales[sl], cache[sl], torch.from_numpy(ov_h).to(dev))
             self._dev_binned = (q8_all, scales, cache, pp, lpad, ov)
             return self._dev_binned
-        q8_all, scales, cache = self.store.device_int8()[:3]
-        # the mirror is scan-permuted: translate original ids to mirror rows
-        inv = self.store._scan_inv
-        rows = torch.from_numpy(inv[np.maximum(perm_pad, 0)].astype(np.int64)).to(dev)
-        valid = pp >= 0
-        q8_sorted = q8_all[rows]
-        scale_sorted = torch.where(valid, scales[rows], 0.0)
-        cache_sorted = torch.where(valid, cache[rows], S._BIG)
-        ov = None
-        if len(ov_h):
-            rows_m = torch.from_numpy(inv[ov_h].astype(np.int64)).to(dev)
-            ov = (q8_all[rows_m], scales[rows_m], cache[rows_m], torch.from_numpy(ov_h).to(dev))
-        self._dev_binned = (q8_sorted, scale_sorted, cache_sorted, pp, lpad, ov)
+        # the mirror is scan-permuted: gather a sorted copy, pad rows sentinels
+        binned = mirror.take(np.maximum(perm_pad, 0), pp >= 0)
+        ov = (*mirror.take(ov_h), torch.from_numpy(ov_h).to(dev)) if len(ov_h) else None
+        self._dev_binned = (*binned, pp, lpad, ov)
         return self._dev_binned
 
     def _queries(self, queries) -> torch.Tensor:

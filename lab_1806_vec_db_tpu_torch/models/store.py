@@ -5,15 +5,13 @@
 - the device view is a fixed-capacity (cap, dim) f32 tensor plus its
   per-row distance cache, refreshed incrementally: a small write is applied
   as in-place `index_copy_` row writes instead of a re-upload;
-- the scan-PERMUTED int8 mirror (`device_int8`) feeds K1, with +BIG
-  sentinels on invalid rows;
+- the scan mirrors K1 reads, each a `mirror.ScanMirror` built on first use
+  and written row by row after: the permuted int8 mirror (`device_int8`)
+  and, in the "pca" scan mode, the PCA-projected one (`device_proj_int8`);
 - the rerank rows (`device_rerank`) ARE the f32 device tensor: K2 reads
   rows in place, so the reference's second (cap*SR, 128) slab copy is gone;
 - the bf16 traversal copy (`device_traversal`) serves the HNSW graph
-  search of the CPU route and the "bf16" scan mode, built on first use;
-- the PCA-projected int8 mirror (`device_proj_int8`, `ops/project.py`), in
-  row order (not permuted), feeds K1 in the "pca" scan mode: its projection
-  is fitted once and later row writes are projected through it.
+  search of the CPU route and the "bf16" scan mode, built on first use.
 
 The LEAN tier (`from_device_blocks`) streams f32 blocks from a generator and
 keeps only the int8 mirror (randomly permuted, or any layout the caller
@@ -32,17 +30,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .mirror import ScanMirror, scan_perm
 from ..ops import distance as D
 from ..ops import project as PJ
 from ..ops import topk as T
-from ..ops.scan import _BIG
 from ..utils.device import resolve
 from ..utils.profiling import span
 
 _MIN_CAP = 8
-# rows per block of the on-device mirror build (bounds the f32 gather and
-# quantization transients to one block)
-_BLOCK_ROWS = 65536
 
 
 _SCAN_MODES = ("int8", "pca", "bf16", "exact")
@@ -81,24 +76,10 @@ def _round_cap(n: int) -> int:
     return cap
 
 
-def _mirror_rows(v: torch.Tensor, cache: torch.Tensor, dim_pad: int, dist: str):
-    """Quantize f32 rows for the int8 mirror -> (q8 (rows, dim_pad), scale,
-    cache) in the unified channel convention (cosine: scale s/|x|, cache 0).
-    Zero columns past dim are dot-transparent and leave scales unchanged."""
-    q8v, scv = T.quantize_rows_int8(v)
-    if dim_pad != q8v.shape[1]:
-        q8v = torch.nn.functional.pad(q8v, (0, dim_pad - q8v.shape[1]))
-    if dist == "cosine":
-        return q8v, scv / cache.clamp_min(1e-20), torch.zeros_like(cache)
-    return q8v, scv, cache
-
-
 class VecStore:
     # lean-tier state, read through the class defaults by every full-tier
-    # construction path: the retained block generator (exact rows) and the
-    # mirror layout ("sorted" when the caller laid it out, e.g. IVF)
+    # construction path: the retained block generator (exact rows)
     _tier = "full"
-    _mirror_layout = "scan"
     _fill = None
     _fill_block_rows = 0
     _dev_rerank: torch.Tensor | None = None  # the lean tier's bf16 rows
@@ -121,15 +102,10 @@ class VecStore:
     def _init_device_state(self) -> None:
         self._dev: torch.Tensor | None = None
         self._dev_cache: torch.Tensor | None = None
-        self._dev_int8: tuple | None = None  # (q8, scale, cache, perm)
+        self._int8_mirror: ScanMirror | None = None
+        self._pca_mirror: ScanMirror | None = None
         self._dev_bf16: torch.Tensor | None = None  # traversal copy
-        # (d_red, proj (dim, d_red), mu (dim,), (q8p, scale_p, cache_p))
-        self._dev_proj: tuple | None = None
-        self._scan_perm: np.ndarray | None = None  # fixed scan shuffle
-        self._scan_inv: np.ndarray | None = None
         self._int8_ok: tuple[bool, int] | None = None  # (verdict, n at test)
-        # rows >= this bound read as INVALID in the int8 mirror
-        self._scan_bound: int | None = None
         self._dirty_rows: set[int] = set()
         # concurrent searches (readers of the table) share the store: the
         # lazy device sync and mirror build run under this lock, once
@@ -200,8 +176,8 @@ class VecStore:
         rows), scattered to `perm`'s layout: mirror slot i holds original row
         perm[i] (default: the full tier's seeded random permutation of `cap`
         = n rounded up to 16384).  A custom `perm` / `cap` (slots of ids >= n
-        are never written and keep the losing sentinel) marks the store
-        `_mirror_layout = "sorted"`, which the Flat scan refuses.
+        are never written and keep the losing sentinel) gives the mirror the
+        layout "sorted" (`mirror_layout`), which the Flat scan refuses.
         `assign_fn(v, row0)` runs on each f32 block before it is dropped
         (IVF's cluster assignment).  The int8 ordering self-test runs on the
         first block's first 4096 rows.  With `keep_fill` the generator is
@@ -223,26 +199,15 @@ class VecStore:
         store._init_device_state()
         store._dev_full_dirty = False
         store._tier = "lean"
-        store._mirror_layout = "sorted" if perm is not None else "scan"
         cap = store._cap
         if perm is not None:
             perm = np.asarray(perm, dtype=np.int32)
             if perm.shape != (cap,):
                 raise ValueError(f"perm shape {perm.shape} != ({cap},)")
-            store._scan_perm = perm
-        else:
-            rng = np.random.default_rng(cap ^ 0x5EED)
-            store._scan_perm = rng.permutation(cap).astype(np.int32)
-        store._scan_inv = np.empty(cap, np.int32)
-        store._scan_inv[store._scan_perm] = np.arange(cap, dtype=np.int32)
-
-        dim_pad = ((dim + 127) // 128) * 128
-        q8 = torch.zeros((cap, dim_pad), dtype=torch.int8, device=dev)
-        scale = torch.zeros(cap, dtype=torch.float32, device=dev)
-        cache_ch = torch.full((cap,), _BIG, dtype=torch.float32, device=dev)  # sentinel everywhere
+        mirror = ScanMirror.empty(cap, PJ.proj_lanes(dim), dist, n, scan_perm(cap) if perm is None else perm,
+                                  "scan" if perm is None else "sorted", dev)
         # indexed by ORIGINAL id (< n): no mirror layout padding
         rerank = torch.zeros((-(-int(n) // 16384) * 16384, dim), dtype=torch.bfloat16, device=dev)
-        inv_dev = torch.from_numpy(store._scan_inv[:n].astype(np.int64)).to(dev)
         verdict = None
         for row0 in range(0, n, block_rows):
             rows = min(block_rows, n - row0)
@@ -252,20 +217,22 @@ class VecStore:
                 verdict = T.int8_ordering_selftest(v[:m], m, dist) >= 0.95
             if assign_fn is not None:
                 assign_fn(v, row0)
-            slots = inv_dev[row0 : row0 + rows]
-            q8v, scv, cpv = _mirror_rows(v, D.dist_cache(v, dist), dim_pad, dist)
-            q8[slots] = q8v
-            scale[slots] = scv
-            cache_ch[slots] = cpv
+            mirror.write_rows(np.arange(row0, row0 + rows), v, D.dist_cache(v, dist), n)
             rerank[row0 : row0 + rows] = v.to(torch.bfloat16)
             del v
-        store._dev_int8 = (q8, scale, cache_ch, torch.from_numpy(store._scan_perm).to(dev))
+        store._int8_mirror = mirror
         store._dev_rerank = rerank
         store._int8_ok = (True if verdict is None else bool(verdict), max(n, 1))
         if keep_fill:
             store._fill = fill
             store._fill_block_rows = int(block_rows)
         return store
+
+    @property
+    def mirror_layout(self) -> str:
+        """The int8 mirror's `layout`: "sorted" for a lean store ingested in
+        its caller's order, else "scan" (built or not)."""
+        return self._int8_mirror.layout if self._tier == "lean" else "scan"
 
     @property
     def distance_precision(self) -> str:
@@ -341,10 +308,12 @@ class VecStore:
         int8 mirror with its channels and permutation, the PCA mirror with
         its projection, the bf16 traversal copy, and the lean tier's bf16
         rerank rows."""
-        proj = (self._dev_proj[1], self._dev_proj[2], *self._dev_proj[3]) if self._dev_proj else ()
-        tensors = [self._dev, self._dev_cache, *(self._dev_int8 or ()), *proj, self._dev_bf16,
-                   self._dev_rerank]
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        tensors = [self._dev, self._dev_cache, self._dev_bf16, self._dev_rerank]
+        return (sum(t.numel() * t.element_size() for t in tensors if t is not None)
+                + sum(m.nbytes for m in self._mirrors()))
+
+    def _mirrors(self) -> list[ScanMirror]:
+        return [m for m in (self._int8_mirror, self._pca_mirror) if m is not None]
 
     def free_search_caches(self) -> None:
         """Release every derived device tensor (the int8 and PCA mirrors, the
@@ -353,8 +322,7 @@ class VecStore:
         rows ARE the data."""
         if self._tier == "lean":
             return
-        self._dev_int8 = None
-        self._dev_proj = None
+        self.free_scan_mirrors()
         self._dev_bf16 = None
 
     def free_scan_mirrors(self) -> None:
@@ -362,14 +330,7 @@ class VecStore:
         on the lean tier."""
         if self._tier == "lean":
             return
-        self._dev_int8 = None
-        self._dev_proj = None
-
-    def set_scan_bound(self, bound: int | None) -> None:
-        """Treat rows >= `bound` as INVALID in the int8 scan mirror.  Applied
-        at `device_int8` read time by re-masking the two (cap,) channel
-        vectors; the int8 rows never change."""
-        self._scan_bound = bound
+        self._int8_mirror = self._pca_mirror = None
 
     def _host(self) -> np.ndarray:
         """The (cap, dim) host array, materialized from the device tensor on
@@ -414,7 +375,7 @@ class VecStore:
         self._dev = None
         self._dev_cache = None
         self._dev_bf16 = None
-        self._dev_proj = None
+        self._pca_mirror = None
         self._dev_full_dirty = True
         self._dirty_rows.clear()
 
@@ -477,8 +438,7 @@ class VecStore:
                 host[: self._n] = self._host()[: self._n].astype(np.float32)
                 self._dev = torch.from_numpy(host).to(self.torch_device)
                 self._dev_cache = D.dist_cache(self._dev, self.dist)
-                self._dev_int8 = None
-                self._dev_proj = None
+                self._int8_mirror = self._pca_mirror = None
                 self._dev_bf16 = None
                 self._int8_ok = None
                 self._dev_full_dirty = False
@@ -490,10 +450,8 @@ class VecStore:
     def _sync_rows(self) -> None:
         """Write the dirty rows into every live device tensor in place
         (`index_copy_` instead of the reference's donated functional scatter:
-        no second copy of any (cap, ...) buffer).  Rows no longer valid (the
-        vacated tail of a swap_remove) enter the int8 and PCA mirrors as
-        losing sentinels: scale 0, cache +BIG.  The PCA mirror's rows are
-        projected through its fixed fit."""
+        no second copy of any (cap, ...) buffer), the live mirrors included
+        (`ScanMirror.write_rows`)."""
         rows = np.array(sorted(self._dirty_rows), dtype=np.int64)
         vals = torch.from_numpy(self._host()[rows].astype(np.float32)).to(self.torch_device)
         rows_t = torch.from_numpy(rows).to(self.torch_device)
@@ -502,21 +460,8 @@ class VecStore:
         self._dev_cache.index_copy_(0, rows_t, cache_v)
         if self._dev_bf16 is not None:
             self._dev_bf16.index_copy_(0, rows_t, vals.to(torch.bfloat16))
-        if self._dev_int8 is not None:
-            q8, scale, cache_p, _ = self._dev_int8
-            rows_scan = torch.from_numpy(self._scan_inv[rows].astype(np.int64)).to(self.torch_device)
-            q8v, scv, cpv = _mirror_rows(vals, cache_v, q8.shape[1], self.dist)
-            valid = torch.from_numpy(rows < self._n).to(self.torch_device)
-            q8.index_copy_(0, rows_scan, q8v)
-            scale.index_copy_(0, rows_scan, torch.where(valid, scv, 0.0))
-            cache_p.index_copy_(0, rows_scan, torch.where(valid, cpv, _BIG))
-        if self._dev_proj is not None:
-            _, proj, mu, (p8, psc, pca) = self._dev_proj
-            p8v, pscv, pcav = PJ.project_quantize(vals, proj, mu, self.dist)
-            validp = torch.from_numpy(rows < self._n).to(self.torch_device)
-            p8.index_copy_(0, rows_t, p8v)
-            psc.index_copy_(0, rows_t, torch.where(validp, pscv, 0.0))
-            pca.index_copy_(0, rows_t, torch.where(validp, pcav, _BIG))
+        for m in self._mirrors():
+            m.write_rows(rows, vals, cache_v, self._n)
         self._dirty_rows.clear()
 
     def device_rerank(self) -> torch.Tensor:
@@ -537,87 +482,38 @@ class VecStore:
                 self._dev_bf16 = vecs.to(torch.bfloat16)
             return self._dev_bf16, cache
 
-    def device_int8(self):
-        """The SCAN-PERMUTED int8 mirror: ((cap, dim_pad) int8 rows, (cap,)
-        f32 scales, (cap,) f32 cache, (cap,) int32 perm), synced and cached;
-        mirror row i holds original row perm[i].
-
-        The permutation is `np.random.default_rng(cap ^ 0x5EED)`, the
-        reference's, so for the same rows the mirror is the same bytes.  It
-        scatters any storage order: K1 keeps one survivor per strided
-        128-row group, and a cluster-sorted ingest would otherwise put a
-        query's neighbors into few groups.  dim_pad is dim rounded up to a
-        multiple of 128.  Invalid rows hold scale 0 + cache +BIG; callers
-        still drop decoded ids >= len(store).  The lean tier returns the
+    def device_int8(self) -> ScanMirror:
+        """The scan-permuted int8 mirror (`ScanMirror`: (cap, dim_pad) int8
+        rows, (cap,) scale, cache and int32 perm; dim_pad is dim rounded up
+        to a multiple of 128), synced and cached.  The lean tier returns the
         mirror it was ingested with (immutable)."""
         if self._tier == "lean":
-            return self._dev_int8
+            return self._int8_mirror
         with self._lock:
             vecs, cache = self.device()
-            if self._dev_int8 is None:
+            if self._int8_mirror is None:
                 with span("store.mirror"):
-                    if self._scan_perm is None or len(self._scan_perm) != self._cap:
-                        rng = np.random.default_rng(self._cap ^ 0x5EED)
-                        self._scan_perm = rng.permutation(self._cap).astype(np.int32)
-                        self._scan_inv = np.empty(self._cap, np.int32)
-                        self._scan_inv[self._scan_perm] = np.arange(self._cap, dtype=np.int32)
-                    dim_pad = ((self.dim + 127) // 128) * 128
-                    perm = torch.from_numpy(self._scan_perm).to(self.torch_device)
-                    q8 = torch.empty((self._cap, dim_pad), dtype=torch.int8, device=self.torch_device)
-                    scale = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                    cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                    # built in permuted order, one block of gathered rows at a time:
-                    # no (cap, dim) transient beside the live tensors
-                    for s0 in range(0, self._cap, _BLOCK_ROWS):
-                        src = perm[s0 : s0 + _BLOCK_ROWS].long()
-                        q8v, scv, cpv = _mirror_rows(vecs[src], cache[src], dim_pad, self.dist)
-                        q8[s0 : s0 + len(src)] = q8v
-                        scale[s0 : s0 + len(src)] = scv
-                        cache_p[s0 : s0 + len(src)] = cpv
-                    valid = perm < self._n
-                    scale = torch.where(valid, scale, 0.0)
-                    cache_p = torch.where(valid, cache_p, _BIG)
-                    self._dev_int8 = (q8, scale, cache_p, perm)
-            q8, scale, cache_p, perm = self._dev_int8
-            b = self._scan_bound
-            if b is not None and b < self._n:
-                ok = perm < b
-                scale, cache_p = torch.where(ok, scale, 0.0), torch.where(ok, cache_p, _BIG)
-            return q8, scale, cache_p, perm
+                    self._int8_mirror = ScanMirror.build(vecs, cache, self._n, self.dist, scan_perm(self._cap))
+            return self._int8_mirror
 
-    def device_proj_int8(self, d_red: int):
-        """The PCA-projected int8 mirror: (proj (dim, d_red) f32, mu (dim,)
-        f32, q8p (cap, proj_lanes(d_red)) int8, scale_p (cap,) f32, cache_p
-        (cap,) f32), synced and cached, in ROW order (no permutation, so no
-        `decode_perm` follows the scan).
+    def device_proj_int8(self, d_red: int) -> ScanMirror:
+        """The PCA-projected int8 mirror (`ScanMirror` in row order, with its
+        fit `proj` (dim, d_red) and `mu` (dim,); proj_lanes(d_red) lanes),
+        synced and cached.
 
         The projection is fitted once from the rows present at the first
         call, then held fixed: later row writes are projected through it in
         the row sync (the mirror only orders stage-1 candidates; the exact
         rerank does not depend on the fit).  A full rebuild (capacity
-        growth, bulk upload) or a different `d_red` refits.  Rows >= n carry
-        scale 0 and the +BIG cache: K1 has no positional mask."""
+        growth, bulk upload) or a different `d_red` refits."""
         self._require_full("the PCA mirror")
         with self._lock:
-            vecs, _ = self.device()  # syncs dirty rows into the mirror too
-            if self._dev_proj is None or self._dev_proj[0] != d_red:
-                proj_h, mu_h = PJ.pca_fit(vecs, self._n, d_red, self.dist)
-                proj = torch.from_numpy(proj_h).to(self.torch_device)
-                mu = torch.from_numpy(mu_h).to(self.torch_device)
-                lanes = PJ.proj_lanes(d_red)
-                q8p = torch.empty((self._cap, lanes), dtype=torch.int8, device=self.torch_device)
-                scale_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                cache_p = torch.empty(self._cap, dtype=torch.float32, device=self.torch_device)
-                # one block of rows at a time: no (cap, d_red) f32 transient
-                for r0 in range(0, self._cap, _BLOCK_ROWS):
-                    r1 = min(r0 + _BLOCK_ROWS, self._cap)
-                    q8p[r0:r1], scale_p[r0:r1], cache_p[r0:r1] = PJ.project_quantize(
-                        vecs[r0:r1], proj, mu, self.dist)
-                scale_p[self._n :] = 0.0
-                cache_p[self._n :] = _BIG
-                self._dev_proj = (d_red, proj, mu, (q8p, scale_p, cache_p))
-            _, proj, mu, (q8p, scale_p, cache_p) = self._dev_proj
-            return proj, mu, q8p, scale_p, cache_p
+            vecs, cache = self.device()  # syncs dirty rows into the mirror too
+            if self._pca_mirror is None or self._pca_mirror.proj.shape[1] != d_red:
+                proj, mu = (torch.from_numpy(a).to(self.torch_device)
+                            for a in PJ.pca_fit(vecs, self._n, d_red, self.dist))
+                self._pca_mirror = ScanMirror.build(vecs, cache, self._n, self.dist, proj=proj, mu=mu)
+            return self._pca_mirror
 
     def int8_reliable(self) -> bool:
         """Whether per-row int8 quantization preserves neighbor ORDER on this

@@ -8,6 +8,7 @@ Projecting the rows onto their top `d_red` principal directions (one
 matrix on the host) gives a stage-1 scan (K1) over `d_red` lanes instead of
 `dim`; K2's exact rerank then restores exact distances for the returned
 top-k, the same two-stage contract as the int8 mirror's (models/flat.py).
+The projected mirror itself is `models/mirror.py`'s.
 
 For `l2sqr` the rows are centered first (the mean cancels in differences);
 for `cosine` the raw second moment is used and rows are projected
@@ -19,9 +20,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from . import distance as D
-from .topk import quantize_rows_int8
 
 _LANES = 128  # K1 reads its mirror in 128-byte boxes: D must be a multiple
 
@@ -58,22 +56,3 @@ def project(x: torch.Tensor, proj: torch.Tensor, mu: torch.Tensor) -> torch.Tens
     """(B, dim) rows -> (B, d_red) f32 projected (and centered) rows."""
     return (x.float() - mu[None, :]) @ proj
 
-
-def project_quantize(x: torch.Tensor, proj: torch.Tensor, mu: torch.Tensor, dist: str):
-    """Project rows and quantize them to K1's mirror format.
-
-    Returns ((rows, proj_lanes(d_red)) int8 zero-padded past d_red, (rows,)
-    f32 cross factors, (rows,) f32 additive terms) in the unified channel
-    convention (cosine: scale s / |x_p|, cache 0).  Zero (padded) rows
-    project to -mu @ P and come back with real-looking channels: the CALLER
-    overwrites invalid rows with scale 0 and the +BIG cache (K1 has no
-    positional mask; `VecStore.device_proj_int8`)."""
-    xp = project(x, proj, mu)
-    q8, scale = quantize_rows_int8(xp)
-    lanes = proj_lanes(q8.shape[1])
-    if lanes != q8.shape[1]:
-        q8 = torch.nn.functional.pad(q8, (0, lanes - q8.shape[1]))
-    cache = D.dist_cache(xp, dist)
-    if dist == "cosine":
-        return q8, scale / cache.clamp_min(1e-20), torch.zeros_like(cache)
-    return q8, scale, cache

@@ -6,7 +6,8 @@ against the JAX package's harness.
   one results TOML with its .html: Flat's recall is exactly 1, the others'
   rise with ef / n_probes to within 0.05 of the reference's sweep on the
   same TOML;
-- the chained timing mode flags its rows;
+- the chained timing mode flags its rows; an HNSW table's chained step is
+  the auto routes' Flat two-stage plan on the card;
 - the results TOML and the index / PQ caches written by either package load
   in the other (the same index: equal ids from both);
 - the mesh path (`mesh = N`) runs on the sharded indexes over a mesh on
@@ -25,8 +26,9 @@ from lab_1806_vec_db_tpu.utils.config import BenchConfig as JBenchConfig
 from lab_1806_vec_db_tpu_torch.bench import harness
 from lab_1806_vec_db_tpu_torch.cli import gen_gnd
 from lab_1806_vec_db_tpu_torch.models import HNSWIndex, IVFIndex
+from lab_1806_vec_db_tpu_torch.models import flat as flat_mod
 from lab_1806_vec_db_tpu_torch.utils import io
-from lab_1806_vec_db_tpu_torch.utils.config import BenchConfig
+from lab_1806_vec_db_tpu_torch.utils.config import BenchConfig, HNSWConfig
 
 torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
@@ -101,6 +103,24 @@ def test_chained_rows_are_flagged(bench_dir, algo):
     cfg = BenchConfig.load_from_toml_file(_toml(bench_dir, "HNSW", out, extra="chained = true"))
     assert not harness.run_bench(cfg, device="cpu")["chained"]
     assert "chained" not in harness.ResultList.load(str(out)).results["HNSW"]
+
+
+@pytest.mark.parametrize("route", ["scan", "mirror"])
+def test_hnsw_chained_step_is_the_auto_route_on_the_card(gist_1000, monkeypatch, route):
+    """With and without a PQ table, the chained step of an HNSW table on the
+    card is what `knn_with_ef_batch` ("scan") and `knn_pq_batch` ("mirror")
+    run there: on a CPU store with the on-card check patched, the same ids."""
+    monkeypatch.setattr(flat_mod, "_EXACT_BELOW", 0)  # the two-stage plan, not the exact scan
+    monkeypatch.setattr(harness, "_on_card", lambda index: True)
+    base, queries = gist_1000[:800, :DIM], gist_1000[800:840, :DIM]
+    index = HNSWIndex.build(base, "l2sqr", HNSWConfig(M=8, ef_construction=40), seed=1, device="cpu")
+    pq = object() if route == "mirror" else None  # neither route reads the table
+    _, ids = harness._device_step(index, pq, 10)(torch.from_numpy(queries), 40)
+    if route == "scan":
+        _, expect = index.knn_with_ef_batch(queries, 10, 40, route="scan")
+    else:
+        _, expect = index.knn_pq_batch(queries, 10, 40, pq, route="mirror")
+    np.testing.assert_array_equal(ids.numpy(), expect)
 
 
 def test_result_lists_interchange(tmp_path):

@@ -19,6 +19,7 @@ from lab_1806_vec_db_tpu.utils.config import IVFConfig as JIVFConfig
 from lab_1806_vec_db_tpu_torch.models import FlatIndex, HNSWIndex, IVFIndex, VecStore
 from lab_1806_vec_db_tpu_torch.models import ivf as ivf_mod
 from lab_1806_vec_db_tpu_torch.utils.config import IVFConfig
+from lab_1806_vec_db_tpu_torch.utils.profiling import collect
 
 torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
@@ -71,7 +72,7 @@ def test_lean_refuses_f32_and_mutation():
     # the caches are the data on this tier: freeing them does nothing
     store.free_search_caches()
     store.free_scan_mirrors()
-    assert store.device_int8()[0] is q8 and store.device_bytes() > 0
+    assert store.device_int8().q8 is q8 and store.device_bytes() > 0
     with pytest.raises(RuntimeError, match="lean"):
         FlatIndex.from_store(store)._knn_device(np.zeros((1, dim), np.float32), 5, exact=True)
     # on the full tier they drop the derived mirrors, which rebuild the same
@@ -79,10 +80,10 @@ def test_lean_refuses_f32_and_mutation():
     before = [t.clone() for t in full.device_int8()]
     full.device_traversal()
     full.free_search_caches()
-    assert full._dev_int8 is None and full._dev_bf16 is None
+    assert full._int8_mirror is None and full._dev_bf16 is None
     full.device_int8()
     full.free_scan_mirrors()
-    assert full._dev_int8 is None
+    assert full._int8_mirror is None
     for a, b in zip(full.device_int8(), before):
         assert torch.equal(a, b)
 
@@ -133,14 +134,14 @@ def test_sorted_mirror_matches_scan_mirror():
     idx_scan = IVFIndex.from_device_blocks(_fill(base), N, dim, "l2sqr", IVFConfig(k=16), **kw)
     idx_sorted = IVFIndex.from_device_blocks(_fill(base), N, dim, "l2sqr", IVFConfig(k=16),
                                              mirror="sorted", **kw)
-    assert idx_sorted.store._mirror_layout == "sorted"
+    assert idx_sorted.store.mirror_layout == "sorted"
     np.testing.assert_array_equal(idx_scan.posting, idx_sorted.posting)
     d1, i1 = idx_scan._knn_device_binned(qs, k, 4)
     d2, i2 = idx_sorted._knn_device_binned(qs, k, 4)
     np.testing.assert_array_equal(i1.numpy(), i2.numpy())
     np.testing.assert_array_equal(d1.numpy(), d2.numpy())
     # the sorted store's binned mirror IS the store's tensor (no second copy)
-    assert idx_sorted._dev_binned[0] is idx_sorted.store.device_int8()[0]
+    assert idx_sorted._dev_binned[0] is idx_sorted.store.device_int8().q8
     assert idx_sorted.index_bytes() < idx_scan.index_bytes()
     with pytest.raises(ValueError, match="sorted"):
         FlatIndex.from_store(idx_sorted.store)
@@ -175,7 +176,7 @@ def test_sorted_lean_binned_matches_reference():
     assert cap == ref.store.capacity
     store = VecStore.from_device_blocks(_fill(base), N, dim, "l2sqr", block_rows=1024, perm=perm,
                                         cap=cap, device="cpu")
-    np.testing.assert_array_equal(store.device_int8()[0].numpy(), np.asarray(ref.store.device_int8()[0]))
+    np.testing.assert_array_equal(store.device_int8().q8.numpy(), np.asarray(ref.store.device_int8()[0]))
     port = IVFIndex(store, IVFConfig(k=4), ref.centroids, ref.posting, ref.posting_len)
     rd, ri = ref._knn_device_binned(jnp.asarray(qs), k, 2, interpret=True)
     pd, pi = port._knn_device_binned(qs, k, 2)
@@ -186,12 +187,15 @@ def test_sorted_lean_binned_matches_reference():
 def test_lean_exact_distance_refinement():
     """Exact returned distances (hnsw_index.rs:624-633): with the generator
     kept, lean Flat results refine to exact f32; without it the bf16
-    precision is advertised and the distances are bf16-grade."""
+    precision is advertised and the distances are bf16-grade.  The
+    refinement reads the batch the search uploaded."""
     N, dim, k = 4000, 64, 10
     base, qs = _clustered(N, dim, 12, seed=3)
     store = VecStore.from_device_blocks(_fill(base), N, dim, "l2sqr", block_rows=1024, device="cpu")
     assert store.distance_precision == "f32"
-    d, ids = FlatIndex.from_store(store).knn_batch(qs, k)
+    with collect() as spans:
+        d, ids = FlatIndex.from_store(store).knn_batch(qs, k)
+    assert spans.count["flat.upload"] == 1
     np.testing.assert_allclose(d, ((base[ids] - qs[:, None, :]) ** 2).sum(-1), rtol=1e-5, atol=1e-5)
     assert (np.diff(d, axis=1) >= -1e-6).all()
     one = FlatIndex.from_store(store).knn(qs[0], k)

@@ -33,6 +33,7 @@ from lab_1806_vec_db_tpu.ops import topk as JT
 from lab_1806_vec_db_tpu_torch import VecDB
 from lab_1806_vec_db_tpu_torch.models import FlatIndex, HNSWIndex, ScanMode, VecStore
 from lab_1806_vec_db_tpu_torch.models import flat as flat_mod
+from lab_1806_vec_db_tpu_torch.models import mirror as MR
 from lab_1806_vec_db_tpu_torch.ops import project as PJ
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 from lab_1806_vec_db_tpu_torch.utils.config import HNSWConfig
@@ -104,7 +105,7 @@ def test_project_and_quantize_match_reference(dist, d_red):
     proj, mu = torch.from_numpy(np.array(jproj)), torch.from_numpy(np.array(jmu))
     xt = torch.from_numpy(base)
     _close(PJ.project(xt, proj, mu).numpy(), np.asarray(JPJ.project(jnp.asarray(base), jproj, jmu)))
-    q8, sc, ca = PJ.project_quantize(xt, proj, mu, dist)
+    q8, sc, ca = MR.project_quantize(xt, proj, mu, dist)
     jq8, jsc, jca = (np.asarray(a) for a in JPJ.project_quantize(jnp.asarray(base), jproj, jmu, dist))
     # K1 reads 128-lane boxes: the projected lanes are zero-padded to 128
     assert q8.shape == (2000, 128) and q8.dtype == torch.int8
@@ -124,7 +125,7 @@ def test_pca_state_carries_across_packages():
     proj, mu = PJ.pca_fit(torch.from_numpy(base), len(base), 16, "l2sqr")
     jq8, jsc, jca = (np.asarray(a) for a in JPJ.project_quantize(
         jnp.asarray(base), jnp.asarray(proj), jnp.asarray(mu), "l2sqr"))
-    q8, sc, ca = PJ.project_quantize(torch.from_numpy(base), torch.from_numpy(proj),
+    q8, sc, ca = MR.project_quantize(torch.from_numpy(base), torch.from_numpy(proj),
                                      torch.from_numpy(mu), "l2sqr")
     diff = np.abs(q8[:, :16].numpy().astype(np.int32) - jq8.astype(np.int32))
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
@@ -150,7 +151,7 @@ def test_pca_scan_recall_matches_reference(monkeypatch, dist, lowrank_65k):
     rec = _recall(gt_i, i)
     assert rec >= 0.95, rec
     # the projected mirror was built, at 32 lanes padded to 128, in row order
-    _, _, p8, psc, pca = idx.store.device_proj_int8(32)
+    p8 = idx.store.device_proj_int8(32).q8
     assert p8.shape == (idx.store.capacity, 128)
     # returned distances are exact f32 for the ids returned
     for q in range(5):
@@ -172,16 +173,17 @@ def test_pca_mirror_incremental_sync(monkeypatch):
     base = rng.standard_normal((512, 48)).astype(np.float32)
     index = FlatIndex.from_numpy(base, "l2sqr", device="cpu", scan="pca", pca_dim=16)
     index.knn_batch(base[:4], 5)  # builds the projected mirror
-    proj0 = index.store.device_proj_int8(16)[0].clone()
+    proj0 = index.store.device_proj_int8(16).proj.clone()
     index.store.swap_remove(0)
     v_new = rng.standard_normal(48).astype(np.float32)
     index.store.push(v_new)
     d, i = index.knn_batch(v_new[None, :], 1)
     assert i[0][0] == 511 and d[0][0] < 1e-5
     # the fit stayed fixed; the new row went through it
-    proj, mu, p8, psc, pca = index.store.device_proj_int8(16)
+    m = index.store.device_proj_int8(16)
+    proj, mu, p8, psc = m.proj, m.mu, m.q8, m.scale
     assert torch.equal(proj, proj0)
-    q8v, scv, cav = PJ.project_quantize(torch.from_numpy(v_new[None, :]), proj, mu, "l2sqr")
+    q8v, scv, cav = MR.project_quantize(torch.from_numpy(v_new[None, :]), proj, mu, "l2sqr")
     # (a product's rounding may depend on how many rows it holds)
     assert int((p8[511].int() - q8v[0].int()).abs().max()) <= 1
     assert np.isclose(float(psc[511]), float(scv[0]), rtol=1e-5, atol=0)
@@ -191,19 +193,19 @@ def test_pca_sentinels_on_invalid_rows():
     rng = np.random.default_rng(5)
     store = VecStore.from_numpy(rng.standard_normal((300, 40)).astype(np.float32), "cosine",
                                 device="cpu")
-    _, _, p8, psc, pca = store.device_proj_int8(8)
+    _, psc, pca, _ = store.device_proj_int8(8)
     assert store.capacity == 512
     big = float(torch.tensor(S._BIG))  # the sentinel as f32
     assert (psc[300:] == 0).all() and (pca[300:] == big).all()
     assert (psc[:300] > 0).all() and (pca[:300] == 0).all()  # cosine: cache 0
     store.swap_remove(10)  # row 299 moves to 10; slot 299 becomes invalid
-    _, _, p8, psc, pca = store.device_proj_int8(8)
+    _, psc, pca, _ = store.device_proj_int8(8)
     assert float(psc[299]) == 0.0 and float(pca[299]) == big
     assert float(psc[10]) > 0 and float(pca[10]) == 0.0
     # counted in the store's device bytes; dropped by free_scan_mirrors
     before = store.device_bytes()
     store.free_scan_mirrors()
-    assert store._dev_proj is None
+    assert store._pca_mirror is None
     assert before - store.device_bytes() >= 512 * 128 + 2 * 512 * 4 + 40 * 8 * 4
 
 
@@ -219,7 +221,7 @@ def test_pca_small_dim_degrades_to_int8(monkeypatch):
     assert not index.uses_pca and index.rerank_depth(10) == 40
     _, gt_i = index.knn_batch(queries, 10, exact=True)
     _, i = index.knn_batch(queries, 10)
-    assert index.store._dev_proj is None and index.store._dev_int8 is not None
+    assert index.store._pca_mirror is None and index.store._int8_mirror is not None
     assert _recall(gt_i, i) >= 0.95
 
 
@@ -237,7 +239,7 @@ def test_exact_mode_matches_reference(monkeypatch, dist, lowrank_65k):
     idx = FlatIndex.from_numpy(base, dist, device="cpu", scan="exact")
     monkeypatch.setattr(flat_mod, "_EXACT_BELOW", 0)  # the mode alone forces the exact scan
     d, i = idx.knn_batch(queries, 10)
-    assert idx.store._dev_int8 is None
+    assert idx.store._int8_mirror is None
     _, ei = idx.knn_batch(queries, 10, exact=True)
     np.testing.assert_array_equal(i, ei)
     monkeypatch.setattr(jflat_mod, "_SCAN_MODE", "exact")
@@ -260,7 +262,7 @@ def test_bf16_mode_recall_matches_reference(monkeypatch, mode):
     idx = FlatIndex.from_numpy(base, "l2sqr", device="cpu", scan=mode)
     _, gt = idx.knn_batch(queries, 10, exact=True)
     _, i = idx.knn_batch(queries, 10)
-    assert idx.store._dev_bf16 is not None and idx.store._dev_int8 is None
+    assert idx.store._dev_bf16 is not None and idx.store._int8_mirror is None
     js = JFlatIndex.from_numpy(base, "l2sqr").store
     scan_vecs, scan_cache = js.device_traversal()
     q = jnp.asarray(queries)
@@ -280,8 +282,8 @@ def test_mode_reaches_hnsw_scan_route(monkeypatch):
     index.store.scan_mode = ScanMode("pca", 16)  # the route reads its store's mode
     _, gt = FlatIndex.from_numpy(base, "l2sqr", device="cpu").knn_batch(queries, 10, exact=True)
     _, i = index.knn_with_ef_batch(queries, 10, 200, route="scan")
-    assert index.store._dev_proj is not None and index.store._dev_proj[0] == 16
-    assert index.store._dev_int8 is None
+    assert index.store._pca_mirror is not None and index.store._pca_mirror.proj.shape[1] == 16
+    assert index.store._int8_mirror is None
     assert _recall(gt, i) >= 0.8
 
 
@@ -294,7 +296,7 @@ def test_mode_reaches_vecdb(monkeypatch, tmp_path):
         db.batch_add("t", base, meta)
         db.batch_search("t", queries, 10)
         inner = db._inner._table_mgr("t").obj.inner.inner
-        assert inner.store.scan_mode == ScanMode("pca", 16) and inner.store._dev_proj is not None
+        assert inner.store.scan_mode == ScanMode("pca", 16) and inner.store._pca_mirror is not None
         db.build_hnsw_index("t")
         hnsw = db._inner._table_mgr("t").obj.inner.inner
         assert isinstance(hnsw, HNSWIndex) and hnsw.store.scan_mode == ScanMode("pca", 16)

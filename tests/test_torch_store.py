@@ -1,5 +1,6 @@
 """VecStore of the PyTorch port against the JAX package's VecStore: the
-scan-permuted int8 mirror, the dirty-row sync and the device footprint.
+scan-permuted int8 mirror, the dirty-row sync and the device footprint; the
+mirrors' format (`models/mirror.py`) on both kinds of mirror.
 
 int8 rows and the permutation must be identical (same quantizer, same
 `default_rng(cap ^ 0x5EED)` permutation); scales and caches agree to rtol
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from lab_1806_vec_db_tpu.models.store import VecStore as JVecStore
+from lab_1806_vec_db_tpu_torch.models import mirror as MR
 from lab_1806_vec_db_tpu_torch.models.store import VecStore
 from lab_1806_vec_db_tpu_torch.ops import scan as S
 
@@ -36,12 +38,12 @@ def test_int8_mirror_matches_reference(dist):
     s = VecStore.from_numpy(x, dist, device="cpu")
     j = JVecStore.from_numpy(x, dist)
     got = s.device_int8()
-    assert got[0].shape == (s.capacity, 128) and got[0].dtype == torch.int8
+    assert got.q8.shape == (s.capacity, 128) and got.q8.dtype == torch.int8
     _assert_mirrors_equal(got, j.device_int8())
     # invalid rows carry the losing sentinel
-    invalid = got[3].numpy() >= len(x)
-    assert (got[1].numpy()[invalid] == 0).all()
-    assert (got[2].numpy()[invalid] == np.float32(S._BIG)).all()
+    invalid = got.perm.numpy() >= len(x)
+    assert (got.scale.numpy()[invalid] == 0).all()
+    assert (got.cache.numpy()[invalid] == np.float32(S._BIG)).all()
 
 
 @pytest.mark.parametrize("dist", ["l2sqr", "cosine"])
@@ -73,16 +75,62 @@ def test_swap_remove_and_dirty_sync_match_reference(dist):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_scan_bound_masks_channels():
+def test_scan_bound_masks_channels(monkeypatch):
+    """`survivors(..., n_valid=)` scans with the rows >= n_valid turned into
+    sentinels for that call alone; the mirror keeps its channels."""
     x = _rows(100, 16, seed=3)
     s = VecStore.from_numpy(x, "l2sqr", device="cpu")
-    s.set_scan_bound(60)
-    _, sc, ca, perm = s.device_int8()
-    out = perm.numpy() >= 60
+    m = s.device_int8()
+    scanned = []
+    real = S.scan_candidates_int8_packed
+    monkeypatch.setattr(S, "scan_candidates_int8_packed",
+                        lambda q, b8, sc, ca, r, dist: scanned.append((sc, ca)) or real(q, b8, sc, ca, r, dist))
+    q = torch.from_numpy(x[:4])
+    _, cand = m.survivors(q, 8, n_valid=60)
+    sc, ca = scanned[0]
+    perm = m.perm.numpy()
+    out = perm >= 60
     assert (sc.numpy()[out] == 0).all() and (ca.numpy()[out] == np.float32(S._BIG)).all()
-    s.set_scan_bound(None)
-    _, sc2, _, _ = s.device_int8()
-    assert (sc2.numpy()[(perm.numpy() >= 60) & (perm.numpy() < 100)] > 0).all()
+    assert (sc.numpy()[~out] == m.scale.numpy()[~out]).all()
+    ids = m.decode(cand, 60).numpy()
+    assert (ids < 60).all() and (ids[:, 0] == np.arange(4)).all()
+    m.survivors(q, 8)
+    assert scanned[1][0] is m.scale and scanned[1][1] is m.cache
+    assert (m.scale.numpy()[(perm >= 60) & (perm < 100)] > 0).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "pca"])
+@pytest.mark.parametrize("when", ["build", "written"])
+def test_mirror_rows_follow_the_format(kind, when):
+    """Each mirror row holds its original row under the channel rule, and
+    every row holding none the losing sentinel: after a build, and after
+    rows written in place by push / swap_remove, which then equal a fresh
+    build.  The PCA mirror projects rows through its fit, a product whose
+    rounding may depend on how many rows it holds: int8 lanes +-1, scales
+    rtol 1e-5."""
+    dist = "cosine" if kind == "int8" else "l2sqr"
+    s = VecStore.from_numpy(_rows(200, 40, seed=9), dist, device="cpu")
+    mirror = s.device_int8 if kind == "int8" else lambda: s.device_proj_int8(8)
+    m = mirror()
+    if when == "written":
+        s.swap_remove(5)
+        s.swap_remove(len(s) - 1)
+        s.push(_rows(1, 40, seed=10)[0])
+        assert mirror() is m  # written in place, not rebuilt
+    vecs, cache = s.device()
+    orig = m.perm.long() if kind == "int8" else torch.arange(s.capacity)
+    valid = (orig < len(s)).numpy()
+    if kind == "int8":
+        q8, sc, ca = MR.quantize(vecs[orig], cache[orig], 128, dist)
+    else:
+        q8, sc, ca = MR.project_quantize(vecs[orig], m.proj, m.mu, dist)
+    atol = 0 if kind == "int8" else 1
+    assert np.abs(m.q8.numpy()[valid].astype(np.int32) - q8.numpy()[valid]).max() <= atol
+    rtol = 0 if kind == "int8" else 1e-5
+    np.testing.assert_allclose(m.scale.numpy()[valid], sc.numpy()[valid], rtol=rtol, atol=0)
+    np.testing.assert_allclose(m.cache.numpy()[valid], ca.numpy()[valid], rtol=rtol, atol=0)
+    assert (m.scale.numpy()[~valid] == 0).all()
+    assert (m.cache.numpy()[~valid] == np.float32(S._BIG)).all()
 
 
 def test_device_bytes_counts_each_tensor_once():
@@ -132,8 +180,6 @@ def test_concurrent_readers_sync_once(monkeypatch):
     import sys
     import threading
 
-    from lab_1806_vec_db_tpu_torch.models import store as store_mod
-
     x = _rows(3000, 24, seed=7)
     s = VecStore.from_numpy(x, "l2sqr", device="cpu")
     s.device_int8()
@@ -144,8 +190,8 @@ def test_concurrent_readers_sync_once(monkeypatch):
     expect._cap, expect._data, expect._dev_full_dirty = s.capacity, s._host().copy(), True
     expect = expect.device_int8()
     syncs = []
-    real = store_mod._mirror_rows
-    monkeypatch.setattr(store_mod, "_mirror_rows", lambda *a: syncs.append(1) or real(*a))
+    real = MR.ScanMirror.write_rows
+    monkeypatch.setattr(MR.ScanMirror, "write_rows", lambda *a: syncs.append(1) or real(*a))
     results, errors = [], []
 
     def reader():
