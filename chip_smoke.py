@@ -115,6 +115,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                the exact small-batch scan at one query, l2sqr, on the same
                rows (checked and timed as in phase 4); `FlatIndex.knn`'s
                operations on the card and kernel launches a search;
+     select  — inside phase 6, on K1's survivors of that batch (S 7,936, B
+               1000): the survivor select kernel (`select_survivors.cu`)
+               against its plain version (the stable sort), distances and
+               ids bit for bit, at r 40 (the cell), 160 (pca), 120 / 600
+               (HNSW's scan route on 1,568 survivors), 1024 (the kernel's
+               largest), on an IVF overflow
+               segment's 80 and 560, at B 1 and 1001, r past S, and on
+               heavy ties (four keys, -0.0 and +0.0 among them) and on one
+               key; each timed in turns with the plain version, beside its
+               byte bound, its CUDA-graph replay and a keyed `torch.topk`
+               (the yardstick); where
+               the shape rule sends a shape to the kernel, the kernel may
+               not be slower than the sort;
      resident — on the same rows (l2sqr, B = 1000): the three q-resident
                stage-1 entry points (K12 on the store's bf16 copy, K13 and
                K14 on int8 rows with raw channels) each feeding r = 40
@@ -552,6 +565,79 @@ def exact_small_row(x, n, dist, seed):
            "max_rel_err_f64": worst, "ids_differ_near_ties": ids_differ}
     log(f"[exact_small] {n} x {dim} {dist}: {ms:.4f} ms (bound {bound[0]:.4f}, {out['roofline_pct']:.1f}%), "
         f"plain {plain_ms:.3f}, library {out['library_ms']:.4f}; checks at B 1 / 4 / {SS.B_MAX} pass")
+    return out
+
+
+def select_row(packed):
+    """The survivor select kernel (csrc/select_survivors.cu) on K1's (S, B)
+    survivors `packed` and shapes cut from them: bit for bit against its
+    plain version (`scan.select_survivors_ref`), then timed in turns with
+    it, beside its byte bound (one read of the survivors, one write of the
+    results), its time replayed from a CUDA graph (`graph_ms`: without the
+    wrapper's host work, which small shapes time otherwise) and a keyed
+    `torch.topk` over the transposed survivors (the yardstick: a select
+    only, no decode, which the port never calls).  Where
+    `survivors.takes_kernel` sends the shape to the kernel, the kernel must
+    not be slower than the sort.  The empty shapes (S 0, B 0, r 0) are
+    checked, not timed."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.bench.time_adc import graph_ms
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import survivors as SV
+
+    S_, B = packed.shape
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    # four keys, -0.0 and +0.0 among them; and one key everywhere
+    four = torch.tensor([0, -(2**31), 0x3F400000, 0x3F400001], dtype=torch.int32, device="cuda")
+    ties = four[torch.randint(0, 4, (S_, B), generator=gen, device="cuda")]
+    one_key = torch.full((S_, B), 0x3F400005, dtype=torch.int32, device="cuda")
+    hnsw = packed[:1568].contiguous()
+    shapes = [("cell", packed, 40), ("pca", packed, 160), ("hnsw_ef120", hnsw, 120), ("hnsw_ef600", hnsw, 600),
+              ("r_max", packed, SV.R_MAX),
+              ("ivf_overflow_s80", packed[:80].contiguous(), 40),
+              ("ivf_overflow_s560", packed[:560].contiguous(), 40),
+              ("b1", packed[:, :1].contiguous(), 40), ("b1001", torch.cat([packed, packed[:, :1]], 1), 40),
+              ("r_past_s", packed[:16].contiguous(), 40), ("heavy_ties", ties, 40), ("one_key", one_key, 40)]
+    out = {}
+
+    def equal(name, p, r):
+        d, i = SV.select_top_r(p, r)
+        rd, ri = S.select_survivors_ref(p, r)
+        torch.cuda.synchronize()
+        d_equal = torch.equal(d.view(torch.int32), rd.view(torch.int32))
+        check(d_equal and torch.equal(i, ri),
+              f"select {name} (S {p.shape[0]}, B {p.shape[1]}, r {r}): {int((d.view(torch.int32) != rd.view(torch.int32)).sum())} "
+              f"distances and {int((i != ri).sum())} ids differ from the plain version")
+        return max_abs_err(d, rd)
+
+    for name, p, r in (("empty_s", packed[:0].contiguous(), 40), ("empty_b", packed[:, :0].contiguous(), 40),
+                       ("r0", packed, 0)):
+        equal(name, p, r)
+        log(f"[select] {name} S {p.shape[0]} B {p.shape[1]} r {r}: equal")
+    for name, p, r in shapes:
+        launches = SV.select_top_r.launches
+        err = equal(name, p, r)
+        pos = torch.arange(p.shape[0], dtype=torch.int64, device="cuda")
+
+        def library(p=p, r=r, pos=pos):
+            bits = (p.T.view(torch.float32) + 0.0).view(torch.int32)
+            key = (torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64) << 32) | pos
+            return torch.topk(key, min(r, p.shape[0]), dim=1, largest=False, sorted=True)
+
+        reps = 50 if p.numel() > 10**6 else 200
+        ms, plain_ms = in_turns(lambda p=p, r=r: SV.select_top_r(p, r), lambda p=p, r=r: S.select_survivors_ref(p, r),
+                                reps, max(3, reps // 10))
+        taken = SV.takes_kernel(p, r)
+        bound = bound_ms(p.numel() * 4 + p.shape[1] * r * 8)
+        out[name] = {"S": p.shape[0], "B": p.shape[1], "r": r, "ms": ms, "plain_ms": plain_ms,
+                     "graph_ms": graph_ms(lambda p=p, r=r: SV.select_top_r(p, r)),
+                     "library_ms": cuda_ms(library, reps), "bound": bound, "roofline_pct": 100 * bound[0] / ms,
+                     "taken_by_rule": taken, "launches": SV.select_top_r.launches - launches, "max_abs_err": err}
+        log(f"[select] {name} S {p.shape[0]} B {p.shape[1]} r {r}: equal; {ms:.4f} ms, graph "
+            f"{out[name]['graph_ms']:.4f} (bound {bound[0]:.4f}), plain {plain_ms:.4f}, "
+            f"library {out[name]['library_ms']:.4f}, rule {'kernel' if taken else 'sort'}")
+        check(not taken or ms <= plain_ms, f"select {name}: the rule takes the kernel, which is slower "
+              f"({ms:.4f} ms) than the sort ({plain_ms:.4f} ms)")
     return out
 
 
@@ -2124,6 +2210,7 @@ def phase_vecdb(x_host, q_host):
     from lab_1806_vec_db_tpu_torch.models import FlatIndex
     from lab_1806_vec_db_tpu_torch.ops import gather as G
     from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import survivors as SV
 
     n, k = len(x_host), 10
     db_dir = os.path.join(HERE, "tmp", "chip_smoke_db")
@@ -2144,11 +2231,13 @@ def phase_vecdb(x_host, q_host):
             # the main path: counters from 0 around one user batch_search
             S.scan_chunkmin_int8_packed.launches = 0
             G.gather_dists.launches = 0
+            SV.select_top_r.launches = 0
             t0 = time.perf_counter()
             res = db.batch_search(key, q_host, k)
             t_first = time.perf_counter() - t0
-            launches[key] = (S.scan_chunkmin_int8_packed.launches, G.gather_dists.launches)
-            check(min(launches[key]) > 0, f"{key}: batch_search launched K1/K2 {launches[key]} times")
+            launches[key] = (S.scan_chunkmin_int8_packed.launches, G.gather_dists.launches,
+                             SV.select_top_r.launches)
+            check(min(launches[key]) > 0, f"{key}: batch_search launched K1/K2/select {launches[key]} times")
             # end-to-end batch_search on the host clock (query upload, both
             # stages, result fetch, metadata join): 7 warm calls
             calls = []
@@ -2174,7 +2263,7 @@ def phase_vecdb(x_host, q_host):
                         "batch_search_first_s": t_first, "batch_search_median_s": t_warm,
                         "batch_search_min_s": min(calls), "batch_search_max_s": max(calls),
                         "single_query_us": {"device": single_us[0], "native": single_us[1]},
-                        "launches": {"k1": launches[key][0], "k2": launches[key][1]}}
+                        "launches": {"k1": launches[key][0], "k2": launches[key][1], "select": launches[key][2]}}
             log(f"[5/6] VecDB {key}: recall@10 {rec:.4f}, batch_search {t_warm*1e3:.1f} ms "
                 f"(first {t_first:.2f} s), K1/K2 launches {launches[key]}; one query on the card "
                 f"{single_us[0]:.0f} µs, native {single_us[1]:.0f} µs")
@@ -2654,6 +2743,8 @@ def phase_1m(card):
     }
     log(f"[6/6] 1M x 960: recall@10 {rec:.4f}, QPS best {qps['qps_best']:.0f} median {qps['qps_median']:.0f}, "
         f"stages {split}, {times}")
+    out["select"] = select_row(packed)
+    del packed
     vecs, _ = store.device()
     out["exact_small"] = exact_small_row(vecs, n, dist, 22)
     out["knn_single"] = knn_single_ops(flat, q, k)
@@ -3628,7 +3719,8 @@ def main() -> None:
         ("k1", "scan_int8_packed_kernel"), ("k8_ids", "2k810ids_kernel"), ("k8_dense", "dense_onehot_kernel"),
         ("k10", "scan_int8_binned_kernel"), ("k12", "scan_bf16_chunkmin_kernel"),
         ("k13", "scan_int8_bf16_kernelILb0E"), ("k14", "scan_int8_bf16_kernelILb1E"),
-        ("k3", "traverse_kernel"), ("k4", "beam_pre_kernel"), ("k5", "beam_post_kernel"))}
+        ("k3", "traverse_kernel"), ("k4", "beam_pre_kernel"), ("k5", "beam_post_kernel"),
+        ("select", "select_survivors_kernel"))}
     for key, rep in ptxas.items():
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
         check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
@@ -3764,6 +3856,16 @@ def main() -> None:
          "ms": es["ms"], "plain_ms": es["plain_ms"], "bound_ms": es["bound"][0], "bound_by": es["bound"][1],
          "library_ms": es["library_ms"], "ptxas": ptxas_of(build_log, "11scan_kernelI"),
          "flat_1m_l2sqr": m["exact_small"], "knn_single_1m": m["knn_single"]})
+    sel = m["select"]["cell"]
+    kernels.append(
+        # no TPU kernel behind it (the JAX package's select is lax.approx_min_k);
+        # launches: flat_1m's first batch; timed on its survivors at r 40,
+        # every other shape under "shapes"
+        {"name": "select_survivors", "route": "cuda", "source": f"{PKG}/csrc/select_survivors.cu",
+         "replaces": None, "launches": main_launches[2],
+         "max_abs_err": max(row["max_abs_err"] for row in m["select"].values()),
+         "ms": sel["ms"], "plain_ms": sel["plain_ms"], "bound_ms": sel["bound"][0], "bound_by": sel["bound"][1],
+         "library_ms": sel["library_ms"], "ptxas": ptxas["select"], "shapes": m["select"]})
 
     def pq_kernel(name, src, replaces, launches, meas, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",

@@ -99,6 +99,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vecdb_scan_exact_small.restype = I
     lib.vecdb_scan_exact_small_ctas_per_sm.argtypes = [I] * 4 + [P]
     lib.vecdb_scan_exact_small_ctas_per_sm.restype = I
+    lib.vecdb_select_survivors.argtypes = [P] * 3 + [I] * 3 + [P]
+    lib.vecdb_select_survivors.restype = I
     lib.vecdb_error_string.argtypes = [I]
     lib.vecdb_error_string.restype = ctypes.c_char_p
 

@@ -27,6 +27,8 @@ import torch
 
 from . import _build
 from . import distance as D
+from . import survivors as SV
+from ..utils.profiling import span
 from .topk import INVALID_ID, quantize_rows_int8
 
 _BIG = 3.0e38  # finite losing sentinel of invalid mirror rows
@@ -224,8 +226,20 @@ def select_survivors(packed: torch.Tensor, r: int):
     as f32 (the int32 min within a group and the f32 order across groups
     differ for slightly negative d; both are the reference's).  The
     reference takes this top-r with `lax.approx_min_k(recall_target=0.95)`
-    on the TPU; here it is an exact stable sort, ties lower position first
-    as `lax.top_k` orders them."""
+    on the TPU; here it is exact, ties lower position first as `lax.top_k`
+    orders them.  On the card, where `survivors.takes_kernel` holds, one
+    hand-written kernel (the span `scan.select`); else the plain version
+    `select_survivors_ref`, which gives the same bits."""
+    if SV.takes_kernel(packed, r):
+        with span("scan.select"):
+            return SV.select_top_r(packed, r)
+    return select_survivors_ref(packed, r)
+
+
+def select_survivors_ref(packed: torch.Tensor, r: int):
+    """Plain PyTorch version of the select (`select_survivors`' contract):
+    a stable sort of every query's survivors by the packed value viewed as
+    f32, the first r gathered and decoded."""
     packed = packed.T  # (B, S)
     B, S = packed.shape
     as_f32 = packed.view(torch.float32)
