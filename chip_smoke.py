@@ -195,7 +195,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   8. u8      — u8_1m: FlatIndexU8 at 1,000,000 x 128 uint8 rows (BIGANN's
                shape; Gist-spectrum rows scaled and clipped to 0-255), B =
                1000, k = 10, QPS of chained batches, the returned distances
-               of 64 queries equal to float64 exact and to the exact top-10;
+               of 64 queries equal to float64 exact and to the exact top-10,
+               the exact route against the library path (`knn_scan_u8`) on
+               every query, both timed; K1's uint8 variant against its plain
+               version at 8 shapes (`k1_u8_twins`); u8_100m (`u8_100m`):
+               from_device over 100,000,000 rows (build s, peaks), the uint8
+               stage 1 and the select (S 781,264, r 10) each equal to its
+               plain version on the route's tensors and timed in turns with
+               it, the rescan, one launch of each in a knn_batch call,
+               knn_batch, one library-path call, 100 queries equal to the
+               exact reference; the ptxas figures of both K1 instantiations;
                vecdb_u8_100k: a uint8 VecDB table of 100,000 rows through the
                API (batch_add, batch_search against the index, the 200.7 ->
                200 cast, HNSW and PQ refused with RuntimeError, reopen).
@@ -247,10 +256,12 @@ K10: ivf_1m's binned search at n_probes 16; bf16 K2: ivf_lean_4m's; K11:
 codes_ivfpq_10m's search at n_probes 48; K7 at stage 0: codes_pq_10m's
 first search; K12-K14: the resident phase's three entry points, K13 / K14
 with `graph_ms` too; K4 / K5 / K7 / K11 also carry `sharded_launches`, the
-sharded HNSW's at ef 200 and the sharded IVF-PQ's at 48 probes),
+sharded HNSW's at ef 200 and the sharded IVF-PQ's at 48 probes; K1's uint8
+variant, `scan_u8_exact`: one knn_batch call of u8_100m, timed there),
 its error against the plain version, both times, the least time the card
 could take (`bound_ms`) and a library call's time where one PyTorch call
-computes the same function (K6: a stable torch.sort and a gather; else null).
+computes the same function (K6: a stable torch.sort and a gather;
+`scan_u8_exact`: one call of the uint8 library path; else null).
 """
 
 from __future__ import annotations
@@ -2532,6 +2543,8 @@ def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
     import torch
     from lab_1806_vec_db_tpu_torch import VecDB
     from lab_1806_vec_db_tpu_torch.models import FlatIndexU8
+    from lab_1806_vec_db_tpu_torch.models import u8 as MU8
+    from lab_1806_vec_db_tpu_torch.ops import u8 as U8
 
     k = 10
     x, scale = u8_rows(n, 6, device)
@@ -2567,8 +2580,23 @@ def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
     out["profile"] = profile_call(lambda: idx._knn_device(q, k))
     log(f"[u8] u8_1m: build {out['build_s']:.2f} s, QPS best {out['qps_best']:.0f} median "
         f"{out['qps_median']:.0f}, distances equal float64 exact, index_bytes {out['index_bytes']}")
-    del idx, x, q
+    # the exact route against the library path (knn_scan_u8) on every query
+    check(MU8.exact_route(idx.dist, idx.device, idx.dim, len(idx), k), "u8_1m: the call does not take the exact route")
+    rd, ri = idx._knn_exact(q, k)
+    ld, li = U8.knn_scan_u8(q, *idx.store.device(), len(idx), k, "l2sqr")
+    check(torch.equal(rd, ld), "u8_1m: the exact route's distances differ from the library path's")
+    kth = ld[:, k - 1 :]
+    check(all(set(a[da < t].tolist()) == set(b[db < t].tolist()) for a, b, da, db, t in zip(ri, li, rd, ld, kth)),
+          "u8_1m: the exact route's ids differ from the library path's below the k-th distance")
+    out["route_equals_library"] = {"distances": True, "ids_differing_at_ties": int((ri != li).sum())}
+    out["route_ms"] = cuda_ms(lambda: idx._knn_exact(q, k), 5)
+    out["library_ms"] = cuda_ms(lambda: U8.knn_scan_u8(q, *idx.store.device(), len(idx), k, "l2sqr"), 2)
+    log(f"[u8] u8_1m: the exact route equals the library path ({out['route_equals_library']['ids_differing_at_ties']} "
+        f"ids differ at ties); route {out['route_ms']:.3f} ms, library {out['library_ms']:.3f} ms a batch")
+    del idx, x, q, rd, ri, ld, li
     torch.cuda.empty_cache()
+    out["k1_u8"] = k1_u8_twins(device)
+    big = u8_100m(device=device)
 
     # ---- vecdb_u8_100k ----
     db_dir = os.path.join(HERE, "tmp", "chip_smoke_u8_db")
@@ -2617,7 +2645,157 @@ def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
                     "close / reopen identical"]
     log(f"[u8] vecdb_u8_100k: batch_add {vd['batch_add_s']:.2f} s, batch_search {vd['batch_search_median_s']*1e3:.1f} "
         "ms, cast / refusals / reopen checked")
-    return {"u8_1m": out, "vecdb_u8_100k": vd}
+    return {"u8_1m": out, "vecdb_u8_100k": vd, "u8_100m": big}
+
+
+def k1_u8_twins(device="cuda") -> dict:
+    """K1's uint8 variant against its plain version, element for element: a
+    70,000-row mirror with 500 sentinel rows at B 1000, 129, 16 and 1; 6,000
+    rows (parts > 1); all-0 and all-255 rows and queries (d up to 128 x
+    255^2); widths 96 and 129 (256 lanes)."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.models.mirror import U8Mirror
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    g = torch.Generator(device=device).manual_seed(5)
+
+    def rand(n, dim):
+        return torch.randint(0, 256, (n, dim), generator=g, device=device, dtype=torch.uint8)
+
+    def full(n, v):
+        return torch.full((n, U8_DIM), v, dtype=torch.uint8, device=device)
+
+    r, qq = rand(70000, U8_DIM), rand(1000, U8_DIM)
+    cases = [(f"70000 rows, B {b}", r, 500, qq[:b]) for b in (1000, 129, 16, 1)]
+    cases += [("6000 rows", r[:6000], 0, qq), ("extremes", torch.cat([full(3000, 0), full(3000, 255)]), 0,
+                                              torch.cat([full(64, 0), full(64, 255)]))]
+    cases += [(f"dim {d}", rand(9000, d), 0, rand(300, d)) for d in (96, 129)]
+    shapes = []
+    for tag, rows, tail, q in cases:
+        m = U8Mirror.build(rows, rows.shape[0] - tail, "l2sqr", device)
+        q8, qn8 = m.queries(q)
+        out = S.scan_chunkmin_u8_packed(q8, qn8, m.q8, m.cache)
+        ref = S.scan_chunkmin_u8_packed_ref(q8, qn8, m.q8, m.cache)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K1 u8 {tag}: {int((out != ref).sum())} packed values differ from the plain version")
+        shapes.append(tag)
+    log(f"[u8] K1's uint8 variant equal to its plain version element for element: {'; '.join(shapes)}")
+    return {"equal": shapes, "max_abs_err": 0}
+
+
+def u8_100m(n=100_000_000, B=1000, n_check=100, device="cuda") -> dict:
+    """gist_u8_100m's shape: FlatIndexU8.from_device over 100,000,000 x 128
+    Gist-derived uint8 rows (`benchmark/synth_u8.py`): build time and peak;
+    the uint8 stage 1 (K1's variant) equal to its plain version element for
+    element on the route's own card tensors (one part, 48,829 chunks), and
+    both timed in turns against the bound; the select on its survivors
+    (S 781,264, r 10) equal to its plain version (the stable sort) bit for
+    bit, both timed; the rescan; the launches of both kernels in one
+    knn_batch call; knn_batch's time; one call of the library path; and the
+    answers of `n_check` queries against the exact reference
+    (`benchmark/reference.py`): distances equal, ids equal below the k-th
+    distance."""
+    import numpy as np
+    import torch
+    from benchmark import reference, synth_u8
+    from lab_1806_vec_db_tpu_torch.models import FlatIndexU8
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+    from lab_1806_vec_db_tpu_torch.ops import survivors as SV
+    from lab_1806_vec_db_tpu_torch.ops import u8 as U8
+
+    k = 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = synth_u8.make_device(n, U8_DIM, 27, device)
+    q = synth_u8.make_device(B, U8_DIM, 28, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = FlatIndexU8.from_device(x, "l2sqr")
+    torch.cuda.synchronize()
+    out = {"cell": "u8_100m", "n": n, "batch": B, "k": k, "build_s": time.perf_counter() - t0,
+           "index_bytes": idx.index_bytes(), "build_peak_bytes": torch.cuda.max_memory_allocated()}
+    m = idx.store.mirror()
+    q8, qn8 = m.queries(q)
+    out["plan"] = S.k1_plan(m.q8.shape[0], B, torch.cuda.get_device_properties(0).multi_processor_count)
+    packed = S.scan_chunkmin_u8_packed(q8, qn8, m.q8, m.cache)
+    ref = S.scan_chunkmin_u8_packed_ref(q8, qn8, m.q8, m.cache)
+    check(torch.equal(packed, ref), f"u8_100m: {int((packed != ref).sum())} of K1 u8's packed values differ from "
+                                    "the plain version")
+    del ref
+    out["k1_u8_max_abs_err"] = 0
+    out["k1_u8_ms"], out["k1_u8_plain_ms"] = in_turns(
+        lambda: S.scan_chunkmin_u8_packed(q8, qn8, m.q8, m.cache),
+        lambda: S.scan_chunkmin_u8_packed_ref(q8, qn8, m.q8, m.cache), 5, 1)
+    out["k1_u8_bound_ms"], out["k1_u8_bound_by"] = bound_ms(
+        n * U8_DIM + 4 * n + B * (U8_DIM + 8) + -(-n // 128) * B * 4, 2 * n * B * U8_DIM)
+    # the select at the route's shape: the kernel equals the stable sort bit for bit
+    check(SV.takes_kernel(packed, k), "u8_100m: the select does not take its kernel")
+    (sd, si), (rd, ri) = S.select_survivors(packed, k), S.select_survivors_ref(packed, k)
+    check(torch.equal(sd.view(torch.int32), rd.view(torch.int32)) and torch.equal(si, ri),
+          f"u8_100m: the select differs from its plain version at S {packed.shape[0]}, r {k}")
+    del rd, ri
+    sel_ms, sel_plain_ms = in_turns(lambda: S.select_survivors(packed, k), lambda: S.select_survivors_ref(packed, k),
+                                    5, 1)
+    out["select"] = {"S": packed.shape[0], "B": B, "r": k, "max_abs_err": 0, "ms": sel_ms, "plain_ms": sel_plain_ms,
+                     "bound": bound_ms(packed.numel() * 4 + B * k * 8), "library_ms": None}
+    out["select_ms"] = sel_ms
+    cand = si
+    del packed, sd
+    out["rescan_ms"] = cuda_ms(lambda: m.rescan(q8, qn8, cand, k), 5)
+    q_host = q.cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    S.scan_chunkmin_u8_packed.launches = SV.select_top_r.launches = 0
+    idx.knn_batch(q_host, k)
+    out["launches"] = {"scan_u8_exact": S.scan_chunkmin_u8_packed.launches,
+                       "select_survivors": SV.select_top_r.launches}
+    check(out["launches"] == {"scan_u8_exact": 1, "select_survivors": 1},
+          f"u8_100m: one knn_batch call launched {out['launches']}, not one of each kernel")
+    calls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        idx.knn_batch(q_host, k)
+        calls.append(time.perf_counter() - t0)
+    out["knn_batch_s"] = sorted(calls)
+    out["qps_median"] = B / float(np.median(calls))
+    out["search_peak_bytes"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    U8.knn_scan_u8(q, *idx.store.device(), n, k, "l2sqr")
+    torch.cuda.synchronize()
+    out["library_s"] = time.perf_counter() - t0
+    d, i = idx.knn_batch(q_host[:n_check], k)
+    del m, q8, qn8, cand
+    ed, ei = reference.exact_topk(x, q[:n_check], k, "l2sqr")
+    got = torch.from_numpy(d).to(device).double()
+    check(torch.equal(got, ed), f"u8_100m: distances differ from the exact reference by {float((got - ed).abs().max())}")
+    kth = ed[:, k - 1 :]
+    ids = torch.from_numpy(i).to(device).long()
+    check(all(set(a[da < t].tolist()) == set(b[db < t].tolist()) for a, b, da, db, t in zip(ids, ei, got, ed, kth)),
+          "u8_100m: ids differ from the exact reference's below the k-th distance")
+    out["equal_exact_reference_queries"] = n_check
+    log(f"[u8] u8_100m: build {out['build_s']:.2f} s (peak {out['build_peak_bytes'] / 1e9:.2f} GB), K1 u8 "
+        f"{out['k1_u8_ms']:.3f} ms (plain {out['k1_u8_plain_ms']:.3f}, bound {out['k1_u8_bound_ms']:.3f}; equal), "
+        f"select {out['select_ms']:.3f} (plain {sel_plain_ms:.3f}; equal), rescan "
+        f"{out['rescan_ms']:.3f}, knn_batch median {1e3 * float(np.median(calls)):.2f} ms ({out['qps_median']:.0f} "
+        f"QPS), library path {out['library_s']:.2f} s; {n_check} queries equal the exact reference")
+    del idx, x, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def u8_kernel(u8: dict, ptxas: dict) -> dict:
+    """The kernels line's entry for K1's uint8 variant (`phase_u8`): no TPU
+    kernel behind it (the JAX package's uint8 scan is plain XLA); launches:
+    one knn_batch call at 100M; timed at gist_u8_100m's shape against its
+    plain version; library_ms: one call of the library path
+    (`ops/u8.py:knn_scan_u8`) at that shape; the smaller shapes' twins
+    under "shapes"."""
+    big = u8["u8_100m"]
+    return {"name": "scan_u8_exact", "route": "cuda", "source": f"{PKG}/csrc/scan_int8_packed.cu",
+            "replaces": None, "launches": big["launches"]["scan_u8_exact"],
+            "max_abs_err": max(big["k1_u8_max_abs_err"], u8["u8_1m"]["k1_u8"]["max_abs_err"]),
+            "ms": big["k1_u8_ms"], "plain_ms": big["k1_u8_plain_ms"], "bound_ms": big["k1_u8_bound_ms"],
+            "bound_by": big["k1_u8_bound_by"], "library_ms": big["library_s"] * 1e3, "ptxas": ptxas,
+            "shapes": u8["u8_1m"]["k1_u8"]["equal"]}
 
 
 def profile_round(flat, q, k: int, reps: int) -> dict:
@@ -3720,12 +3898,12 @@ def main() -> None:
         ("k10", "scan_int8_binned_kernel"), ("k12", "scan_bf16_chunkmin_kernel"),
         ("k13", "scan_int8_bf16_kernelILb0E"), ("k14", "scan_int8_bf16_kernelILb1E"),
         ("k3", "traverse_kernel"), ("k4", "beam_pre_kernel"), ("k5", "beam_post_kernel"),
-        ("select", "select_survivors_kernel"))}
+        ("select", "select_survivors_kernel"), ("k1_u8", "scan_u8_exact_kernel"))}
     for key, rep in ptxas.items():
         check(rep["instantiations"] > 0, f"ptxas: no report for {key} in the build log")
         check(rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], f"ptxas: {key} spills: {rep}")
     # K1, K13 and K14 keep their wgmmas pipelined; K10's note is recorded only
-    for key in ("k1", "k13", "k14"):
+    for key in ("k1", "k1_u8", "k13", "k14"):
         check(ptxas[key]["serialized"] == 0, f"ptxas: {key}'s wgmmas serialized: {ptxas[key]}")
     k3_occ = k3_occupancy()
 
@@ -3772,7 +3950,9 @@ def main() -> None:
                       "kernels_vs_plain": {"k11_codes_ivfpq_10m": k11, "k7_codes_pq_10m_stage0": k7s0}},
                      default=str), flush=True)
     torch.cuda.empty_cache()
-    print(json.dumps({"phase": "u8", "card": card, **phase_u8()}, default=str), flush=True)
+    u8 = phase_u8()
+    print(json.dumps({"phase": "u8", "card": card, **u8, "ptxas": {k: ptxas[k] for k in ("k1", "k1_u8")}},
+                     default=str), flush=True)
     torch.cuda.empty_cache()
     harness_out = phase_harness()
     sharded["harness_mesh"] = harness_out.pop("mesh")
@@ -3865,7 +4045,9 @@ def main() -> None:
          "replaces": None, "launches": main_launches[2],
          "max_abs_err": max(row["max_abs_err"] for row in m["select"].values()),
          "ms": sel["ms"], "plain_ms": sel["plain_ms"], "bound_ms": sel["bound"][0], "bound_by": sel["bound"][1],
-         "library_ms": sel["library_ms"], "ptxas": ptxas["select"], "shapes": m["select"]})
+         "library_ms": sel["library_ms"], "ptxas": ptxas["select"],
+         "shapes": {**m["select"], "u8_100m": u8["u8_100m"]["select"]}})
+    kernels.append(u8_kernel(u8, ptxas["k1_u8"]))
 
     def pq_kernel(name, src, replaces, launches, meas, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",

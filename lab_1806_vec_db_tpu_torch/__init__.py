@@ -27,7 +27,9 @@ Ported so far, over float32 tables:
   chunk-min), K13 (int8, the bf16 distance matrix) and K14 (int8 with a
   chunk-min), each behind its candidate function;
 - uint8 tables (`models/u8.py`: `U8VecSet`, `FlatIndexU8`; `ops/u8.py`):
-  exact integer distances through int8 GEMMs, through `VecDB` too;
+  exact integer distances, through `VecDB` too: l2sqr on the card through
+  K1's uint8 variant and an exact rescan of the chosen groups, the rest
+  through int8 GEMMs;
 - the Flat planner's scan modes (`models/store.py:ScanMode`, "int8" /
   "pca" / "bf16" / "exact" with `pca_dim`, held by the store and set by
   `FlatIndex(..., scan=, pca_dim=)` or `VecDB(dir, scan=, pca_dim=)`; HNSW's

@@ -15,6 +15,12 @@ channels.  Its four rules live here alone:
 - sentinels: a row holding no valid row has scale 0 and cache +_BIG, so it
   loses every comparison (K1 has no positional mask);
 - decoding: `decode` maps survivors back through perm, dropping ids >= n.
+
+`U8Mirror` is the uint8 tables' mirror (`models/u8.py`), for the exact
+integer variant of K1 (`ops/scan.py`'s module doc), a type of its own: row order,
+the rows centred by 128 (x8 = u - 128), int32 channels n8 = |x8|^2 and s8 =
+sum(x8) (the library path's), its rows a whole number of K1's chunks; a
+row holding no valid row is a zero row at n8 = `S.U8_SENTINEL`.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ from ..ops import distance as D
 from ..ops import project as PJ
 from ..ops import scan as S
 from ..ops import topk as T
+from ..ops import u8 as U8
 from ..ops.scan import _BIG
 
 _BLOCK_ROWS = 65536  # rows per block of a build: bounds its transients
+_U8_BLOCK_ROWS = 262144  # rows per block of a uint8 mirror's build (its int32 transients: 128 MB at 128 lanes)
 
 
 def scan_perm(cap: int) -> np.ndarray:
@@ -160,3 +168,78 @@ class ScanMirror:
         if self.perm is None:
             return torch.where(cand < n, cand, T.INVALID_ID)
         return T.decode_perm(cand, self.perm, n)
+
+
+class U8Mirror:
+    """The uint8 mirror, a type of its own (it shares no channel, sentinel
+    or search rule with `ScanMirror`): `q8` (rows, lanes) int8 the centred
+    rows, zero past `n` and past the width `dim`; `cache` (rows,) int32 n8,
+    U8_SENTINEL past `n`; `s8` (rows,) int32; rows a multiple of 2048 (K1
+    pads nothing); in row order, so a mirror row is its original row.  `ip`
+    (|u|^2, for the library path) is made on first use."""
+
+    def __init__(self, dist: str, n: int, dim: int):
+        self.dist, self.n, self.dim = dist, int(n), int(dim)
+        self.q8 = self.cache = self.s8 = self._ip = None
+
+    @classmethod
+    def build(cls, rows: torch.Tensor, n: int, dist: str, device) -> "U8Mirror":
+        """The mirror of the first `n` uint8 `rows` ((>= n, dim), on the host
+        or the device), built `_U8_BLOCK_ROWS` rows at a time: no copy of the
+        whole table in a wider type."""
+        dim = rows.shape[1]
+        m = cls(dist, n, dim)
+        n_rows = max(1, -(-int(n) // S._NB)) * S._NB
+        m.q8 = torch.zeros((n_rows, PJ.proj_lanes(dim)), dtype=torch.int8, device=device)
+        m.cache = torch.full((n_rows,), S.U8_SENTINEL, dtype=torch.int32, device=device)
+        m.s8 = torch.zeros(n_rows, dtype=torch.int32, device=device)
+        for r0 in range(0, int(n), _U8_BLOCK_ROWS):
+            r1 = min(r0 + _U8_BLOCK_ROWS, int(n))
+            x8 = U8.centre(rows[r0:r1].to(device))
+            m.q8[r0:r1, :dim] = x8
+            m.cache[r0:r1], m.s8[r0:r1] = U8.centred_sums(x8)
+        return m
+
+    @property
+    def tensors(self) -> list[torch.Tensor]:
+        return [t for t in (self.q8, self.cache, self.s8, self._ip) if t is not None]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors)
+
+    def channels(self):
+        """(x8 (rows, dim) int8, ip (rows,) int32, s8 (rows,) int32): the
+        library path's (`ops/u8.py:knn_scan_u8`) view; ip is 2^30 past n."""
+        if self._ip is None:
+            ip = U8.ip_from_centred(self.cache, self.s8, self.dim)
+            self._ip = torch.where(torch.arange(len(ip), device=ip.device) < self.n, ip, 2**30).to(torch.int32)
+        return self.q8[:, : self.dim], self._ip, self.s8
+
+    def host_rows(self) -> np.ndarray:
+        """The first n rows as host uint8, from the centred rows (exact)."""
+        return self.q8[: self.n, : self.dim].view(torch.uint8).bitwise_xor(128).cpu().numpy()
+
+    def queries(self, q_u8: torch.Tensor):
+        """(B, dim) uint8 queries -> (q8 (B, lanes) int8 centred, qn8 (B,) int32)."""
+        q8 = U8.centre(q_u8)
+        qn8, _ = U8.centred_sums(q8)
+        lanes = self.q8.shape[1]
+        if lanes != q8.shape[1]:
+            q8 = torch.nn.functional.pad(q8, (0, lanes - q8.shape[1]))
+        return q8.contiguous(), qn8
+
+    def survivors(self, q8: torch.Tensor, qn8: torch.Tensor, r: int):
+        """Stage 1: the uint8 variant of K1 and the exact top-r groups ->
+        ((B, r) f32 values of no use here, (B, r) int32 rows of each group's
+        minimum)."""
+        return S.select_survivors(S.scan_chunkmin_u8_packed(q8, qn8, self.q8, self.cache), r)
+
+    def rescan(self, q8: torch.Tensor, qn8: torch.Tensor, cand: torch.Tensor, k: int):
+        """The exact top-k over the rows of the groups `cand` -> ((B, k) f32,
+        (B, k) int32 mirror rows)."""
+        return S.rescan_u8_groups(q8, qn8, self.q8, self.cache, S.u8_group_rows(cand), k)
+
+    def decode(self, rows: torch.Tensor) -> torch.Tensor:
+        """Mirror rows -> original row ids (the same, row order), -1 at >= n."""
+        return torch.where(rows < self.n, rows, T.INVALID_ID)

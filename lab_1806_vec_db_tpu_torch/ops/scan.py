@@ -19,6 +19,24 @@ CHANNELS — one distance formula for both metrics:
     cosine: cache=0,     qc=1,     scale=s_x/|x|,  qs2=s_q/|q|
 Invalid rows carry scale 0 and cache +_BIG (a finite sentinel: inf would
 turn packed bits into inf/NaN patterns); there is no positional mask.
+
+THE UINT8 VARIANT (`scan_chunkmin_u8_packed`, the kernel's `scan_u8_exact_kernel`
+instantiation; plain version `scan_chunkmin_u8_packed_ref`): rows and
+queries are uint8 centred by 128 (x8 = u - 128, exact in int8; L2 does not
+move), with n8 = |x8|^2 and qn8 = |q8|^2 as int32 channels, and
+
+    d = n8 + qn8 - 2 dot   (exact int32),   packed = (d << 7) | level
+
+exact while d < 2^24, so `u8_exact_width` holds the width to dim 255^2 <
+2^23: the row sentinel U8_SENTINEL = 2^23 (a zero row) then reads 2^23 + qn8
+< 2^24 and loses to every valid row.  A positive packed int32 orders as its
+f32 bits do, so `select_survivors` takes it unchanged; its ids are the rows
+of each group's minimum.  The k groups with the least (d, level) minima hold
+an exact top-k (ties counted): a row nearer than the k-th distance d_k lies
+in a group whose minimum is below d_k, there are fewer than k such groups
+and they rank first, and each other chosen group holds a row at d_k or the
+k groups hold every row at d_k.  `rescan_u8_groups` scores the k chosen
+groups' 128 rows exactly and keeps the top-k, ties to the lower row.
 """
 
 from __future__ import annotations
@@ -266,3 +284,118 @@ def scan_candidates_int8_packed(queries, base_i8, base_scale, base_cache, r: int
     q8, qs2, qc = quantize_queries(queries, base_i8.shape[1], dist)
     packed = scan_chunkmin_int8_packed(q8, qs2, qc, base_i8, base_scale, base_cache)
     return select_survivors(packed, r)
+
+
+# ------------------------------------------------------------------ uint8 ----
+U8_SENTINEL = 2**23  # n8 of a zero mirror row that holds no valid row
+
+
+def u8_exact_width(dim: int) -> bool:
+    """Whether the uint8 variant is exact at `dim`: every distance below
+    U8_SENTINEL = 2^23, and the sentinel plus |q8|^2 <= dim 2^14 below 2^24
+    (dim <= 129)."""
+    return dim * 255**2 < U8_SENTINEL
+
+
+def scan_chunkmin_u8_packed_ref(q8, qn8, base_i8, base_n8):
+    """Plain PyTorch version of the uint8 variant (N a multiple of 2048) ->
+    (N/128, B) int32, equal to the kernel's.  The product runs as an f32
+    matmul, exact (|dot| <= 256 * 128^2 < 2^24 at the widths it takes)."""
+    B = q8.shape[0]
+    n = base_i8.shape[0]
+    qf = q8.float()
+    qn8 = qn8.to(torch.int32)[:, None]
+    lvl = (torch.arange(_NB, device=q8.device) // _SB).to(torch.int32)
+    out = torch.empty((n // _CHUNK, B), dtype=torch.int32, device=q8.device)
+    for r0 in range(0, n, _REF_BLOCK):
+        r1 = min(r0 + _REF_BLOCK, n)
+        dots = (qf @ base_i8[r0:r1].float().T).to(torch.int32)  # (B, rows)
+        d = base_n8[None, r0:r1].to(torch.int32) + qn8 - 2 * dots
+        g = (r1 - r0) // _NB
+        m = (d * _CHUNK).reshape(B, g, _NB) + lvl
+        m = m.reshape(B, g, _CHUNK, _SB).amin(dim=2)
+        out[r0 // _CHUNK : r1 // _CHUNK] = m.reshape(B, g * _SB).T
+    return out
+
+
+def scan_chunkmin_u8_packed(q8, qn8, base_i8, base_n8):
+    """Packed-survivor exact uint8 scan -> (N/128, B) int32, the
+    survivor layout of `scan_chunkmin_int8_packed` with (d << 7) | level
+    values (module doc).
+
+    q8 (B, D) int8 and base_i8 (N, D) int8 the centred rows, D a multiple
+    of 128 with zero lanes past the width; qn8 (B,) and base_n8 (N,) int32
+    their squared norms, U8_SENTINEL on zero rows holding no valid row; N
+    a multiple of 2048 (`models/mirror.py:U8Mirror` builds it so; another N
+    raises ValueError).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel and count the launch in
+    `scan_chunkmin_u8_packed.launches`."""
+    if q8.dtype != torch.int8 or base_i8.dtype != torch.int8:
+        raise TypeError("q8 and base_i8 must be int8")
+    if qn8.dtype != torch.int32 or base_n8.dtype != torch.int32:
+        raise TypeError("qn8 and base_n8 must be int32")
+    if q8.dim() != 2 or base_i8.dim() != 2 or q8.shape[1] != base_i8.shape[1] or q8.shape[1] % _BK:
+        raise ValueError(f"shape mismatch or width not a multiple of {_BK}: q8 {tuple(q8.shape)} vs base "
+                         f"{tuple(base_i8.shape)}")
+    B = q8.shape[0]
+    if qn8.shape != (B,) or base_n8.shape != (base_i8.shape[0],):
+        raise ValueError("qn8 must be (B,) and base_n8 (N,)")
+    devs = {t.device for t in (q8, qn8, base_i8, base_n8)}
+    if len(devs) != 1:
+        raise ValueError(f"all operands must be on one device, got {devs}")
+    dev = devs.pop()
+    if not base_i8.is_contiguous() or not base_n8.is_contiguous():
+        raise ValueError("base_i8 and base_n8 must be contiguous (the kernel reads them in place)")
+    if base_i8.shape[0] % _NB:
+        raise ValueError(f"the mirror's {base_i8.shape[0]} rows are not a multiple of {_NB}")
+    if dev.type == "cpu":
+        return scan_chunkmin_u8_packed_ref(q8, qn8, base_i8, base_n8)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no uint8 K1 kernel for device {dev}")
+    n_pad, dpad = base_i8.shape
+    if n_pad >= 2**31:
+        raise ValueError(f"mirror of {n_pad} rows exceeds the kernel's int32 row coordinates")
+    q8, qn8 = q8.contiguous(), qn8.contiguous()
+    if q8.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
+        q8 = q8.clone()
+    if base_i8.data_ptr() % 16:
+        raise ValueError("base_i8 must start on a 16-byte boundary (TMA)")
+    plan = k1_plan(n_pad, B, _sm_count(dev))
+    shape = (n_pad // _CHUNK, B)
+    out = (torch.full(shape, _INT32_MAX, dtype=torch.int32, device=dev) if plan["parts"] > 1
+           else torch.empty(shape, dtype=torch.int32, device=dev))
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.vecdb_scan_u8_exact(q8.data_ptr(), qn8.data_ptr(), base_i8.data_ptr(), base_n8.data_ptr(),
+                                         out.data_ptr(), B, n_pad, dpad, plan["parts"], plan["ctas"], stream)
+    _build.check(status, "scan_u8_exact")
+    scan_chunkmin_u8_packed.launches += 1
+    return out
+
+
+scan_chunkmin_u8_packed.launches = 0
+
+
+def u8_group_rows(cand: torch.Tensor) -> torch.Tensor:
+    """(B, G) int32 rows of the groups' minima (`select_survivors`' ids) ->
+    (B, G * 128) int64 rows of those groups: group (c, s) holds rows
+    c * 2048 + s + 16 l, l = 0..127."""
+    c = cand.long()
+    first = (c // _NB) * _NB + c % _SB
+    rows = first[:, :, None] + _SB * torch.arange(_CHUNK, device=cand.device)
+    return rows.reshape(cand.shape[0], -1)
+
+
+def rescan_u8_groups(q8, qn8, base_i8, base_n8, rows: torch.Tensor, k: int):
+    """Exact uint8 distances of each query to its `rows` ((B, R) int64
+    mirror rows, distinct a query) and their top-k -> ((B, k) f32 exact
+    integer distances ascending, (B, k) int32 mirror rows), ties to the
+    lower row.  The products run as a batched f32 product, exact for
+    integers of 8 bits at these widths, whatever the matmul precision."""
+    g = base_i8[rows]  # (B, R, D)
+    dots = torch.bmm(g.float(), q8.float()[:, :, None])[:, :, 0].to(torch.int32)
+    d = base_n8[rows] + qn8[:, None] - 2 * dots
+    n_rows = base_i8.shape[0]
+    top = torch.topk(d.long() * n_rows + rows, k, dim=1, largest=False).values  # sorted, ascending
+    return (top // n_rows).float(), (top % n_rows).to(torch.int32)

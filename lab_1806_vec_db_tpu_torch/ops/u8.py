@@ -46,6 +46,25 @@ def u8_channels(x_u8: torch.Tensor):
     return x8, ip, s8
 
 
+def centre(x_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 rows -> the same rows centred by 128 as int8, x8 = u - 128
+    (exact): the bits with the top one flipped."""
+    return x_u8.bitwise_xor(128).view(torch.int8)
+
+
+def centred_sums(x8: torch.Tensor):
+    """(N, dim) centred int8 rows -> (n8 (N,) int32 exact |x8|^2, s8 (N,)
+    int32 exact sum(x8))."""
+    xi = x8.to(torch.int32)
+    return (xi * xi).sum(-1, dtype=torch.int32), xi.sum(-1, dtype=torch.int32)
+
+
+def ip_from_centred(n8: torch.Tensor, s8: torch.Tensor, dim: int) -> torch.Tensor:
+    """|u|^2 of uint8 rows from their centred sums: |x8 + 128|^2 = n8 + 256
+    s8 + dim 128^2, exact int32."""
+    return n8 + 256 * s8 + dim * 128 * 128
+
+
 def _pad8(x: torch.Tensor, rows_min: int = 0) -> torch.Tensor:
     """Zero rows and columns up to multiples of 8 (and at least `rows_min`
     rows)."""

@@ -167,7 +167,7 @@ def test_u8_store_mutation_and_raw_roundtrip(tmp_path):
     assert vs.batch_push(rows) == [0, 1, 2, 3, 4] and len(vs) == 5
     np.testing.assert_array_equal(vs[3], rows[3])
     x8, ip, _ = vs.device()
-    assert x8.shape == (8, 8) and (ip[5:] == 2**30).all()
+    assert x8.shape == (2048, 8) and (ip[5:] == 2**30).all()  # a whole chunk of K1's 2048 rows
     vs.swap_remove(1)  # the last row moves into the hole (vec_set.rs:131-137)
     assert len(vs) == 4
     np.testing.assert_array_equal(vs[1], rows[4])
