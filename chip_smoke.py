@@ -2,7 +2,11 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (the quickest proof that
 the port still starts on the card).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR` names a checkout of an earlier commit (say `git archive` of
+it unpacked under tmp/): the u8 phase then times that checkout's uint8
+stage 1 in turns with this tree's, and compares the float K1's SASS.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. device  — require CUDA; print the card's name and power limit;
@@ -204,7 +208,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                plain version on the route's tensors and timed in turns with
                it, the rescan, one launch of each in a knn_batch call,
                knn_batch, one library-path call, 100 queries equal to the
-               exact reference; the ptxas figures of both K1 instantiations;
+               exact reference; the ptxas figures of the uint8 kernel's
+               instantiations; with `--parent`, the parent's uint8 stage 1
+               in turns with this tree's at 1M x 128 (B 1, 16, 1000) and at
+               u8_100m, equal to it, and the float K1's SASS (instructions,
+               registers) beside the parent's;
                vecdb_u8_100k: a uint8 VecDB table of 100,000 rows through the
                API (batch_add, batch_search against the index, the 200.7 ->
                200 cast, HNSW and PQ refused with RuntimeError, reopen).
@@ -2532,6 +2540,135 @@ def u8_rows(n, seed, device, scale=None):
     return (x * scale).trunc_().clamp_(0.0, 255.0).to(torch.uint8), scale
 
 
+PARENT = None  # `--parent DIR`: a checkout of an earlier commit to compare the uint8 stage 1 with
+
+
+def u8_launcher(lib, n_int: int):
+    """A bare launch of a library's `vecdb_scan_u8_exact` -> run(q8, qn8,
+    x8, n8) -> (N / 128, B) int32 on the plan its signature implies
+    (`k1_plan` for the 5-int form, `u8_plan` with q for the 6-int one): the
+    same host work for two trees' kernels, so that their times in turns
+    compare the kernels."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import scan as S
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run(q8, qn8, x8, n8):
+        B, (n_pad, lanes) = q8.shape[0], x8.shape
+        plan = S.k1_plan(n_pad, B, sms) if n_int == 5 else S.u8_plan(n_pad, B, lanes, sms)
+        shape = (n_pad // 128, B)
+        out = (torch.full(shape, 2**31 - 1, dtype=torch.int32, device=x8.device) if plan["parts"] > 1
+               else torch.empty(shape, dtype=torch.int32, device=x8.device))
+        tail = [plan["parts"], plan["ctas"]] + ([plan["q"]] if n_int == 6 else [])
+        status = lib.vecdb_scan_u8_exact(q8.data_ptr(), qn8.data_ptr(), x8.data_ptr(), n8.data_ptr(), out.data_ptr(),
+                                         B, n_pad, lanes, *tail, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"u8: vecdb_scan_u8_exact returned status {status}")
+        return out
+
+    return run
+
+
+def parent_u8():
+    """The uint8 stage 1 of the `--parent` checkout, built alone from the
+    source that defines its `vecdb_scan_u8_exact`, as `u8_launcher`'s run,
+    or None without `--parent`."""
+    import ctypes
+    import re
+
+    from lab_1806_vec_db_tpu_torch.ops import _build
+
+    if PARENT is None:
+        return None
+    csrc = os.path.join(PARENT, PKG, "csrc")
+    src = [p for p in sorted(os.listdir(csrc)) if p.endswith(".cu")
+           and 'extern "C" int vecdb_scan_u8_exact(' in open(os.path.join(csrc, p)).read()]
+    check(len(src) == 1, f"--parent: no single source defines vecdb_scan_u8_exact in {csrc}")
+    decl = re.search(r"vecdb_scan_u8_exact\.argtypes = \[P\] \* 5 \+ \[I\] \* (\d)",
+                     open(os.path.join(PARENT, PKG, "ops", "_build.py")).read())
+    n_int = int(decl.group(1))
+    out_dir = os.path.join(HERE, "tmp", "parent_u8_build")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libparent_u8.so")
+    res = subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+                          "-o", so, os.path.join(csrc, src[0])], capture_output=True, text=True)
+    check(res.returncode == 0, f"--parent: nvcc failed on {src[0]}:\n{res.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.vecdb_scan_u8_exact.argtypes = [P] * 5 + [I] * n_int + [P]
+    lib.vecdb_scan_u8_exact.restype = I
+    log(f"[u8] --parent {PARENT}: its uint8 stage 1 from {src[0]} ({n_int}-int launcher)")
+    return u8_launcher(lib, n_int)
+
+
+def u8_against_parent(run_parent, m, q, batches, reps) -> dict:
+    """This tree's uint8 stage 1 and the parent's, both by `u8_launcher`, on
+    the mirror `m` at each batch of `q`: equal element for element, then
+    timed in turns (parent, tree, tree, parent) -> {B: {"ms", "parent_ms",
+    "turns"}}."""
+    import torch
+    from lab_1806_vec_db_tpu_torch.ops import _build
+
+    run_tree = u8_launcher(_build.library(), 6)
+    out = {}
+    for B in batches:
+        q8, qn8 = m.queries(q[:B])
+        tree = lambda: run_tree(q8, qn8, m.q8, m.cache)  # noqa: E731
+        parent = lambda: run_parent(q8, qn8, m.q8, m.cache)  # noqa: E731
+        check(torch.equal(tree(), parent()), f"u8: the tree's and the parent's uint8 stage 1 differ at B {B}")
+        turns = [cuda_ms(parent, reps), cuda_ms(tree, reps), cuda_ms(tree, reps), cuda_ms(parent, reps)]
+        out[B] = {"ms": (turns[1] + turns[2]) / 2, "parent_ms": (turns[0] + turns[3]) / 2, "turns": turns}
+        log(f"[u8] rows {m.q8.shape[0]}, B {B}: uint8 stage 1 {out[B]['ms']:.4f} ms, the parent's "
+            f"{out[B]['parent_ms']:.4f} (in turns {', '.join(f'{t:.4f}' for t in turns)}; equal)")
+    return out
+
+
+def k1_sass() -> dict:
+    """The float K1 (`scan_int8_packed_kernel`) as nvcc builds it alone
+    from this tree's source and, with `--parent`, from the parent's: SASS
+    instructions (cuobjdump -sass) and registers (cuobjdump -res-usage),
+    and whether the two instruction streams are identical."""
+    import re
+
+    from lab_1806_vec_db_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out_dir = os.path.join(HERE, "tmp", "k1_sass")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def one(root, tag):
+        cubin = os.path.join(out_dir, f"{tag}.cubin")
+        res = subprocess.run([nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-cubin", "-o", cubin,
+                              os.path.join(root, PKG, "csrc", "scan_int8_packed.cu")], capture_output=True, text=True)
+        check(res.returncode == 0, f"k1_sass: nvcc -cubin failed ({tag}):\n{res.stderr[-2000:]}")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
+        usage = subprocess.run([cuobjdump, "-res-usage", cubin], capture_output=True, text=True, check=True).stdout
+        instr, inside = [], False
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                inside = "scan_int8_packed_kernel" in ln
+            elif inside and (m := re.match(r"\s*/\*[0-9a-f]{4}\*/\s*(.*?);", ln)):
+                instr.append(m.group(1).strip())
+        regs = None
+        lines = usage.splitlines()
+        for i, ln in enumerate(lines):
+            if "scan_int8_packed_kernel" in ln:
+                for nxt in lines[i : i + 3]:
+                    if r := re.search(r"REG:(\d+)", nxt):
+                        regs = int(r.group(1))
+                        break
+        return {"instructions": len(instr), "registers": regs}, instr
+
+    tree, ti = one(HERE, "tree")
+    out = {"tree": tree, "parent": None, "identical": None}
+    if PARENT is not None:
+        out["parent"], pi = one(PARENT, "parent")
+        out["identical"] = ti == pi
+    log(f"[u8] the float K1's SASS: {out}")
+    return out
+
+
 def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
     """u8_1m: FlatIndexU8 at 1,000,000 x 128 uint8 rows, B = 1000, k = 10
     (QPS of chained batches; on 64 queries the returned distances and the
@@ -2593,10 +2730,14 @@ def phase_u8(n=1_000_000, n_db=100_000, B=1000, device="cuda"):
     out["library_ms"] = cuda_ms(lambda: U8.knn_scan_u8(q, *idx.store.device(), len(idx), k, "l2sqr"), 2)
     log(f"[u8] u8_1m: the exact route equals the library path ({out['route_equals_library']['ids_differing_at_ties']} "
         f"ids differ at ties); route {out['route_ms']:.3f} ms, library {out['library_ms']:.3f} ms a batch")
+    run_parent = parent_u8()
+    if run_parent is not None:
+        out["k1_u8_vs_parent"] = u8_against_parent(run_parent, idx.store.mirror(), q, (1, 16, 1000), 20)
     del idx, x, q, rd, ri, ld, li
     torch.cuda.empty_cache()
     out["k1_u8"] = k1_u8_twins(device)
-    big = u8_100m(device=device)
+    out["k1_sass"] = k1_sass()
+    big = u8_100m(device=device, run_parent=run_parent)
 
     # ---- vecdb_u8_100k ----
     db_dir = os.path.join(HERE, "tmp", "chip_smoke_u8_db")
@@ -2683,7 +2824,7 @@ def k1_u8_twins(device="cuda") -> dict:
     return {"equal": shapes, "max_abs_err": 0}
 
 
-def u8_100m(n=100_000_000, B=1000, n_check=100, device="cuda") -> dict:
+def u8_100m(n=100_000_000, B=1000, n_check=100, device="cuda", run_parent=None) -> dict:
     """gist_u8_100m's shape: FlatIndexU8.from_device over 100,000,000 x 128
     Gist-derived uint8 rows (`benchmark/synth_u8.py`): build time and peak;
     the uint8 stage 1 (K1's variant) equal to its plain version element for
@@ -2694,7 +2835,8 @@ def u8_100m(n=100_000_000, B=1000, n_check=100, device="cuda") -> dict:
     knn_batch call; knn_batch's time; one call of the library path; and the
     answers of `n_check` queries against the exact reference
     (`benchmark/reference.py`): distances equal, ids equal below the k-th
-    distance."""
+    distance; with `run_parent`, the parent's uint8 stage 1 in turns with
+    this tree's (`u8_against_parent`)."""
     import numpy as np
     import torch
     from benchmark import reference, synth_u8
@@ -2728,6 +2870,10 @@ def u8_100m(n=100_000_000, B=1000, n_check=100, device="cuda") -> dict:
         lambda: S.scan_chunkmin_u8_packed_ref(q8, qn8, m.q8, m.cache), 5, 1)
     out["k1_u8_bound_ms"], out["k1_u8_bound_by"] = bound_ms(
         n * U8_DIM + 4 * n + B * (U8_DIM + 8) + -(-n // 128) * B * 4, 2 * n * B * U8_DIM)
+    if run_parent is not None:
+        del packed
+        out["k1_u8_vs_parent"] = u8_against_parent(run_parent, m, q, (B,), 3)[B]
+        packed = S.scan_chunkmin_u8_packed(q8, qn8, m.q8, m.cache)
     # the select at the route's shape: the kernel equals the stable sort bit for bit
     check(SV.takes_kernel(packed, k), "u8_100m: the select does not take its kernel")
     (sd, si), (rd, ri) = S.select_survivors(packed, k), S.select_survivors_ref(packed, k)
@@ -2790,12 +2936,13 @@ def u8_kernel(u8: dict, ptxas: dict) -> dict:
     (`ops/u8.py:knn_scan_u8`) at that shape; the smaller shapes' twins
     under "shapes"."""
     big = u8["u8_100m"]
-    return {"name": "scan_u8_exact", "route": "cuda", "source": f"{PKG}/csrc/scan_int8_packed.cu",
+    return {"name": "scan_u8_exact", "route": "cuda", "source": f"{PKG}/csrc/scan_u8_exact.cu",
             "replaces": None, "launches": big["launches"]["scan_u8_exact"],
             "max_abs_err": max(big["k1_u8_max_abs_err"], u8["u8_1m"]["k1_u8"]["max_abs_err"]),
             "ms": big["k1_u8_ms"], "plain_ms": big["k1_u8_plain_ms"], "bound_ms": big["k1_u8_bound_ms"],
             "bound_by": big["k1_u8_bound_by"], "library_ms": big["library_s"] * 1e3, "ptxas": ptxas,
-            "shapes": u8["u8_1m"]["k1_u8"]["equal"]}
+            "shapes": u8["u8_1m"]["k1_u8"]["equal"], "float_k1_sass": u8["u8_1m"]["k1_sass"],
+            "vs_parent": {"1m": u8["u8_1m"].get("k1_u8_vs_parent"), "100m": big.get("k1_u8_vs_parent")}}
 
 
 def profile_round(flat, q, k: int, reps: int) -> dict:
@@ -3883,6 +4030,10 @@ def sharded_ivfpq(fill, n, dim, q, gt, single_recall, nlist=2048, device="cuda",
 
 
 def main() -> None:
+    global PARENT
+    if "--parent" in sys.argv[1:]:
+        PARENT = os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
+        check(os.path.isdir(os.path.join(PARENT, PKG)), f"--parent {PARENT}: no {PKG}/ there")
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside {os.path.basename(__file__)}: run it from a checkout")
     sys.path.insert(0, HERE)

@@ -28,7 +28,8 @@ Ported so far, over float32 tables:
   chunk-min), each behind its candidate function;
 - uint8 tables (`models/u8.py`: `U8VecSet`, `FlatIndexU8`; `ops/u8.py`):
   exact integer distances, through `VecDB` too: l2sqr on the card through
-  K1's uint8 variant and an exact rescan of the chosen groups, the rest
+  the uint8 stage 1 (`csrc/scan_u8_exact.cu`) and an exact rescan of the
+  chosen groups, the rest
   through int8 GEMMs;
 - the Flat planner's scan modes (`models/store.py:ScanMode`, "int8" /
   "pca" / "bf16" / "exact" with `pca_dim`, held by the store and set by

@@ -75,30 +75,9 @@
 // pads with +BIG sentinels), D % 128 == 0, 16-byte aligned contiguous
 // tensors; the plan's CTAs per query tile <= 65535.
 //
-// The uint8 variant (`scan_u8_exact_kernel`, launched by
-// vecdb_scan_u8_exact) is the same pipeline with an integer epilogue, a
-// template flag of the one body.  Its rows are uint8 rows centred by 128
-// (x8 = u - 128, exact in int8; L2 is translation-invariant), its row
-// channel n8 = |x8|^2 and its query channel qn8 = |q8|^2, both int32, and
-//
-//   d[x, b]  = n8[x] + qn8[b] - 2 dot[x, b]                  (exact int32)
-//   packed   = (d << 7) | level(x)
-//
-// exact while d < 2^24 (the wrapper's rule: uint8 l2sqr at width <= 129,
-// d <= 129 * 255^2 < 2^23).  Each element costs a multiply-add and a third
-// of a three-way min: the running minimum holds (n8 - 2 dot) * 128 + level,
-// and qn8 * 128, the same for every row of a column, is added once an item,
-// before the fold.  A positive packed int32 orders as its f32 bits do, so
-// the survivor select reads it unchanged.  Rows holding no valid row are
-// zero rows with n8 = 2^23: d = 2^23 + qn8 < 2^24 loses to every valid
-// distance.  At BIGANN's 128 lanes a tile is one box, so a tile's fixed
-// costs weigh eight times what they do at 1024: a consumer takes two tiles
-// a step, one accumulator each, both tiles' products in flight before one
-// wait, and the tile's n8 comes by TMA beside its first box into a small
-// ring of its own (a load from device memory in the epilogue's path waited
-// out the products).  At 100M x 128, B 1000 on an H100: one tile a step and
-// n8 loaded by each lane 60.7 ms, two tiles a step 51.4, n8 by TMA 44.3
-// (the products bound 12.9).
+// The exact uint8 stage 1 (`scan_u8_exact_kernel`) has a body of its own,
+// csrc/scan_u8_exact.cu: its rows are wgmma's B operand, so that a
+// survivor's level-minimum ends in one thread's registers.
 //
 // It includes csrc/scan_wgmma.cuh (the wgmma shape, shared with K10) and
 // through it K7's header for the mbarrier, TMA, descriptor and wgmma fence
@@ -129,30 +108,26 @@ constexpr int RESIDENT_KT = 8;    // boxes of the resident query tile: D <= 1024
 constexpr int THREADS = 384;      // warpgroup 0 produces, 1 and 2 consume
 constexpr int SMEM_MAX = 232448;
 
-constexpr int N8_BOX = BM * 4;    // the uint8 variant's row channel of one tile: 64 int32
-
 struct Layout {
   int resident, stage, ring;
-  size_t qres, red, chan, bars, n8ring, bytes;
+  size_t qres, red, chan, bars, bytes;
 };
 
 // shared memory, after a 1024-byte alignment pad: the resident query tile,
 // the ring, the 16 x 128 int32 reduction, the 2 x 128 query channels, the
-// full / empty / query mbarriers; the uint8 variant's ring of row channels
-// (one tile's n8 a stage) after them
-__host__ __device__ inline Layout layout(int KT, bool u8 = false) {
+// full / empty / query mbarriers
+__host__ __device__ inline Layout layout(int KT) {
   Layout L;
   L.resident = KT <= RESIDENT_KT;
   L.stage = A_BOX + (L.resident ? 0 : Q_BOX);
   L.qres = L.resident ? static_cast<size_t>(KT) * Q_BOX : 0;
-  const size_t fixed = 1024 + L.qres + SLOTS * BN * 4 + 2 * BN * 4 + 8 + (u8 ? 128 : 0);
-  L.ring = static_cast<int>((SMEM_MAX - fixed) / (L.stage + 16 + (u8 ? N8_BOX : 0)));
+  const size_t fixed = 1024 + L.qres + SLOTS * BN * 4 + 2 * BN * 4 + 8;
+  L.ring = static_cast<int>((SMEM_MAX - fixed) / (L.stage + 16));
   if (L.ring > 16) L.ring = 16;
   L.red = L.qres + static_cast<size_t>(L.ring) * L.stage;
   L.chan = L.red + SLOTS * BN * 4;
   L.bars = L.chan + 2 * BN * 4;
-  L.n8ring = (L.bars + (2 * L.ring + 1) * 8 + 127) & ~static_cast<size_t>(127);
-  L.bytes = 1024 + (u8 ? L.n8ring + static_cast<size_t>(L.ring) * N8_BOX : L.bars + (2 * L.ring + 1) * 8);
+  L.bytes = 1024 + L.bars + (2 * L.ring + 1) * 8;
   return L;
 }
 
@@ -164,19 +139,14 @@ __device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads 
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// The body of both kernels.  kU8: the uint8 variant, whose query channel
-// `qc` holds int32 qn8, which reads no `qs2`, `scale` or `cache` and whose
-// row channel n8 comes by TMA (`n8_map`) beside each tile's first box.
-template <bool kU8>
-__device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensorMap& q_map,
-                                        const CUtensorMap* n8_map,
-                                        const float* __restrict__ qs2, const float* __restrict__ qc,
-                                        const float* __restrict__ scale, const float* __restrict__ cache,
-                                        int32_t* __restrict__ out, int B, int KT, int parts, int items,
-                                        int atomic) {
+__global__ void __launch_bounds__(THREADS, 1)
+scan_int8_packed_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap q_map,
+                        const float* __restrict__ qs2, const float* __restrict__ qc,
+                        const float* __restrict__ scale, const float* __restrict__ cache,
+                        int32_t* __restrict__ out, int B, int KT, int parts, int items, int atomic) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1024-aligned
-  const Layout L = layout(KT, kU8);
+  const Layout L = layout(KT);
   uint8_t* qres = base;
   uint8_t* ring = base + L.qres;
   int32_t* red = reinterpret_cast<int32_t*>(base + L.red);
@@ -185,7 +155,6 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);  // two rings: consumer c's slots c * rc ...
   uint64_t* empty = full + L.ring;
   uint64_t* qbar = empty + L.ring;
-  const int32_t* n8ring = reinterpret_cast<const int32_t*>(base + L.n8ring);  // kU8
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN;
@@ -201,12 +170,8 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < BN; i += THREADS) {
-    if constexpr (kU8) {  // qn8 * 128, as int32 bits
-      qc_s[i] = __int_as_float(n0 + i < B ? __float_as_int(qc[n0 + i]) * 128 : 0);
-    } else {
-      qs_s[i] = n0 + i < B ? qs2[n0 + i] : 0.f;
-      qc_s[i] = n0 + i < B ? qc[n0 + i] : 0.f;
-    }
+    qs_s[i] = n0 + i < B ? qs2[n0 + i] : 0.f;
+    qc_s[i] = n0 + i < B ? qc[n0 + i] : 0.f;
   }
   for (int i = tid; i < SLOTS * BN; i += THREADS) red[i] = 0x7fffffff;
   __syncthreads();
@@ -224,15 +189,13 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
       for (int item = blockIdx.y; item < items; item += gridDim.y) {
         const int row0 = (item / parts) * CHUNK_ROWS + (item % parts) * part_rows;
         for (int tile = 0; tile < tiles; ++tile, ++T) {
-          if (((kU8 ? T >> 1 : T) & 1) != p) continue;  // kU8: the consumers take pairs of tiles
+          if ((T & 1) != p) continue;
           for (int kt = 0; kt < KT; ++kt, ++it) {
             const int slot = p * rc + it % rc;
             if (it >= rc) mbar_wait(&empty[slot], ((it / rc) - 1) & 1);
             uint8_t* st = ring + slot * L.stage;
-            mbar_expect_tx(&full[slot], L.stage + (kU8 && kt == 0 ? N8_BOX : 0));
+            mbar_expect_tx(&full[slot], L.stage);
             k7::tma_load(st, &a_map, kt * BK, row0 + tile * BM, &full[slot]);
-            if (kU8 && kt == 0)  // the tile's row channel, 64 int32 (n8 viewed as (N / 64, 64))
-              k7::tma_load(base + L.n8ring + slot * N8_BOX, n8_map, 0, (row0 + tile * BM) / BM, &full[slot]);
             if (!L.resident) k7::tma_load(st + A_BOX, &q_map, kt * BK, n0, &full[slot]);
           }
         }
@@ -250,12 +213,7 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   if (L.resident) mbar_wait(qbar, 0);
 
-  // kU8: a step is two 64-row tiles, one accumulator each, both tiles'
-  // products in flight before one wait, so the step's fixed costs (the wait
-  // for its products, the row channel's loads) cover 128 rows
-  constexpr int STEP = kU8 ? 2 : 1;
   int acc[64];
-  int acc2[kU8 ? 64 : 1];
   int32_t mins[64];
   int T = 0;   // the CTA's tile count: tile T is consumer T % 2's
   int it = 0;  // this consumer's box count: box it is in slot wg * rc + it % rc
@@ -264,51 +222,26 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
     const int prow0 = (item % parts) * part_rows;  // the item's first row within its chunk
 #pragma unroll
     for (int i = 0; i < 64; ++i) mins[i] = 0x7fffffff;
-    for (int tile = 0; tile < tiles; tile += STEP, T += STEP) {
-      if (((kU8 ? T >> 1 : T) & 1) != wg) continue;
+    for (int tile = 0; tile < tiles; ++tile, ++T) {
+      if ((T & 1) != wg) continue;
       const int crow = prow0 + tile * BM + 16 * warp + g;  // this lane's first row within the chunk
       const size_t x = static_cast<size_t>(chunk) * CHUNK_ROWS + crow;
       float sc[2], ca[2];
-      int cl[4];  // kU8: n8 * 128 + level of the lane's two rows in each of the step's two tiles
-      if constexpr (!kU8) {
-        sc[0] = __ldg(scale + x);
-        sc[1] = __ldg(scale + x + 8);
-        ca[0] = __ldg(cache + x);
-        ca[1] = __ldg(cache + x + 8);
-      }
-      const int r16 = 16 * warp + g;  // kU8: the lane's first row within a tile
+      sc[0] = __ldg(scale + x);
+      sc[1] = __ldg(scale + x + 8);
+      ca[0] = __ldg(cache + x);
+      ca[1] = __ldg(cache + x + 8);
       k7::wgmma_fence();
       k7::fence_acc(acc);
-      if constexpr (kU8) k7::fence_acc(acc2);
       int prev = 0;
       for (int kt = 0; kt < KT; ++kt, ++it) {
         const int slot = wg * rc + it % rc;
         mbar_wait(&full[slot], static_cast<unsigned>((it / rc) & 1));
         const uint8_t* st = ring + slot * L.stage;
         const uint8_t* qb = L.resident ? qres + kt * Q_BOX : st + A_BOX;
-        const uint8_t* st2 = st;
-        if constexpr (kU8) {  // the step's second tile: its box kt is KT boxes on in the ring
-          const int slot2 = wg * rc + (it + KT) % rc;
-          mbar_wait(&full[slot2], static_cast<unsigned>(((it + KT) / rc) & 1));
-          st2 = ring + slot2 * L.stage;
-          if (kt == 0) {  // the two tiles' row channels, staged beside their first boxes
-            const int32_t* na = n8ring + slot * BM;
-            const int32_t* nb = n8ring + slot2 * BM;
-            const int lv = crow >> 4;
-            cl[0] = na[r16] * 128 + lv;
-            cl[1] = na[r16 + 8] * 128 + lv;
-            cl[2] = nb[r16] * 128 + lv + 4;
-            cl[3] = nb[r16 + 8] * 128 + lv + 4;
-          }
-        }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
           scan::wgmma_s8(acc, k7::desc_sw128(st + 32 * kk), k7::desc_sw128(qb + 32 * kk), kt | kk);
-        if constexpr (kU8) {
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            scan::wgmma_s8(acc2, k7::desc_sw128(st2 + 32 * kk), k7::desc_sw128(qb + 32 * kk), kt | kk);
-        }
         k7::wgmma_commit();
         if (kt > 0) {  // the previous box's products have completed: free its stage
           k7::wgmma_wait<1>();
@@ -320,32 +253,20 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
       k7::fence_acc(acc);
       mbar_arrive(&empty[prev]);
 
-      if constexpr (kU8) {
-        k7::fence_acc(acc2);
-        // the second tile's boxes (KT..2 KT - 1 of the step; the first
-        // tile's were freed above as their products completed)
-        for (int b = 0; b < KT; ++b, ++it) mbar_arrive(&empty[wg * rc + it % rc]);
+      const int level = crow >> 4;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int h = (i >> 1) & 1;
-          mins[i] = __vimin3_s32(mins[i], cl[h] - acc[i] * 256, cl[2 + h] - acc2[i] * 256);
-        }
-      } else {
-        const int level = crow >> 4;
+      for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < 16; ++nt)
+        for (int j = 0; j < 2; ++j) {
+          const int col = nt * 8 + t * 2 + j;
+          const float qs = qs_s[col], qcv = qc_s[col];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = nt * 8 + t * 2 + j;
-            const float qs = qs_s[col], qcv = qc_s[col];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int i = nt * 4 + 2 * h + j;
-              const float d = epilogue(acc[i], ca[h], qcv, sc[h], qs);
-              mins[i] = min(mins[i], (__float_as_int(d) & ~127) | level);
-            }
+          for (int h = 0; h < 2; ++h) {
+            const int i = nt * 4 + 2 * h + j;
+            const float d = epilogue(acc[i], ca[h], qcv, sc[h], qs);
+            mins[i] = min(mins[i], (__float_as_int(d) & ~127) | level);
           }
-      }
+        }
     }
 
     // the item's survivors: fold the 8 warps' minima in shared memory, then
@@ -358,7 +279,7 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
         for (int j = 0; j < 2; ++j) {
           const int col = nt * 8 + t * 2 + j;
           const int v = mins[nt * 4 + 2 * h + j];
-          atomicMin(&red[(g + 8 * h) * BN + col], kU8 ? v + __float_as_int(qc_s[col]) : v);
+          atomicMin(&red[(g + 8 * h) * BN + col], v);
         }
     consumers_sync();
     for (int i = ct; i < SLOTS * BN; i += 256) {
@@ -376,48 +297,6 @@ __device__ __forceinline__ void k1_body(const CUtensorMap& a_map, const CUtensor
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-scan_int8_packed_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap q_map,
-                        const float* __restrict__ qs2, const float* __restrict__ qc,
-                        const float* __restrict__ scale, const float* __restrict__ cache,
-                        int32_t* __restrict__ out, int B, int KT, int parts, int items, int atomic) {
-  k1_body<false>(a_map, q_map, nullptr, qs2, qc, scale, cache, out, B, KT, parts, items, atomic);
-}
-
-// the uint8 variant: a symbol of its own, so that a trace tells it from K1
-__global__ void __launch_bounds__(THREADS, 1)
-scan_u8_exact_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap q_map,
-                     const __grid_constant__ CUtensorMap n8_map, const int32_t* __restrict__ qn8,
-                     int32_t* __restrict__ out, int B, int KT, int parts, int items, int atomic) {
-  k1_body<true>(a_map, q_map, &n8_map, nullptr, reinterpret_cast<const float*>(qn8), nullptr, nullptr, out, B,
-                KT, parts, items, atomic);
-}
-
-// What both launchers share: the tensor maps of the mirror and the queries,
-// the kernel's shared-memory attribute and the grid.  Returns a CUDA status.
-int prepare(const void* kernel, const void* q8, const void* base, int B, int N, int D, int parts, int ctas,
-            CUtensorMap* a_map, CUtensorMap* q_map, Layout* L, bool u8) {
-  if (D % BK || N % CHUNK_ROWS || (parts != 1 && parts != 2 && parts != 4 && parts != 8) || ctas <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const k7::EncodeTiled encode = k7::encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N)};
-  const cuuint64_t q_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
-  const cuuint32_t a_box[2] = {BK, BM}, q_box[2] = {BK, BN}, elem[2] = {1, 1};
-  if (encode(a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), a_dims, strides, a_box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q8), q_dims, strides, q_box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *L = layout(D / BK, u8);
-  if (L->ring < 4) return static_cast<int>(cudaErrorInvalidValue);  // two stages a consumer
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L->bytes)));
-}
-
 }  // namespace
 
 // grid: (ceil(B / 128) query tiles, ctas CTAs each); `parts` items per
@@ -428,45 +307,34 @@ extern "C" int vecdb_scan_int8_packed(const void* q8, const void* qs2, const voi
                                       void* out, int B, int N, int D, int parts, int ctas,
                                       void* stream) {
   if (B <= 0 || N <= 0) return 0;
+  if (D % BK || N % CHUNK_ROWS || (parts != 1 && parts != 2 && parts != 4 && parts != 8) || ctas <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const k7::EncodeTiled encode = k7::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap a_map, q_map;
-  Layout L;
-  const int err = prepare(reinterpret_cast<const void*>(scan_int8_packed_kernel), q8, base, B, N, D, parts,
-                          ctas, &a_map, &q_map, &L, false);
-  if (err != 0) return err;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N)};
+  const cuuint64_t q_dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint32_t a_box[2] = {BK, BM}, q_box[2] = {BK, BN}, elem[2] = {1, 1};
+  if (encode(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), a_dims, strides, a_box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q8), q_dims, strides, q_box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L = layout(D / BK);
+  if (L.ring < 4) return static_cast<int>(cudaErrorInvalidValue);  // two stages a consumer
+  const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(scan_int8_packed_kernel),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(L.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int items = N / CHUNK_ROWS * parts;
   dim3 grid((B + BN - 1) / BN, ctas);
   scan_int8_packed_kernel<<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       a_map, q_map, static_cast<const float*>(qs2), static_cast<const float*>(qc),
       static_cast<const float*>(scale), static_cast<const float*>(cache), static_cast<int32_t*>(out), B, D / BK,
       parts, items, parts > 1);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the uint8 variant, as above: q8 (B, D) and base (N, D) the centred int8
-// rows, qn8 (B,) and n8 (N,) int32 their squared norms
-extern "C" int vecdb_scan_u8_exact(const void* q8, const void* qn8, const void* base, const void* n8, void* out,
-                                   int B, int N, int D, int parts, int ctas, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  CUtensorMap a_map, q_map;
-  Layout L;
-  const int err = prepare(reinterpret_cast<const void*>(scan_u8_exact_kernel), q8, base, B, N, D, parts, ctas,
-                          &a_map, &q_map, &L, true);
-  if (err != 0) return err;
-  if (2 * (D / BK) > L.ring / 2) return static_cast<int>(cudaErrorInvalidValue);  // a step's boxes in one ring
-  // n8 viewed as (N / 64, 64) int32: one 256-byte box a tile
-  CUtensorMap n8_map;
-  const cuuint64_t n_dims[2] = {static_cast<cuuint64_t>(BM), static_cast<cuuint64_t>(N / BM)};
-  const cuuint64_t n_strides[1] = {static_cast<cuuint64_t>(N8_BOX)};
-  const cuuint32_t n_box[2] = {BM, 1}, elem[2] = {1, 1};
-  if (k7::encode_tiled()(&n8_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(n8), n_dims, n_strides,
-                         n_box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int items = N / CHUNK_ROWS * parts;
-  dim3 grid((B + BN - 1) / BN, ctas);
-  scan_u8_exact_kernel<<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
-      a_map, q_map, n8_map, static_cast<const int32_t*>(qn8), static_cast<int32_t*>(out), B, D / BK, parts, items,
-      parts > 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -230,7 +230,7 @@ class U8Mirror:
         return q8.contiguous(), qn8
 
     def survivors(self, q8: torch.Tensor, qn8: torch.Tensor, r: int):
-        """Stage 1: the uint8 variant of K1 and the exact top-r groups ->
+        """Stage 1: the uint8 stage 1 kernel and the exact top-r groups ->
         ((B, r) f32 values of no use here, (B, r) int32 rows of each group's
         minimum)."""
         return S.select_survivors(S.scan_chunkmin_u8_packed(q8, qn8, self.q8, self.cache), r)

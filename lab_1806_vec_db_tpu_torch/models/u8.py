@@ -13,11 +13,11 @@ the JAX package's: algorithm "FlatU8", the rows under "vectors_u8".
 A search takes one of two routes, chosen by `exact_route`:
 
 - the exact route (l2sqr on the card, width <= 129, at least k * 128 rows,
-  k <= the select kernel's 1024): the uint8 variant of K1 (`ops/scan.py`)
-  keeps one (d << 7) | level survivor per 128-row group, the select kernel
-  takes the k least groups, whose 128 rows each are scored again exactly
-  (`U8Mirror.rescan`): exact distances, ties to the lower id where the k
-  groups hold them;
+  k <= the select kernel's 1024): the uint8 stage 1 (`ops/scan.py`,
+  `csrc/scan_u8_exact.cu`) keeps one (d << 7) | level survivor per 128-row
+  group, the select kernel takes the k least groups, whose 128 rows each
+  are scored again exactly (`U8Mirror.rescan`): exact distances, ties to
+  the lower id where the k groups hold them;
 - the library path (`ops/u8.py:knn_scan_u8`: int8 GEMMs through
   `torch._int_mm` and a running top-k) for every other call: cosine, wider
   rows, the CPU, small tables.

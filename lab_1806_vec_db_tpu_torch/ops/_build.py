@@ -69,7 +69,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vecdb_scan_int8_packed.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.vecdb_scan_int8_packed.restype = I
-    lib.vecdb_scan_u8_exact.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.vecdb_scan_u8_exact.argtypes = [P] * 5 + [I] * 6 + [P]
     lib.vecdb_scan_u8_exact.restype = I
     lib.vecdb_scan_int8_binned.argtypes = [P] * 8 + [I] * 4 + [P]
     lib.vecdb_scan_int8_binned.restype = I

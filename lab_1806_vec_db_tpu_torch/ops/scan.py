@@ -20,8 +20,10 @@ CHANNELS — one distance formula for both metrics:
 Invalid rows carry scale 0 and cache +_BIG (a finite sentinel: inf would
 turn packed bits into inf/NaN patterns); there is no positional mask.
 
-THE UINT8 VARIANT (`scan_chunkmin_u8_packed`, the kernel's `scan_u8_exact_kernel`
-instantiation; plain version `scan_chunkmin_u8_packed_ref`): rows and
+THE UINT8 VARIANT (`scan_chunkmin_u8_packed`, the kernel
+`csrc/scan_u8_exact.cu:scan_u8_exact_kernel`, a body of its own with the rows
+as wgmma's B operand; `u8_plan` sizes its launch, `u8_acc_coords` gives its
+accumulator layout; plain version `scan_chunkmin_u8_packed_ref`): rows and
 queries are uint8 centred by 128 (x8 = u - 128, exact in int8; L2 does not
 move), with n8 = |x8|^2 and qn8 = |q8|^2 as int32 channels, and
 
@@ -111,7 +113,7 @@ def scan_chunkmin_int8_packed_ref(q8, qs2, qc, base_i8, base_scale, base_cache):
 
 
 def k1_plan(n_pad: int, B: int, sms: int = 132) -> dict:
-    """How K1's kernel (csrc/scan_int8_packed.cu) covers a (n_pad, B) scan
+    """How the float K1's kernel (csrc/scan_int8_packed.cu) covers a (n_pad, B) scan
     on a card of `sms` SMs -> {"qtiles", "parts", "ctas", "items"}.
 
     The grid is (qtiles = ceil(B / 128), ctas).  Each 2048-row chunk is
@@ -288,6 +290,11 @@ def scan_candidates_int8_packed(queries, base_i8, base_scale, base_cache, r: int
 
 # ------------------------------------------------------------------ uint8 ----
 U8_SENTINEL = 2**23  # n8 of a zero mirror row that holds no valid row
+_U8_QM, _U8_BOX = 64, 128  # the uint8 kernel's queries a tile (wgmma M) and rows a box (wgmma N)
+_U8_QS = (1, 2, 4)  # the query tiles a consumer may run against each box (the kernel's instantiations)
+_U8_BOX_COST = 1.0  # a box's fixed cost a consumer (its wait, its row channel, its L2 feed) in tiles' products
+_U8_ITEM_ROWS = 128  # an item's fixed cost (the pipeline's drain, the stores) in rows scanned
+_U8_SMEM, _U8_MIN_RING, _U8_MAX_RING = 232448, 3, 16  # the kernel's shared memory, its ring's bounds
 
 
 def u8_exact_width(dim: int) -> bool:
@@ -316,6 +323,60 @@ def scan_chunkmin_u8_packed_ref(q8, qn8, base_i8, base_n8):
         m = m.reshape(B, g, _CHUNK, _SB).amin(dim=2)
         out[r0 // _CHUNK : r1 // _CHUNK] = m.reshape(B, g * _SB).T
     return out
+
+
+def u8_ring(kt: int, q: int) -> int:
+    """The row boxes the uint8 kernel's ring holds at KT = lanes / 128 boxes
+    of depth and q query tiles a consumer (`csrc/scan_u8_exact.cu:layout`:
+    the 2 q resident query tiles and their qn8, then KT 16 KB boxes and a
+    512-byte row channel a stage); the kernel refuses fewer than 3."""
+    fixed = 1024 + 2 * q * kt * _U8_QM * _BK + 2 * q * _U8_QM * 4 + 8
+    return min((_U8_SMEM - fixed) // (kt * _U8_BOX * _BK + _U8_BOX * 4 + 16), _U8_MAX_RING)
+
+
+def u8_plan(n_pad: int, B: int, lanes: int, sms: int = 132) -> dict:
+    """How the uint8 kernel (csrc/scan_u8_exact.cu) covers a (n_pad, B) scan
+    at `lanes` (128 or 256) on a card of `sms` SMs -> {"qgroups", "q",
+    "parts", "ctas", "items"}.
+
+    A CTA holds 2 q query tiles of 64 (128 q queries, resident), each of its
+    two consumers runs q of them against every 128-row box, so the rows
+    cross L2 once per query group.  The grid is (qgroups = ceil(B / 128 q),
+    ctas); items (chunk i // parts, part i % parts of 2048 / parts rows) are
+    dealt to a group's CTAs round-robin, at most one wave (sms // qgroups
+    CTAs a group).  The plan takes the (q, parts) whose busiest CTA costs
+    least: its items' rows plus _U8_ITEM_ROWS, times q tiles plus
+    _U8_BOX_COST a box; the larger q, then the smaller split, on ties.  A q
+    whose ring would hold fewer than 3 boxes at these lanes is not taken.
+    Where parts > 1 the kernel folds partial survivors with atomicMin."""
+    kt = lanes // _BK
+    chunks = n_pad // _NB
+    best = None
+    for q in _U8_QS:
+        if u8_ring(kt, q) < _U8_MIN_RING:
+            continue
+        qgroups = -(-B // (2 * q * _U8_QM))
+        per_group = max(1, sms // qgroups)
+        for parts in _K1_PARTS:
+            items = chunks * parts
+            ctas = min(items, per_group)
+            cost = -(-items // ctas) * (_NB // parts + _U8_ITEM_ROWS) * (q + _U8_BOX_COST)
+            key = (cost, -q, parts)
+            if best is None or key < best[0]:
+                best = (key, {"qgroups": qgroups, "q": q, "parts": parts, "ctas": ctas, "items": items})
+    return best[1]
+
+
+def u8_acc_coords(warp, lane, i):
+    """(query, column, slot, level) within a (64-query tile, 128-row box)
+    of accumulator register i (0 <= i < 64) of `lane` in `warp` (0-3) of a
+    consumer warpgroup of the uint8 kernel, whose A operand is the queries
+    and B the box's rows (the m64n128 wgmma layout): query 16 warp + lane //
+    4 + 8 ((i // 2) % 2), column 8 (i // 4) + 2 (lane % 4) + i % 2; a box
+    starts on a 16-row boundary, so the column is slot column % 16 and level
+    column // 16 of the box (works on ints and arrays)."""
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return 16 * warp + lane // 4 + 8 * ((i // 2) % 2), col, col % _SB, col // _SB
 
 
 def scan_chunkmin_u8_packed(q8, qn8, base_i8, base_n8):
@@ -355,12 +416,14 @@ def scan_chunkmin_u8_packed(q8, qn8, base_i8, base_n8):
     n_pad, dpad = base_i8.shape
     if n_pad >= 2**31:
         raise ValueError(f"mirror of {n_pad} rows exceeds the kernel's int32 row coordinates")
+    if dpad > 2 * _BK:
+        raise ValueError(f"{dpad} lanes: the uint8 kernel takes at most {2 * _BK} (width <= 129)")
     q8, qn8 = q8.contiguous(), qn8.contiguous()
     if q8.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
         q8 = q8.clone()
     if base_i8.data_ptr() % 16:
         raise ValueError("base_i8 must start on a 16-byte boundary (TMA)")
-    plan = k1_plan(n_pad, B, _sm_count(dev))
+    plan = u8_plan(n_pad, B, dpad, _sm_count(dev))
     shape = (n_pad // _CHUNK, B)
     out = (torch.full(shape, _INT32_MAX, dtype=torch.int32, device=dev) if plan["parts"] > 1
            else torch.empty(shape, dtype=torch.int32, device=dev))
@@ -368,7 +431,8 @@ def scan_chunkmin_u8_packed(q8, qn8, base_i8, base_n8):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vecdb_scan_u8_exact(q8.data_ptr(), qn8.data_ptr(), base_i8.data_ptr(), base_n8.data_ptr(),
-                                         out.data_ptr(), B, n_pad, dpad, plan["parts"], plan["ctas"], stream)
+                                         out.data_ptr(), B, n_pad, dpad, plan["parts"], plan["ctas"], plan["q"],
+                                         stream)
     _build.check(status, "scan_u8_exact")
     scan_chunkmin_u8_packed.launches += 1
     return out
