@@ -139,7 +139,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
                around the three; each kernel against its plain version,
                timed in turns, with its bound (K13 / K14 also replayed from
                a CUDA graph);
-     pq      — flat_pq_1m: PQTable.train from the store's device tensor,
+     pq      — flat_pq_1m: PQTable.train from the store's device tensor
+               through the table's defaults (`table_config`: 100,000
+               samples, the benchmark cell gist1m_pq's table),
                FlatIndex.knn_pq_batch at ef 100 / 200 (K7 + K2), and K7
                against its plain version on all 1,000,000 rows, bit for bit;
      ivf     — ivf_1m: IVFIndex.from_store on the same store (nlist 256, 10
@@ -1292,13 +1294,16 @@ def check_k7(pq, q, tag):
             "extra": {"method_ops_bound_ms": method}}
 
 
-def pq_train(vecs, n_valid, n_bits, dist="l2sqr"):
+def pq_train(vecs, n_valid, n_bits, dist="l2sqr", cfg=None):
+    """A table trained on `vecs` with `cfg`, by default the reference's PQ
+    settings above -> (table, seconds)."""
     import torch
     from lab_1806_vec_db_tpu_torch.models import PQTable
     from lab_1806_vec_db_tpu_torch.utils.config import PQConfig
 
-    cfg = PQConfig(n_bits=n_bits, m=PQ_M, dist=dist, k_means_size=PQ_SAMPLES, k_means_max_iter=20,
-                   k_means_tol=1e-6)
+    if cfg is None:
+        cfg = PQConfig(n_bits=n_bits, m=PQ_M, dist=dist, k_means_size=PQ_SAMPLES, k_means_max_iter=20,
+                       k_means_tol=1e-6)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pq = PQTable.train(vecs, cfg, seed=0, n_valid=n_valid)
@@ -1308,14 +1313,19 @@ def pq_train(vecs, n_valid, n_bits, dist="l2sqr"):
 
 def phase_pq_1m(store, flat, q, gt):
     """flat_pq_1m: Flat+PQ at 1,000,000 x 960 on the flat_1m store (K7 +
-    K2), the PQ table trained from the device tensor with n_valid."""
+    K2), the PQ table trained from the device tensor with n_valid through
+    the table's defaults (`table_config`, the benchmark cell's table)."""
     import numpy as np
     import torch
 
+    from lab_1806_vec_db_tpu_torch.models.pq_table import table_config
+
     n, B = len(store), q.shape[0]
-    pq, train_s = pq_train(store.device()[0], n, 4)
-    out = {"cell": "flat_pq_1m", "n": n, "batch": B, "m": PQ_M, "n_bits": 4, "train_s": train_s,
-           "adc_quality": pq.adc_quality}
+    cfg = table_config(n, store.dim, "l2sqr")  # build_pq_table's table: 100,000 samples at 1M
+    check(cfg.m == PQ_M and cfg.n_bits == 4, f"pq: the table's defaults give {cfg}")
+    pq, train_s = pq_train(store.device()[0], n, 4, cfg=cfg)
+    out = {"cell": "flat_pq_1m", "n": n, "batch": B, "m": PQ_M, "n_bits": 4, "samples": cfg.k_means_size,
+           "train_s": train_s, "adc_quality": pq.adc_quality}
     log(f"[pq] flat_pq_1m: trained in {train_s:.1f} s, adc_quality {pq.adc_quality:.3f}")
     for ef in (100, 200):
         out[ef] = run_route(f"flat_pq_1m ef {ef}",

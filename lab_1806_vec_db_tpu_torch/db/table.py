@@ -18,10 +18,9 @@ from __future__ import annotations
 import numpy as np
 
 from .dynamic_index import DynamicIndex
-from ..models.pq_table import PQTable
+from ..models.pq_table import PQTable, table_config
 from ..models.store import ScanMode
 from ..utils import serde
-from ..utils.config import PQConfig
 from ..utils.profiling import span
 
 
@@ -105,27 +104,13 @@ class MetadataVecTable:
 
     def build_pq_table(self, train_proportion=None, n_bits=None, m=None) -> None:
         """Train a PQ table on the table's rows, with the reference's
-        defaults and checks (metadata_vec_table.rs): train_proportion 0.1,
-        n_bits 4, m = ceil(dim / 3), 20 k-means iterations, tol 1e-6, float32
+        defaults and checks (`models/pq_table.py:table_config`), float32
         tables only.  It trains on the store's device rows in place."""
         if self.pq is not None:
             return
         if self.data_type == "uint8":
             raise RuntimeError("PQ table requires a float32 table")
-        if len(self) == 0:
-            raise RuntimeError("Cannot build PQ table for an empty table")
-        proportion = 0.1 if train_proportion is None else train_proportion
-        if not 0.0 < proportion < 1.0:
-            raise RuntimeError("Train proportion must be in (0, 1)")
-        n_bits = 4 if n_bits is None else n_bits
-        if n_bits not in (4, 8):
-            raise RuntimeError("n_bits must be 4 or 8")
-        m = -(-self.dim // 3) if m is None else m
-        if not 1 <= m <= self.dim:
-            raise RuntimeError("m must be in 1..=dim")
-        cfg = PQConfig(n_bits=n_bits, m=m, dist=self.dist,
-                       k_means_size=max(int(len(self) * proportion), 1),
-                       k_means_max_iter=20, k_means_tol=1e-6)
+        cfg = table_config(len(self), self.dim, self.dist, train_proportion, n_bits, m)
         vecs, _ = self.inner.inner.store.device()
         self.pq = PQTable.train(vecs, cfg, seed=self._seed or 0, n_valid=len(self))
 

@@ -234,16 +234,22 @@ class FlatIndex:
         """ADC scan + exact rerank (flat_index.rs:84-104): the PQ table's
         scan keeps max(ef, k) candidates (K7, or K8 / K9 on small sets and
         n_bits = 8), K2 reranks them exactly.  Returns ((B, k) f32, (B, k)
-        int32) numpy, -1 padded."""
-        d, i = self._knn_pq_device(queries, k, ef, pq)
-        return d.cpu().numpy(), i.cpu().numpy()
+        int32) numpy, -1 padded.  Spans: `flat.knn_pq_batch`, inside it
+        `flat.upload`, `pq.lookup`, `pq.adc` (`pq.k7` or `pq.dense`),
+        `flat.k2`, `flat.fetch`."""
+        with span("flat.knn_pq_batch"):
+            d, i = self._knn_pq_device(queries, k, ef, pq)
+            with span("flat.fetch"):
+                return d.cpu().numpy(), i.cpu().numpy()
 
     def _knn_pq_device(self, queries, k: int, ef: int, pq):
         pq.warn_if_unreliable("FlatIndex.knn_pq (ADC candidate ordering)")
         q = self._queries(queries)
-        lookup, q_norms = pq.create_lookup(q)
-        _, cand = pq.adc_scan(lookup, q_norms, max(ef, k))
-        return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
+        k_out = max(ef, k)
+        lookup, q_norms, lut = pq.scan_lookup(q, k_out)
+        _, cand = pq.adc_scan(lookup, q_norms, k_out, lut=lut)
+        with span("flat.k2"):
+            return G.rerank_topk(q, self.store.device_rerank(), cand, k, self.dist)
 
     def knn_pq(self, query, k: int, ef: int, pq) -> list[CandidatePair]:
         d, i = self.knn_pq_batch(query, k, ef, pq)

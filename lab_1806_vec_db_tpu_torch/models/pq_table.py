@@ -19,9 +19,14 @@ distance function (metadata_vec_table.rs:17); it is not an index itself.
   rows with `np.random.default_rng(0xC0DE5)`, the reference's permutation.
 - `adc_scan` takes the reference's accelerator plan on every device: K7
   (`ops/adc.py:adc_scan_chunkmin`) when k <= 16 and there are at least
-  4 * k_out chunks of 32 rows, else the dense sums (K8 / K9,
+  4 * k_out chunks of 32 rows (`takes_k7`), else the dense sums (K8 / K9,
   `adc_scan_pallas`).  The wrappers pick the kernel or its plain version by
-  the tensor's device.
+  the tensor's device.  `scan_lookup` builds its operands (span
+  `pq.lookup`: the lookup and, for K7, the int8 LUT); `adc_scan` is the span
+  `pq.adc`, with one route span inside, `pq.k7` or `pq.dense`, whose count
+  is the route's counter.
+- `table_config`: the table's defaults and checks (the DB layer's
+  `build_pq_table`, metadata_vec_table.rs), in one place.
 - Checkpoints: the JAX package's npz keys and meta, so a table saved by
   either package loads in the other.
 """
@@ -40,10 +45,32 @@ from ..ops import topk as T
 from ..utils import serde
 from ..utils.config import PQConfig
 from ..utils.device import resolve
+from ..utils.profiling import span
 
 # elements of the (m, rows, k) distance transient of one encode block
 _ENCODE_ELEMS = 1 << 26
 _SCAN_SEED = 0xC0DE5  # the scan view's permutation seed (the reference's)
+
+
+def table_config(n_rows: int, dim: int, dist: str, train_proportion=None, n_bits=None,
+                 m=None) -> PQConfig:
+    """The PQ table a table of `n_rows` x `dim` rows trains, with the
+    reference's defaults and checks (metadata_vec_table.rs): train_proportion
+    0.1, n_bits 4, m = ceil(dim / 3), 20 k-means iterations, tol 1e-6.
+    Raises RuntimeError as the reference does."""
+    if n_rows == 0:
+        raise RuntimeError("Cannot build PQ table for an empty table")
+    proportion = 0.1 if train_proportion is None else train_proportion
+    if not 0.0 < proportion < 1.0:
+        raise RuntimeError("Train proportion must be in (0, 1)")
+    n_bits = 4 if n_bits is None else n_bits
+    if n_bits not in (4, 8):
+        raise RuntimeError("n_bits must be 4 or 8")
+    m = -(-dim // 3) if m is None else m
+    if not 1 <= m <= dim:
+        raise RuntimeError("m must be in 1..=dim")
+    return PQConfig(n_bits=n_bits, m=m, dist=dist, k_means_size=max(int(n_rows * proportion), 1),
+                    k_means_max_iter=20, k_means_tol=1e-6)
 
 
 class PQTable:
@@ -246,19 +273,40 @@ class PQTable:
             return lookup, (q * q).sum(-1).sqrt()
         return lookup, torch.zeros(q.shape[0], device=q.device)
 
-    def adc_scan(self, lookup, q_norms, k_out: int):
+    def takes_k7(self, k_out: int) -> bool:
+        """Whether `adc_scan` at `k_out` takes K7: k <= 16 and at least
+        4 * k_out chunks of 32 rows."""
+        return self.k <= 16 and -(-len(self) // A.CHUNK) >= 4 * k_out
+
+    def scan_lookup(self, queries: torch.Tensor, k_out: int):
+        """`adc_scan`'s operands for (B, dim) queries at `k_out` -> (lookup,
+        q_norms, lut): `create_lookup`'s, and where `adc_scan` takes K7, its
+        int8 LUT operands (`ops/adc.py:chunkmin_inputs`), else None."""
+        with span("pq.lookup"):
+            lookup, q_norms = self.create_lookup(queries)
+            if not self.takes_k7(k_out):
+                return lookup, q_norms, None
+            codes_s, _ = self.device_scan()
+            _, _, cb_sq = self.device()
+            return lookup, q_norms, A.chunkmin_inputs(lookup, cb_sq, self.config.dist, self.packed,
+                                                      codes_s.shape[1])
+
+    def adc_scan(self, lookup, q_norms, k_out: int, lut=None):
         """Full ADC scan over the encoded set -> ((B, k_out) ADC dists,
         (B, k_out) int32 ids), the reference's accelerator plan
-        (pq_table.rs scan; pallas_adc.py): K7 when k <= 16 and the set has
-        at least 4 * k_out chunks of 32 rows, else the dense K8 / K9 sums."""
-        codes, _, cb_sq = self.device()
-        n = len(self)
-        if self.k <= 16 and -(-n // A.CHUNK) >= 4 * k_out:
-            codes_s, perm = self.device_scan()
-            return A.adc_scan_chunkmin(lookup, codes_s, perm, n, cb_sq, q_norms, k_out,
-                                       self.config.dist, packed=self.packed)
-        return A.adc_scan_pallas(lookup, codes, n, cb_sq, q_norms, k_out, self.config.dist,
-                                 packed=self.packed)
+        (pq_table.rs scan; pallas_adc.py): K7 where `takes_k7`, with `lut`
+        (`scan_lookup`'s) if given, else the dense K8 / K9 sums."""
+        with span("pq.adc"):
+            codes, _, cb_sq = self.device()
+            n = len(self)
+            if self.takes_k7(k_out):
+                with span("pq.k7"):
+                    codes_s, perm = self.device_scan()
+                    return A.adc_scan_chunkmin(lookup, codes_s, perm, n, cb_sq, q_norms, k_out,
+                                               self.config.dist, packed=self.packed, lut=lut)
+            with span("pq.dense"):
+                return A.adc_scan_pallas(lookup, codes, n, cb_sq, q_norms, k_out, self.config.dist,
+                                         packed=self.packed)
 
     def adc_for_ids(self, lookup, q_norms, ids: torch.Tensor) -> torch.Tensor:
         """f32 ADC distances of (B, C) candidate ids (+inf where -1)."""

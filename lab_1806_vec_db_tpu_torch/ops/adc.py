@@ -240,7 +240,7 @@ def chunkmin_inputs(lookup, cb_sqnorm, dist: str, packed: bool, cw: int, lut_dty
 
 def adc_scan_chunkmin(lookup, codes, perm, n_valid: int, cb_sqnorm, q_norms, k_out: int,
                       dist: str, packed: bool = False, lut_dtype: str = "int8",
-                      chunk: int = CHUNK, selector: str = "exact"):
+                      chunk: int = CHUNK, selector: str = "exact", lut=None):
     """Full ADC scan fused with a chunk-min partial top-k (K7) -> ((B, k_out)
     f32 ADC distances ascending, (B, k_out) int32 ORIGINAL ids), -1 padded.
 
@@ -253,7 +253,9 @@ def adc_scan_chunkmin(lookup, codes, perm, n_valid: int, cb_sqnorm, q_norms, k_o
     (pallas_adc.py:536-551).  `selector="approx"` is the reference's
     `approx_min_k(recall_target=0.95)` for wide survivor rows; on the CPU
     that call is exact, and here both selectors take the exact stable
-    top-k."""
+    top-k.  `lut`: the LUT operands `chunkmin_inputs` gives for these codes
+    (their cw padded to a multiple of 4), built beforehand; None builds
+    them here."""
     if selector not in ("exact", "approx"):
         raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
     B, m, k = lookup.shape
@@ -265,7 +267,9 @@ def adc_scan_chunkmin(lookup, codes, perm, n_valid: int, cb_sqnorm, q_norms, k_o
         codes = torch.nn.functional.pad(codes, (0, 4 - cw % 4))
         cw = codes.shape[1]
     S = -(-N // _NT) * _NT // chunk
-    lut_q, scales, cs_q, cs_scale = chunkmin_inputs(lookup, cb_sqnorm, dist, packed, cw, lut_dtype)
+    if lut is None:
+        lut = chunkmin_inputs(lookup, cb_sqnorm, dist, packed, cw, lut_dtype)
+    lut_q, scales, cs_q, cs_scale = lut
     dmin, pos = adc_chunkmin(codes, lut_q, scales, q_norms.float(), cs_q, cs_scale, n_valid,
                              packed, S, chunk)
     kk = min(k_out, S)
